@@ -32,13 +32,22 @@ ROOT = pathlib.Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12        # HBM3
 PEAK_FP32_FLOPS = 67e12           # fp32 outside the tensor cores
 
-#: Tolerances of the kernel-vs-plain checks: the membench sums add in the
-#: plain version's order (bit-equality expected); decode attention's split-S
-#: merge reorders the softmax sums, so it gets the reference's own kernel
-#: tolerances (tests/test_kernels.py).
-TOL = {"membench": dict(rtol=1e-6, atol=0.0),
-       "float32": dict(rtol=2e-5, atol=2e-5),
-       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+#: Tolerances of the kernel-vs-plain checks, |got - want| <= atol + rtol *
+#: |want| + of_max * max|want|.  The membench sums add in the plain
+#: version's order (bit-equality expected).  Decode attention's split-S
+#: merge reorders the softmax sums: at the test shapes it gets the
+#: reference's own kernel tolerances (tests/test_kernels.py), whose outputs
+#: are ~0.2.  At the card shape the outputs are ~sqrt(e / S) ~ 0.01, so the
+#: bound scales with the data: 1e-2 of the largest output, about 1.3 bf16
+#: ulps of it -- both sides sum in fp32 and round once to bf16.
+TOL = {"membench": dict(rtol=1e-6, atol=0.0, of_max=0.0),
+       "float32": dict(rtol=2e-5, atol=2e-5, of_max=0.0),
+       "bfloat16": dict(rtol=2e-2, atol=2e-2, of_max=0.0),
+       "bfloat16_card": dict(rtol=0.0, atol=0.0, of_max=1e-2)}
+
+#: Cache rows dropped from the plain version to show that the card-scale
+#: decode tolerance catches a kernel that skips a fraction of one tile.
+DROPPED_ROWS = 64
 
 
 class CheckFailed(RuntimeError):
@@ -98,38 +107,30 @@ def _case(name, label, run, plain, tol, traffic, **extra) -> dict:
                 traffic=traffic, **extra)
 
 
-def cases(device, *, card_scale: bool) -> list[dict]:
-    """Kernel calls with their plain versions, tolerance key and traffic:
-    at the reference test shapes (tests/test_kernels.py), or at the
-    card-scale shapes of ``default_cases(small=False)``."""
+def test_cases(device) -> list[dict]:
+    """Kernel calls with their plain versions, tolerance key and traffic,
+    at the reference test shapes (tests/test_kernels.py)."""
     import numpy as np
     import torch
 
     from repro_torch.kernels.decode_attention import ops as DA
     from repro_torch.kernels.membench import ops as MB
 
-    if card_scale:
-        n = 1 << 26
-        aligned = [(3, 2048, torch.float32)]
-        strided = [(4, 512)]
-        gathers = [(2, 32768)]
-        decodes = [(8, 32768, 28, 4, 128, 32768, torch.bfloat16, 512, 0.0)]
-    else:
-        n = 1 << 14
-        aligned = [(g, b, torch.float32) for g in (1, 2, 4) for b in (512, 2048)]
-        aligned += [(2, 512, torch.bfloat16)]
-        strided = [(d, 512) for d in (1, 2, 4)]
-        gathers = [(3, 16)]
-        decodes = [(B, S, Hq, Hkv, D, L, dt, 32, 0.0)
-                   for (B, S, Hq, Hkv, D, L) in [(2, 96, 8, 2, 32, 96),
-                                                 (2, 96, 8, 2, 32, 17),
-                                                 (1, 64, 4, 4, 64, 1),
-                                                 (3, 80, 16, 2, 16, 40)]
-                   for dt in (torch.float32, torch.bfloat16)]
-        # both split kernels at D = 128, 16 heads per KV head, a softcap
-        decodes += [(2, 200, 32, 2, 128, 150, torch.bfloat16, 64, 0.0),
-                    (1, 96, 12, 2, 64, 77, torch.bfloat16, 32, 20.0),
-                    (1, 64, 8, 1, 128, 50, torch.float32, 32, 20.0)]
+    n = 1 << 14
+    aligned = [(g, b, torch.float32) for g in (1, 2, 4) for b in (512, 2048)]
+    aligned += [(2, 512, torch.bfloat16)]
+    strided = [(d, 512) for d in (1, 2, 4)]
+    gathers = [(3, 16)]
+    decodes = [(B, S, Hq, Hkv, D, L, dt, 32, 0.0)
+               for (B, S, Hq, Hkv, D, L) in [(2, 96, 8, 2, 32, 96),
+                                             (2, 96, 8, 2, 32, 17),
+                                             (1, 64, 4, 4, 64, 1),
+                                             (3, 80, 16, 2, 16, 40)]
+               for dt in (torch.float32, torch.bfloat16)]
+    # both split kernels at D = 128, 16 heads per KV head, a softcap
+    decodes += [(2, 200, 32, 2, 128, 150, torch.bfloat16, 64, 0.0),
+                (1, 96, 12, 2, 64, 77, torch.bfloat16, 32, 20.0),
+                (1, 64, 8, 1, 128, 50, torch.float32, 32, 20.0)]
     out = []
     for g, block, dt in aligned:
         xs = tuple(randn((n,), i, device, dt) for i in range(g))
@@ -168,9 +169,41 @@ def cases(device, *, card_scale: bool) -> list[dict]:
             lambda a=args, cap=cap: DA.decode_attention_ref(*a, softcap=cap),
             str(dt)[6:],
             DA.gqa_decode_traffic(args[0].reshape(B, 1, Hq, D), args[1],
-                                  args[2], L),
-            args=args))
+                                  args[2], L)))
     return out
+
+
+def card_cases(device) -> list[dict]:
+    """The main path's own kernel calls: each case of
+    ``default_cases(small=False)``, which ``Session.validate`` times, built
+    on the card and paired with its plain version on the same arguments."""
+    from repro_torch.core.validate import default_cases
+
+    out = []
+    for vc in default_cases(small=False):
+        fn, args, traffic = vc.build(device)
+        shapes = "_".join("x".join(map(str, a.shape))
+                          for a in _tensors(args) if a.dim())
+        decode = vc.name == "decode_attention"
+        out.append(_case(
+            vc.name, shapes, lambda fn=fn, a=args: fn(*a),
+            lambda p=vc.plain, a=args: p(*a),
+            "bfloat16_card" if decode else "membench", traffic, args=args))
+    return out
+
+
+def _tensors(args):
+    for a in args:
+        if isinstance(a, (tuple, list)):
+            yield from _tensors(a)
+        else:
+            yield a
+
+
+def tolerance(want, tol_key: str) -> dict:
+    tol = TOL[tol_key]
+    scale = float(want.float().abs().max()) if want.numel() else 0.0
+    return dict(rtol=tol["rtol"], atol=tol["atol"] + tol["of_max"] * scale)
 
 
 def compare(got, want, tol_key: str) -> tuple[float, bool]:
@@ -179,7 +212,7 @@ def compare(got, want, tol_key: str) -> tuple[float, bool]:
     g, w = got.float(), want.float()
     err = float((g - w).abs().max()) if g.numel() else 0.0
     ok = (g.shape == w.shape and bool(torch.isfinite(g).all())
-          and torch.allclose(g, w, **TOL[tol_key]))
+          and torch.allclose(g, w, **tolerance(w, tol_key)))
     return err, ok
 
 
@@ -187,27 +220,40 @@ def compare(got, want, tol_key: str) -> tuple[float, bool]:
 # phases
 # ---------------------------------------------------------------------------
 
-def phase_parity(device) -> dict:
-    """Every kernel against its plain version, at test and card shapes;
-    returns the card-scale max error per kernel."""
+def phase_parity(device, card: list[dict]) -> dict:
+    """Every kernel against its plain version, at the test shapes and at the
+    main path's ``card`` cases; returns the card-scale max error per
+    kernel."""
     import torch
 
+    from repro_torch.kernels.decode_attention import ops as DA
+
     card_err = {}
-    for card_scale in (False, True):
+    for scale, cs in (("test", test_cases(device)), ("card", card)):
         rows = []
-        for c in cases(device, card_scale=card_scale):
+        for c in cs:
             got = c["run"]()
             torch.cuda.synchronize()
             want = c["plain"]()
             err, ok = compare(got, want, c["tol"])
-            rows.append({"kernel": c["name"], "case": c["label"],
-                         "max_abs_err": err,
-                         "bit_equal": bool(torch.equal(got, want)), "ok": ok})
+            row = {"kernel": c["name"], "case": c["label"],
+                   "max_abs_err": err, **tolerance(want.float(), c["tol"]),
+                   "bit_equal": bool(torch.equal(got, want)), "ok": ok}
             check(ok, f"parity {c['name']} {c['label']}: max_abs_err {err}")
-            if card_scale:
+            if c["tol"] == "bfloat16_card":
+                # The plain version without the last DROPPED_ROWS cache rows
+                # is what a kernel skipping them would return: it must fail.
+                q, kc, vc, kv_len = c["args"]
+                short = DA.gqa_decode_ref(q, kc, vc, kv_len - DROPPED_ROWS)
+                short_err, short_ok = compare(short, want, c["tol"])
+                row[f"err_without_last_{DROPPED_ROWS}_rows"] = short_err
+                check(not short_ok, "card-scale decode tolerance does not "
+                      f"catch {DROPPED_ROWS} dropped cache rows")
+            rows.append(row)
+            if scale == "card":
                 card_err[c["name"]] = max(card_err.get(c["name"], 0.0), err)
-        emit({"phase": "parity", "scale": "card" if card_scale else "test",
-              "tolerances": TOL, "rows": rows})
+        emit({"phase": "parity", "scale": scale, "tolerances": TOL,
+              "rows": rows})
     return card_err
 
 
@@ -326,22 +372,22 @@ def time_ms(fn, device, iters=20, warmup=3) -> float:
                          warmup=warmup) * 1e3
 
 
-def phase_kernels(device, launches: dict, card_err: dict) -> list[dict]:
-    """Each kernel at its card-scale shape: time beside its bound, its plain
-    version and (decode attention) ``scaled_dot_product_attention``."""
+def phase_kernels(device, card: list[dict], launches: dict,
+                  card_err: dict) -> list[dict]:
+    """Each kernel at the main path's shape: time beside its bound, its
+    plain version and (decode attention) ``scaled_dot_product_attention``."""
     import torch.nn.functional as F
 
     table = kernel_table()
     out = []
-    for c in cases(device, card_scale=True):
+    for c in card:
         _, source, replaces = table[c["name"]]
         t_bytes = c["traffic"]["total_bytes"] / PEAK_BYTES_PER_S
         t_ops = c["traffic"]["flops"] / PEAK_FP32_FLOPS
         library_ms = None
         if c["name"] == "decode_attention":
             q, kc, vc, _ = c["args"]
-            B, Hkv, G, D = q.shape
-            qt = q.reshape(B, Hkv * G, 1, D)
+            qt = q.transpose(1, 2)
             kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, enable_gqa=True), device)
@@ -386,7 +432,8 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": built, "ptxas": ptxas})
 
-    card_err = phase_parity(device)
+    card = card_cases(device)
+    card_err = phase_parity(device, card)
 
     # The main path: estimate -> sweep -> validate, with every launch
     # counter at zero just before it and read just after.
@@ -400,7 +447,7 @@ def main() -> int:
     for name, count in launches.items():
         check(count > 0, f"{name} was never launched on the main path")
 
-    kernels = phase_kernels(device, launches, card_err)
+    kernels = phase_kernels(device, card, launches, card_err)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

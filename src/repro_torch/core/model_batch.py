@@ -32,6 +32,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from repro_torch import compat
 from repro_torch.core.fpga import BspParams, DramParams
 from repro_torch.core.lsu import Lsu, LsuType
 
@@ -313,18 +314,20 @@ def _to_host(cols: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
                 else host[i]) for i, k in enumerate(names)}
 
 
-def estimate_batch(batch: GroupBatch, *, device="cpu",
+def estimate_batch(batch: GroupBatch, *, device=None,
                    paired_kernel: bool = False) -> BatchEstimate:
     """Eq. 3 classification + Eq. 1 execution time for every kernel at once.
 
-    ``device`` is where the columns are scored.  ``paired_kernel=True``
-    asserts ``batch.kernel`` is exactly ``concat([arange(n), arange(n)])``
-    (two groups per kernel, as the sweep scorer builds) and replaces every
-    segment reduction with the split add ``data[:n] + data[n:]``: bit-equal
-    to the reference's ``np.bincount`` (two terms per segment, and
-    ``0 + a == a`` exactly) and fixed in order on every device.
+    ``device`` is where the columns are scored: the CUDA card unless the
+    caller passes ``"cpu"`` (see :func:`compat.resolve_device`).
+    ``paired_kernel=True`` asserts ``batch.kernel`` is exactly
+    ``concat([arange(n), arange(n)])`` (two groups per kernel, as the sweep
+    scorer builds) and replaces every segment reduction with the split add
+    ``data[:n] + data[n:]``: bit-equal to the reference's ``np.bincount``
+    (two terms per segment, and ``0 + a == a`` exactly) and fixed in order
+    on every device.
     """
-    device = torch.device(device)
+    device = compat.resolve_device(device)
     n = batch.n_kernels
     t = _device_columns(batch, device)
     count = t["count"]

@@ -49,11 +49,13 @@ def _default_dram() -> DramParams:
 @dataclasses.dataclass(frozen=True)
 class ValidationCase:
     """One kernel to validate: ``build(device)`` returns ``(fn, args,
-    traffic)``, where ``traffic`` is the wrapper's classed byte count."""
+    traffic)``, where ``traffic`` is the wrapper's classed byte count;
+    ``plain(*args)``, where given, is the plain PyTorch version of ``fn``."""
 
     name: str
     build: Callable[[torch.device], tuple]
     calibration: bool = False    # stream anchor used to fit the bandwidth
+    plain: Callable | None = None
 
 
 def _normal(shape, seed: int, device, dtype=torch.float32) -> torch.Tensor:
@@ -76,6 +78,10 @@ def default_cases(*, small: bool = True) -> list[ValidationCase]:
 
     n = 1 << (15 if small else 26)
     n_gather = 16 if small else 32768
+    if small:
+        B, S, Hq, Hkv, D, dtype, block_s = 2, 128, 8, 2, 32, torch.float32, 64
+    else:
+        B, S, Hq, Hkv, D, dtype, block_s = 8, 32768, 28, 4, 128, torch.bfloat16, 512
 
     def aligned(device):
         xs = tuple(_normal((n,), i, device) for i in range(3))
@@ -95,10 +101,6 @@ def default_cases(*, small: bool = True) -> list[ValidationCase]:
                 MB.gather_sum_traffic(xs, idx, block=512))
 
     def decode(device):
-        if small:
-            B, S, Hq, Hkv, D, dtype, block_s = 2, 128, 8, 2, 32, torch.float32, 64
-        else:
-            B, S, Hq, Hkv, D, dtype, block_s = 8, 32768, 28, 4, 128, torch.bfloat16, 512
         q = _normal((B, 1, Hq, D), 11, device, dtype)
         kc = _normal((B, S, Hkv, D), 12, device, dtype)
         vc = _normal((B, S, Hkv, D), 13, device, dtype)
@@ -107,10 +109,15 @@ def default_cases(*, small: bool = True) -> list[ValidationCase]:
                 (q, kc, vc, kv_len), DA.gqa_decode_traffic(q, kc, vc, S))
 
     return [
-        ValidationCase("membench_aligned", aligned, calibration=True),
-        ValidationCase("membench_strided", strided),
-        ValidationCase("membench_gather", gather),
-        ValidationCase("decode_attention", decode),
+        ValidationCase("membench_aligned", aligned, calibration=True,
+                       plain=MB.aligned_sum_ref),
+        ValidationCase("membench_strided", strided,
+                       plain=lambda xs: MB.strided_sum_ref(xs, delta=4,
+                                                           block=512)),
+        ValidationCase("membench_gather", gather,
+                       plain=lambda xs, idx: MB.gather_sum_ref(xs, idx,
+                                                               block=512)),
+        ValidationCase("decode_attention", decode, plain=DA.gqa_decode_ref),
     ]
 
 

@@ -128,6 +128,15 @@ def gqa_decode(q, k_cache, v_cache, kv_len, *, softcap: float = 0.0,
     return out.reshape(B, 1, Hq, D)
 
 
+def gqa_decode_ref(q, k_cache, v_cache, kv_len, *, softcap: float = 0.0):
+    """Plain version of :func:`gqa_decode`, on any device."""
+    B, _, Hq, D = q.shape
+    Hkv = k_cache.shape[2]
+    out = decode_attention_ref(q.reshape(B, Hkv, Hq // Hkv, D), k_cache,
+                               v_cache, kv_len, softcap=softcap)
+    return out.reshape(B, 1, Hq, D)
+
+
 def gqa_decode_traffic(q, k_cache, v_cache, kv_len: int) -> dict:
     """Bytes and flops of one ``gqa_decode`` call: q read and the output
     written once, K and V read for the ``min(kv_len, S)`` live positions

@@ -13,6 +13,7 @@ import torch
 
 import repro_torch as rt
 from repro_torch import compat
+from repro_torch.core.model_batch import GroupBatch, estimate_batch
 from repro_torch.kernels.membench import ops as MB
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -55,6 +56,13 @@ def test_session_without_device_needs_cuda(monkeypatch):
         rt.Session(device="cuda")
     assert rt.Session(device="cpu").device == torch.device("cpu")
     assert rt.Session(device="cpu", backend="scalar").backend == "scalar"
+    batch = GroupBatch.from_kernels(
+        [[rt.Lsu(rt.LsuType.BC_ALIGNED, ls_width=64, ls_acc=16,
+                 ls_bytes=4)]],
+        rt.DDR4_1866)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        estimate_batch(batch)
+    assert estimate_batch(batch, device="cpu").t_exe.shape == (1,)
 
 
 def test_unknown_backend_and_device_rejected():

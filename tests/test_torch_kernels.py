@@ -102,21 +102,37 @@ class TestMembench:
                 MB.gather_sum.launches) == before
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,S,Hq,Hkv,D,kv_len", [
+DECODE_SHAPES = [
     (2, 96, 8, 2, 32, 96),
     (2, 96, 8, 2, 32, 17),
     (1, 64, 4, 4, 64, 1),
     (3, 80, 16, 2, 16, 40),
-])
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,kv_len", DECODE_SHAPES)
 def test_decode_attention(B, S, Hq, Hkv, D, kv_len, dtype):
+    _check_decode(B, S, Hq, Hkv, D, kv_len, dtype, softcap=0.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,kv_len", DECODE_SHAPES)
+def test_decode_attention_softcap(B, S, Hq, Hkv, D, kv_len, dtype):
+    """A cap of 1.5 sits inside the scores' range (|s| up to ~4 here), so
+    the tanh changes the weights."""
+    _check_decode(B, S, Hq, Hkv, D, kv_len, dtype, softcap=1.5)
+
+
+def _check_decode(B, S, Hq, Hkv, D, kv_len, dtype, *, softcap):
     arrs = [_arrays(1, (B, 1, Hq, D), seed=1)[0],
             _arrays(1, (B, S, Hkv, D), seed=2)[0],
             _arrays(1, (B, S, Hkv, D), seed=3)[0]]
     (jq, jk, jv), (tq, tk, tv) = _both(arrs, dtype)
-    want = ref_gqa_decode(jq, jk, jv, jnp.asarray(kv_len), block_s=32)
+    want = ref_gqa_decode(jq, jk, jv, jnp.asarray(kv_len), block_s=32,
+                          softcap=softcap)
     got = DA.gqa_decode(tq, tk, tv, torch.tensor(kv_len, dtype=torch.int32),
-                        block_s=32)
+                        block_s=32, softcap=softcap)
     assert got.shape == (B, 1, Hq, D) and got.dtype == tq.dtype
     tol = 2e-2 if dtype == "bfloat16" else 2e-5
     np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)

@@ -43,6 +43,15 @@ def test_four_cases_close_the_loop(report):
     assert rt.Session(device="cpu").with_calibration(report).dram == report.dram
 
 
+@pytest.mark.parametrize("i", range(4))
+def test_each_case_names_its_plain_version(i):
+    """``plain`` takes the case's own arguments (block, delta, ids): on the
+    CPU, where the wrapper runs its plain version, the two agree exactly."""
+    case = V.default_cases(small=True)[i]
+    fn, args, _ = case.build(torch.device("cpu"))
+    assert torch.equal(fn(*args), case.plain(*args))
+
+
 def test_failed_case_becomes_record_not_exception():
     def boom(device):
         raise RuntimeError("no kernel here")
