@@ -2,12 +2,14 @@
 """Smoke run of the PyTorch/CUDA port on one H100: ``python3 chip_smoke.py``.
 
 Run from the root of a checkout.  It builds the port's CUDA kernels from
-``src/repro_torch/csrc``, holds each kernel against its plain PyTorch
-version on the card, drives the port's main path — estimate and sweep with
-``Session(backend="torch")`` on the card and on the CPU, then
-``Session.validate`` over the card-scale kernels — and times each kernel
-beside its bound, its plain version and, where one exists, the one PyTorch
-call that computes the same function.
+``src/repro_torch/csrc``, holds each of the seven kernels against its plain
+PyTorch version on the card (at the reference's test shapes and at the
+main path's card shapes, where one deliberately broken plain version per
+kernel must fall outside the bound), drives the port's main path —
+estimate and sweep with ``Session(backend="torch")`` on the card and on
+the CPU, then ``Session.validate`` over the seven card-scale kernels — and
+times each kernel beside its bound, its plain version and, where one
+exists, the one PyTorch call that computes the same function.
 
 Prints one JSON object per phase (env, build, parity, estimator, validate,
 kernels); then the ``{"kernels": [...]}`` line, the card's
@@ -31,22 +33,41 @@ ROOT = pathlib.Path(__file__).resolve().parent
 #: Published H100 SXM peaks (NVIDIA data sheet) the bounds are taken against.
 PEAK_BYTES_PER_S = 3.35e12        # HBM3
 PEAK_FP32_FLOPS = 67e12           # fp32 outside the tensor cores
+PEAK_BF16_TENSOR_FLOPS = 989e12   # bf16 on the tensor cores, dense
 
 #: Tolerances of the kernel-vs-plain checks, |got - want| <= atol + rtol *
 #: |want| + of_max * max|want|.  The membench sums add in the plain
-#: version's order (bit-equality expected).  Decode attention's split-S
-#: merge reorders the softmax sums: at the test shapes it gets the
-#: reference's own kernel tolerances (tests/test_kernels.py), whose outputs
-#: are ~0.2.  At the card shape the outputs are ~sqrt(e / S) ~ 0.01, so the
-#: bound scales with the data: 1e-2 of the largest output, about 1.3 bf16
-#: ulps of it -- both sides sum in fp32 and round once to bf16.
+#: version's order (bit-equality expected).  At the test shapes every other
+#: kernel gets the reference's own kernel tolerances (tests/test_kernels.py;
+#: the RG-LRU scan has its own).  At the card shapes:
+#: * decode attention's outputs are ~sqrt(e / S) ~ 0.01, so the bound
+#:   scales with the data: 1e-2 of the largest output, about 1.3 bf16 ulps
+#:   of it -- both sides sum in fp32 and round once to bf16;
+#: * flash attention rounds P to bf16 for the tensor cores, a relative
+#:   error up to 2^-9 in each weight, which moves an output by up to about
+#:   2^-9 of the largest output (two bf16 ulps where it cancels): rtol 1e-2
+#:   plus 3e-3 (1.5 * 2^-9) of the largest output;
+#: * the RG-LRU scan is float32 on both sides, the carry into each chunk
+#:   combined in another order: 1e-5 relative plus 1e-5 of the largest;
+#: * the mLSTM is float32 arithmetic on both sides, rounded once to bf16:
+#:   rtol 1e-2 (above 2^-7, one ulp at the foot of a binade) plus 1e-3 of
+#:   the largest output for the near-zero ones.
 TOL = {"membench": dict(rtol=1e-6, atol=0.0, of_max=0.0),
        "float32": dict(rtol=2e-5, atol=2e-5, of_max=0.0),
        "bfloat16": dict(rtol=2e-2, atol=2e-2, of_max=0.0),
-       "bfloat16_card": dict(rtol=0.0, atol=0.0, of_max=1e-2)}
+       "rglru_float32": dict(rtol=1e-4, atol=1e-4, of_max=0.0),
+       "rglru_bfloat16": dict(rtol=3e-2, atol=3e-2, of_max=0.0),
+       "bfloat16_card": dict(rtol=0.0, atol=0.0, of_max=1e-2),
+       "flash_card": dict(rtol=1e-2, atol=0.0, of_max=3e-3),
+       "rglru_card": dict(rtol=1e-5, atol=0.0, of_max=1e-5),
+       "mlstm_card": dict(rtol=1e-2, atol=0.0, of_max=1e-3)}
+CARD_TOL = {"decode_attention": "bfloat16_card", "flash_attention": "flash_card",
+            "rglru_scan": "rglru_card", "mlstm_chunk": "mlstm_card"}
 
 #: Cache rows dropped from the plain version to show that the card-scale
-#: decode tolerance catches a kernel that skips a fraction of one tile.
+#: decode tolerance catches a kernel that skips a fraction of one tile; and
+#: the keys masked from the end of every row's causal range for flash
+#: attention.
 DROPPED_ROWS = 64
 
 
@@ -77,7 +98,10 @@ def nvidia_smi() -> str:
 def kernel_table():
     """name -> (wrapper, source, TPU kernel it replaces)."""
     from repro_torch.kernels.decode_attention import ops as DA
+    from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.membench import ops as MB
+    from repro_torch.kernels.mlstm_chunk import ops as ML
+    from repro_torch.kernels.rglru import ops as RG
 
     src = "src/repro_torch/csrc/"
     tpu = "src/repro/kernels/"
@@ -88,9 +112,16 @@ def kernel_table():
                              tpu + "membench/kernel.py:69 strided_sum"),
         "membench_gather": (MB.gather_sum, src + "membench.cu",
                             tpu + "membench/kernel.py:91 gather_sum"),
+        "flash_attention": (FA.flash_attention, src + "flash_attention.cu",
+                            tpu + "flash_attention/kernel.py:111 "
+                                  "flash_attention"),
         "decode_attention": (DA.decode_attention, src + "decode_attention.cu",
                              tpu + "decode_attention/kernel.py:107 "
                                    "decode_attention"),
+        "rglru_scan": (RG.scan, src + "rglru.cu",
+                       tpu + "rglru/kernel.py:63 rglru_scan"),
+        "mlstm_chunk": (ML.mlstm_chunk, src + "mlstm_chunk.cu",
+                        tpu + "mlstm_chunk/kernel.py:92 mlstm_chunk"),
     }
 
 
@@ -114,7 +145,10 @@ def test_cases(device) -> list[dict]:
     import torch
 
     from repro_torch.kernels.decode_attention import ops as DA
+    from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.membench import ops as MB
+    from repro_torch.kernels.mlstm_chunk import ops as ML
+    from repro_torch.kernels.rglru import ops as RG
 
     n = 1 << 14
     aligned = [(g, b, torch.float32) for g in (1, 2, 4) for b in (512, 2048)]
@@ -170,26 +204,141 @@ def test_cases(device) -> list[dict]:
             str(dt)[6:],
             DA.gqa_decode_traffic(args[0].reshape(B, 1, Hq, D), args[1],
                                   args[2], L)))
+    flashes = [(*shape, dt) for shape in [
+        (2, 64, 64, 4, 2, 32, True, None, 0.0),
+        (1, 128, 128, 8, 8, 64, True, None, 0.0),
+        (2, 96, 96, 4, 1, 32, True, 32, 0.0),
+        (2, 48, 48, 4, 4, 32, False, None, 0.0),
+        (1, 64, 64, 2, 2, 32, True, None, 20.0),
+        (1, 100, 100, 6, 2, 16, True, None, 0.0)]
+        for dt in (torch.float32, torch.bfloat16)]
+    # the tensor-core kernel at D = 128 (ragged S, 8 heads a group) and at
+    # D = 256 (MQA, window and softcap); the CUDA-core kernel at D = 128/256
+    flashes += [(2, 200, 200, 16, 2, 128, True, None, 0.0, torch.bfloat16),
+                (1, 300, 300, 8, 1, 256, True, 64, 30.0, torch.bfloat16),
+                (1, 70, 90, 4, 2, 128, False, None, 0.0, torch.float32),
+                (1, 40, 40, 2, 1, 256, True, 16, 0.0, torch.float32)]
+    for B, Sq, Skv, Hq, Hkv, D, causal, window, cap, dt in flashes:
+        q = randn((B, Sq, Hq, D), 4, device, dt)
+        k = randn((B, Skv, Hkv, D), 5, device, dt)
+        v = randn((B, Skv, Hkv, D), 6, device, dt)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        out.append(_case(
+            "flash_attention",
+            f"B{B}_Sq{Sq}_Skv{Skv}_Hq{Hq}_Hkv{Hkv}_D{D}_causal{int(causal)}"
+            f"_win{window}_cap{cap:g}_{str(dt)[6:]}",
+            lambda a=(q, k, v), kw=kw: FA.mha(*a, block_q=32, block_kv=16, **kw),
+            lambda a=(q, k, v), kw=kw: FA.attention_ref(*a, **kw),
+            str(dt)[6:], FA.flash_attention_traffic(q, k, v, causal=causal,
+                                                    window=window)))
+    # the kernel's own (B, H, S, D) layout, contiguous
+    q, k, v = (randn((2, h, 96, 64), 7 + i, device, torch.bfloat16)
+               for i, h in enumerate((4, 2, 2)))
+    out.append(_case(
+        "flash_attention", "BHSD_B2_S96_Hq4_Hkv2_D64_bfloat16",
+        lambda: FA.flash_attention(q, k, v),
+        lambda: FA.attention_ref(*(t.transpose(1, 2) for t in (q, k, v)))
+        .transpose(1, 2), "bfloat16",
+        FA.flash_attention_traffic(*(t.transpose(1, 2) for t in (q, k, v)))))
+    for B, S, W, bs, bw in [(2, 64, 96, 16, 32), (1, 128, 64, 64, 64),
+                            (3, 96, 128, 32, 128)]:
+        for dt in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device=device).manual_seed(8)
+            a = (0.6 + 0.399 * torch.rand((B, S, W), generator=gen,
+                                          device=device)).to(dt)
+            b = randn((B, S, W), 9, device, dt)
+            out.append(_case(
+                "rglru_scan", f"B{B}_S{S}_W{W}_bs{bs}_bw{bw}_{str(dt)[6:]}",
+                lambda a=a, b=b, bs=bs, bw=bw: RG.scan(a, b, block_s=bs,
+                                                       block_w=bw),
+                lambda a=a, b=b: RG.rglru_scan_ref(a, b),
+                f"rglru_{str(dt)[6:]}", RG.rglru_scan_traffic(a, b)))
+    for B, S, H, dh, chunk in [(2, 64, 3, 16, 16), (1, 96, 2, 32, 32),
+                               (2, 32, 4, 8, 32)]:
+        for dt in (torch.float32, torch.bfloat16):
+            args = (randn((B, S, H, dh), 10, device, dt),
+                    (randn((B, S, H, dh), 11, device) / dh ** 0.5).to(dt),
+                    randn((B, S, H, dh), 12, device, dt),
+                    torch.nn.functional.logsigmoid(randn((B, S, H), 13, device)),
+                    torch.nn.functional.logsigmoid(
+                        randn((B, S, H), 14, device) + 2.0))
+            out.append(_case(
+                "mlstm_chunk", f"B{B}_S{S}_H{H}_dh{dh}_chunk{chunk}_{str(dt)[6:]}",
+                lambda a=args, c=chunk: ML.chunked_mlstm(*a, chunk=c),
+                lambda a=args, c=chunk: ML.chunked_mlstm_ref(*a, chunk=c),
+                str(dt)[6:], ML.mlstm_chunk_traffic(*args, chunk=chunk)))
     return out
 
 
 def card_cases(device) -> list[dict]:
     """The main path's own kernel calls: each case of
     ``default_cases(small=False)``, which ``Session.validate`` times, built
-    on the card and paired with its plain version on the same arguments."""
+    on the card and paired with its plain version on the same arguments;
+    then one flash attention call that validate does not time, at
+    recurrentgemma-9b's local-attention width (16 query heads over one KV
+    head of 256, window 2048)."""
+    import torch
+
     from repro_torch.core.validate import default_cases
+    from repro_torch.kernels.flash_attention import ops as FA
 
     out = []
     for vc in default_cases(small=False):
         fn, args, traffic = vc.build(device)
-        shapes = "_".join("x".join(map(str, a.shape))
-                          for a in _tensors(args) if a.dim())
-        decode = vc.name == "decode_attention"
         out.append(_case(
-            vc.name, shapes, lambda fn=fn, a=args: fn(*a),
+            vc.name, _shapes(args), lambda fn=fn, a=args: fn(*a),
             lambda p=vc.plain, a=args: p(*a),
-            "bfloat16_card" if decode else "membench", traffic, args=args))
+            CARD_TOL.get(vc.name, "membench"), traffic, args=args,
+            ref=vc.plain, timed=True))
+    q, k, v = (randn((1, 4096, h, 256), 51 + i, device, torch.bfloat16)
+               for i, h in enumerate((16, 1, 1)))
+    out.append(_case(
+        "flash_attention", "recurrentgemma-9b_local_window2048_"
+        + _shapes((q, k, v)), lambda: FA.mha(q, k, v, window=2048),
+        lambda: FA.attention_ref(q, k, v, window=2048), "flash_card",
+        FA.flash_attention_traffic(q, k, v, window=2048), args=(q, k, v),
+        timed=False))
     return out
+
+
+def _shapes(args) -> str:
+    return "_".join("x".join(map(str, a.shape)) for a in _tensors(args)
+                    if a.dim())
+
+
+def perturbed(name: str, args, want, plain):
+    """The case's plain version with one fault a kernel could have, on the
+    case's arguments: (what was broken, its output), or None."""
+    import torch
+
+    if name == "decode_attention":
+        q, kc, vc, kv_len = args
+        return (f"last {DROPPED_ROWS} cache rows dropped",
+                plain(q, kc, vc, kv_len - DROPPED_ROWS))
+    if name == "flash_attention":
+        return (f"last {DROPPED_ROWS} keys of every causal range masked",
+                plain(*args, q_offset=-DROPPED_ROWS))
+    if name == "rglru_scan":
+        a, b = args
+        t0 = a.shape[1] // 2
+        return (f"carry into step {t0} zeroed",
+                torch.cat([want[:, :t0], plain(a[:, t0:], b[:, t0:])], dim=1))
+    if name == "mlstm_chunk":
+        # Chunk j adds nothing to the state (log input gate -1e30) and does
+        # not decay it (log forget gate 0): its update is skipped.  Rows up
+        # to the end of chunk j keep the true output.
+        q, k, v, li, lf = args
+        c = plain.keywords["chunk"]
+        j = max(0, q.shape[1] // c // 2 - 1)
+        rows = slice(j * c, (j + 1) * c)
+        li2, lf2 = li.clone(), lf.clone()
+        li2[:, rows] = -1e30
+        lf2[:, rows] = 0.0
+        skipped = plain(q, k, v, li2, lf2)
+        return (f"state update of chunk {j} skipped",
+                torch.cat([want[:, :(j + 1) * c], skipped[:, (j + 1) * c:]],
+                          dim=1))
+    return None
 
 
 def _tensors(args):
@@ -222,11 +371,10 @@ def compare(got, want, tol_key: str) -> tuple[float, bool]:
 
 def phase_parity(device, card: list[dict]) -> dict:
     """Every kernel against its plain version, at the test shapes and at the
-    main path's ``card`` cases; returns the card-scale max error per
-    kernel."""
+    main path's ``card`` cases; at the card shapes each kernel's plain
+    version with one fault must fall outside the bound.  Returns the
+    card-scale max error per kernel."""
     import torch
-
-    from repro_torch.kernels.decode_attention import ops as DA
 
     card_err = {}
     for scale, cs in (("test", test_cases(device)), ("card", card)):
@@ -240,15 +388,14 @@ def phase_parity(device, card: list[dict]) -> dict:
                    "max_abs_err": err, **tolerance(want.float(), c["tol"]),
                    "bit_equal": bool(torch.equal(got, want)), "ok": ok}
             check(ok, f"parity {c['name']} {c['label']}: max_abs_err {err}")
-            if c["tol"] == "bfloat16_card":
-                # The plain version without the last DROPPED_ROWS cache rows
-                # is what a kernel skipping them would return: it must fail.
-                q, kc, vc, kv_len = c["args"]
-                short = DA.gqa_decode_ref(q, kc, vc, kv_len - DROPPED_ROWS)
-                short_err, short_ok = compare(short, want, c["tol"])
-                row[f"err_without_last_{DROPPED_ROWS}_rows"] = short_err
-                check(not short_ok, "card-scale decode tolerance does not "
-                      f"catch {DROPPED_ROWS} dropped cache rows")
+            fault = (perturbed(c["name"], c["args"], want, c["ref"])
+                     if scale == "card" and c["timed"] else None)
+            if fault is not None:
+                what, bad = fault
+                bad_err, bad_ok = compare(bad, want, c["tol"])
+                row.update(perturbation=what, perturbed_err=bad_err)
+                check(not bad_ok, f"card-scale {c['name']} tolerance does not "
+                      f"catch: {what}")
             rows.append(row)
             if scale == "card":
                 card_err[c["name"]] = max(card_err.get(c["name"], 0.0), err)
@@ -348,7 +495,8 @@ def phase_validate(device) -> None:
     rep = rt.Session(device=device).validate(default_cases(small=False),
                                             iters=10, warmup=3)
     check(rep.failures == [], f"validate failures: {rep.failures}")
-    check(len(rep.results) == 4, "validate: four kernels expected")
+    check([r.name for r in rep.results] == [c.name for c in default_cases()],
+          "validate: the reference's seven kernels expected, in its order")
     rows = []
     for r in rep.results:
         check(np.isfinite(r.err_pct) and r.measured_s > 0
@@ -375,28 +523,35 @@ def time_ms(fn, device, iters=20, warmup=3) -> float:
 def phase_kernels(device, card: list[dict], launches: dict,
                   card_err: dict) -> list[dict]:
     """Each kernel at the main path's shape: time beside its bound, its
-    plain version and (decode attention) ``scaled_dot_product_attention``."""
+    plain version and, for the attention kernels,
+    ``scaled_dot_product_attention``.  The operations bound takes the peak
+    of the unit the inputs' dtype allows: the tensor cores for bfloat16,
+    the CUDA cores for float32."""
+    import torch
     import torch.nn.functional as F
 
     table = kernel_table()
     out = []
     for c in card:
+        if not c["timed"]:
+            continue
         _, source, replaces = table[c["name"]]
+        bf16 = next(_tensors(c["args"])).dtype == torch.bfloat16
         t_bytes = c["traffic"]["total_bytes"] / PEAK_BYTES_PER_S
-        t_ops = c["traffic"]["flops"] / PEAK_FP32_FLOPS
+        t_ops = c["traffic"]["flops"] / (PEAK_BF16_TENSOR_FLOPS if bf16
+                                         else PEAK_FP32_FLOPS)
         library_ms = None
-        if c["name"] == "decode_attention":
-            q, kc, vc, _ = c["args"]
-            qt = q.transpose(1, 2)
-            kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+        if c["name"] in ("decode_attention", "flash_attention"):
+            qt, kt, vt = (t.transpose(1, 2) for t in c["args"][:3])
+            causal = c["name"] == "flash_attention"
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, enable_gqa=True), device)
+                qt, kt, vt, is_causal=causal, enable_gqa=True), device)
         out.append({
             "name": c["name"], "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[c["name"]],
             "max_abs_err": card_err[c["name"]],
             "ms": time_ms(c["run"], device),
-            "plain_ms": time_ms(c["plain"], device),
+            "plain_ms": time_ms(c["plain"], device, iters=3, warmup=1),
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms,

@@ -13,7 +13,7 @@ measured kernels:
     >>> d = rt.Design.microbench(rt.LsuType.BC_ALIGNED, n_ga=4)
     >>> sess.estimate(d).t_exe
     >>> sess.sweep(rt.Space.grid(n_ga=[1, 2, 4], simd=[1, 16])).top_k(3)
-    >>> sess.validate()                             # membench + decode kernels
+    >>> sess.validate()                             # the seven-kernel table
 
 ``Session(device="cpu")`` runs the same pipeline on the CPU, with the
 kernels' plain PyTorch versions in place of the CUDA kernels.

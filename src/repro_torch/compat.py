@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-Xptxas", "-v")
 
 #: Every kernel source of the port.
-SOURCES = ("membench", "decode_attention")
+SOURCES = ("membench", "decode_attention", "flash_attention", "rglru",
+           "mlstm_chunk")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

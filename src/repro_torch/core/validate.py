@@ -21,6 +21,7 @@ exception: partial tables are still tables.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Callable, Sequence
 
@@ -64,24 +65,38 @@ def _normal(shape, seed: int, device, dtype=torch.float32) -> torch.Tensor:
 
 
 def default_cases(*, small: bool = True) -> list[ValidationCase]:
-    """The three membench access classes and GQA decode attention.
+    """The reference's seven-case table, in its order and with its names:
+    the three membench access classes, flash attention, GQA decode
+    attention, the RG-LRU scan and the chunked mLSTM.
 
     ``small=True`` keeps the reference's small shapes (CPU runs in
-    seconds).  ``small=False`` gives shapes sized for the H100: every
-    working set is well past its 50 MB L2, so the kernels stream from
-    device memory — n = 2**26 float32 membench arrays, and decode at
-    qwen2-7b width (28 query heads over 4 KV heads of 128) with B = 8 and a
-    32,768-position bfloat16 cache.
+    seconds).  ``small=False`` gives shapes sized for the H100, each at the
+    full width of a model the repo supports and each working set well past
+    its 50 MB L2: n = 2**26 float32 membench arrays; decode at qwen2-7b
+    width (28 query heads over 4 KV heads of 128) with B = 8 and a
+    32,768-position bfloat16 cache; qwen2-7b causal prefill of B = 2 x 4096
+    bfloat16 tokens; the recurrentgemma-9b RG-LRU (width 4096, float32 as
+    the model feeds it) over B = 4 x 4096 steps; and the xlstm-1.3b mLSTM
+    (4 heads of 1024, chunk 256) over B = 2 x 4096 bfloat16 tokens.
     """
     from repro_torch.kernels.decode_attention import ops as DA
+    from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.membench import ops as MB
+    from repro_torch.kernels.mlstm_chunk import ops as ML
+    from repro_torch.kernels.rglru import ops as RG
 
     n = 1 << (15 if small else 26)
     n_gather = 16 if small else 32768
     if small:
         B, S, Hq, Hkv, D, dtype, block_s = 2, 128, 8, 2, 32, torch.float32, 64
+        flash_shape = (1, 128, 4, 2, 32, torch.float32, 64)
+        rglru_shape = (2, 128, 256, 64, 128)
+        mlstm_shape = (1, 128, 2, 32, 64, torch.float32)
     else:
         B, S, Hq, Hkv, D, dtype, block_s = 8, 32768, 28, 4, 128, torch.bfloat16, 512
+        flash_shape = (2, 4096, 28, 4, 128, torch.bfloat16, 512)
+        rglru_shape = (4, 4096, 4096, 256, 512)
+        mlstm_shape = (2, 4096, 4, 1024, 256, torch.bfloat16)
 
     def aligned(device):
         xs = tuple(_normal((n,), i, device) for i in range(3))
@@ -100,6 +115,14 @@ def default_cases(*, small: bool = True) -> list[ValidationCase]:
         return (lambda xs, idx: MB.gather_sum(xs, idx, block=512), (xs, idx),
                 MB.gather_sum_traffic(xs, idx, block=512))
 
+    def flash(device):
+        fb, fs, fhq, fhkv, fd, fdt, blk = flash_shape
+        q = _normal((fb, fs, fhq, fd), 21, device, fdt)
+        k = _normal((fb, fs, fhkv, fd), 22, device, fdt)
+        v = _normal((fb, fs, fhkv, fd), 23, device, fdt)
+        return (lambda *a: FA.mha(*a, block_q=blk, block_kv=blk), (q, k, v),
+                FA.flash_attention_traffic(q, k, v))
+
     def decode(device):
         q = _normal((B, 1, Hq, D), 11, device, dtype)
         kc = _normal((B, S, Hkv, D), 12, device, dtype)
@@ -107,6 +130,24 @@ def default_cases(*, small: bool = True) -> list[ValidationCase]:
         kv_len = torch.tensor(S, dtype=torch.int32, device=device)
         return (lambda *a: DA.gqa_decode(*a, block_s=block_s),
                 (q, kc, vc, kv_len), DA.gqa_decode_traffic(q, kc, vc, S))
+
+    def rglru(device):
+        rb, rs, rw, bs, bw = rglru_shape
+        gen = torch.Generator(device=device).manual_seed(31)
+        a = 0.6 + 0.399 * torch.rand((rb, rs, rw), generator=gen, device=device)
+        b = _normal((rb, rs, rw), 32, device)
+        return (lambda a, b: RG.scan(a, b, block_s=bs, block_w=bw), (a, b),
+                RG.rglru_scan_traffic(a, b))
+
+    def mlstm(device):
+        mb, ms, mh, mdh, chunk, mdt = mlstm_shape
+        q = _normal((mb, ms, mh, mdh), 41, device, mdt)
+        k = (_normal((mb, ms, mh, mdh), 42, device) / mdh ** 0.5).to(mdt)
+        v = _normal((mb, ms, mh, mdh), 43, device, mdt)
+        li = torch.nn.functional.logsigmoid(_normal((mb, ms, mh), 44, device))
+        lf = torch.nn.functional.logsigmoid(_normal((mb, ms, mh), 45, device) + 2.0)
+        return (lambda *a: ML.chunked_mlstm(*a, chunk=chunk), (q, k, v, li, lf),
+                ML.mlstm_chunk_traffic(q, k, v, li, lf, chunk=chunk))
 
     return [
         ValidationCase("membench_aligned", aligned, calibration=True,
@@ -117,7 +158,12 @@ def default_cases(*, small: bool = True) -> list[ValidationCase]:
         ValidationCase("membench_gather", gather,
                        plain=lambda xs, idx: MB.gather_sum_ref(xs, idx,
                                                                block=512)),
+        ValidationCase("flash_attention", flash, plain=FA.attention_ref),
         ValidationCase("decode_attention", decode, plain=DA.gqa_decode_ref),
+        ValidationCase("rglru_scan", rglru, plain=RG.rglru_scan_ref),
+        ValidationCase("mlstm_chunk", mlstm,
+                       plain=functools.partial(ML.chunked_mlstm_ref,
+                                               chunk=mlstm_shape[4])),
     ]
 
 

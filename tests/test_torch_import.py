@@ -31,7 +31,10 @@ def _run(code_or_args, cwd=ROOT):
 
 def test_import_loads_neither_jax_nor_repro():
     out = _run("import sys, repro_torch, repro_torch.core.validate, "
-               "repro_torch.kernels.decode_attention.ops\n"
+               "repro_torch.kernels.decode_attention.ops, "
+               "repro_torch.kernels.flash_attention.ops, "
+               "repro_torch.kernels.rglru.ops, "
+               "repro_torch.kernels.mlstm_chunk.ops\n"
                "print(sorted(m for m in sys.modules if m.split('.')[0] "
                "in ('jax', 'jaxlib', 'repro')))")
     assert out.returncode == 0, out.stderr

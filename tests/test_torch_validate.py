@@ -1,5 +1,5 @@
-"""The port's measured-vs-predicted harness on the CPU: the four cases close
-the loop end to end (finite errors, the stream anchor's error ~0, CSV-able
+"""The port's measured-vs-predicted harness on the CPU: the reference's seven
+cases close the loop end to end (finite errors, the stream anchor's error ~0, CSV-able
 rows — the contract of tests/test_validate.py), a broken case becomes a
 failure record, and given the same classed bytes and measured times the
 prediction side equals the reference's ``lsus_from_classes`` ->
@@ -24,10 +24,13 @@ def report():
 
 
 def test_four_cases_close_the_loop(report):
+    """All seven cases, named and ordered as the reference's table."""
     assert report.failures == []
     assert [r.name for r in report.results] == [
         "membench_aligned", "membench_strided", "membench_gather",
-        "decode_attention"]
+        "flash_attention", "decode_attention", "rglru_scan", "mlstm_chunk"]
+    assert [r.name for r in report.results] == [
+        c.name for c in REF.default_cases(small=True)]
     for r in report.results:
         assert np.isfinite(r.err_pct) and r.measured_s > 0
         assert np.isfinite(r.predicted_s) and r.predicted_s > 0
@@ -37,13 +40,13 @@ def test_four_cases_close_the_loop(report):
     rows = report.rows()
     assert all(set(rows[0]) == set(r) for r in rows)
     assert report.to_csv().splitlines()[0].startswith("kernel")
-    assert report.summary()["kernels"] == 4
+    assert report.summary()["kernels"] == 7
     spec = rt.hw.Hardware.from_calibration(report, name="cpu-calibrated")
     assert rt.hw.Hardware.from_json(spec.to_json()) == spec
     assert rt.Session(device="cpu").with_calibration(report).dram == report.dram
 
 
-@pytest.mark.parametrize("i", range(4))
+@pytest.mark.parametrize("i", range(7))
 def test_each_case_names_its_plain_version(i):
     """``plain`` takes the case's own arguments (block, delta, ids): on the
     CPU, where the wrapper runs its plain version, the two agree exactly."""
@@ -69,7 +72,10 @@ def test_prediction_side_matches_reference():
          {"strided": 2 << 24, "stream": 1 << 24}),
         ("membench_gather", False, 7.6e-5,
          {"gather": 2 << 24, "stream": (1 << 24) + (1 << 17)}),
+        ("flash_attention", False, 9.0e-4, {"stream": 134217728}),
         ("decode_attention", False, 1.1e-3, {"stream": 536985604}),
+        ("rglru_scan", False, 4.8e-4, {"stream": 805306368}),
+        ("mlstm_chunk", False, 7.0e-3, {"stream": 268697600}),
     ]
     measured = [(V.ValidationCase(name, None, calibration=cal), t,
                  {"bytes_by_class": {k: float(v) for k, v in bbc.items()},
