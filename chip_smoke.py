@@ -21,6 +21,7 @@ Imports nothing of JAX and nothing of the reference package ``repro``.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import pathlib
@@ -36,17 +37,21 @@ PEAK_FP32_FLOPS = 67e12           # fp32 outside the tensor cores
 PEAK_BF16_TENSOR_FLOPS = 989e12   # bf16 on the tensor cores, dense
 
 #: Tolerances of the kernel-vs-plain checks, |got - want| <= atol + rtol *
-#: |want| + of_max * max|want|.  The membench sums add in the plain
+#: |want| + of_max * max|want| + of_spread * spread, where spread is a
+#: per-element scale that the case computes (``spread``).  The membench sums add in the plain
 #: version's order (bit-equality expected).  At the test shapes every other
 #: kernel gets the reference's own kernel tolerances (tests/test_kernels.py;
 #: the RG-LRU scan has its own).  At the card shapes:
 #: * decode attention's outputs are ~sqrt(e / S) ~ 0.01, so the bound
 #:   scales with the data: 1e-2 of the largest output, about 1.3 bf16 ulps
 #:   of it -- both sides sum in fp32 and round once to bf16;
-#: * flash attention rounds P to bf16 for the tensor cores, a relative
-#:   error up to 2^-9 in each weight, which moves an output by up to about
-#:   2^-9 of the largest output (two bf16 ulps where it cancels): rtol 1e-2
-#:   plus 3e-3 (1.5 * 2^-9) of the largest output;
+#: * flash attention rounds P to bf16 for the tensor cores (its denominator
+#:   sums the unrounded P), which moves an output by at most
+#:   2^-9 * sum_j p_j |v_j|, and both sides round once to bf16 (at most
+#:   2^-7 of |want| apart): rtol 2e-2 plus 2^-8 of sum_j p_j |v_j| -- the
+#:   plain version run on |v| -- per element, twice that rounding's reach.
+#:   On the long rows, where nearly all the work is, that is ~3e-3 against
+#:   outputs of ~3e-2; a row of one key may move by ~1e-2;
 #: * the RG-LRU scan is float32 on both sides, the carry into each chunk
 #:   combined in another order: 1e-5 relative plus 1e-5 of the largest;
 #: * the mLSTM is float32 arithmetic on both sides, rounded once to bf16:
@@ -58,7 +63,7 @@ TOL = {"membench": dict(rtol=1e-6, atol=0.0, of_max=0.0),
        "rglru_float32": dict(rtol=1e-4, atol=1e-4, of_max=0.0),
        "rglru_bfloat16": dict(rtol=3e-2, atol=3e-2, of_max=0.0),
        "bfloat16_card": dict(rtol=0.0, atol=0.0, of_max=1e-2),
-       "flash_card": dict(rtol=1e-2, atol=0.0, of_max=3e-3),
+       "flash_card": dict(rtol=2e-2, atol=0.0, of_max=0.0, of_spread=2 ** -8),
        "rglru_card": dict(rtol=1e-5, atol=0.0, of_max=1e-5),
        "mlstm_card": dict(rtol=1e-2, atol=0.0, of_max=1e-3)}
 CARD_TOL = {"decode_attention": "bfloat16_card", "flash_attention": "flash_card",
@@ -67,7 +72,9 @@ CARD_TOL = {"decode_attention": "bfloat16_card", "flash_attention": "flash_card"
 #: Cache rows dropped from the plain version to show that the card-scale
 #: decode tolerance catches a kernel that skips a fraction of one tile; and
 #: the keys masked from the end of every row's causal range for flash
-#: attention.
+#: attention, where only the rows of the second half of the sequence (each
+#: with at least S/2 live keys, so 64 keys are at most 1/32 of them) are
+#: compared: shorter rows change wholesale.
 DROPPED_ROWS = 64
 
 
@@ -292,12 +299,13 @@ def card_cases(device) -> list[dict]:
             ref=vc.plain, timed=True))
     q, k, v = (randn((1, 4096, h, 256), 51 + i, device, torch.bfloat16)
                for i, h in enumerate((16, 1, 1)))
+    local = functools.partial(FA.attention_ref, window=2048)
     out.append(_case(
         "flash_attention", "recurrentgemma-9b_local_window2048_"
         + _shapes((q, k, v)), lambda: FA.mha(q, k, v, window=2048),
-        lambda: FA.attention_ref(q, k, v, window=2048), "flash_card",
+        lambda: local(q, k, v), "flash_card",
         FA.flash_attention_traffic(q, k, v, window=2048), args=(q, k, v),
-        timed=False))
+        ref=local, timed=False))
     return out
 
 
@@ -316,8 +324,11 @@ def perturbed(name: str, args, want, plain):
         return (f"last {DROPPED_ROWS} cache rows dropped",
                 plain(q, kc, vc, kv_len - DROPPED_ROWS))
     if name == "flash_attention":
-        return (f"last {DROPPED_ROWS} keys of every causal range masked",
-                plain(*args, q_offset=-DROPPED_ROWS))
+        h = args[0].shape[1] // 2
+        bad = plain(*args, q_offset=-DROPPED_ROWS)
+        return (f"last {DROPPED_ROWS} keys of every causal range masked, "
+                f"rows >= {h} compared",
+                torch.cat([want[:, :h], bad[:, h:]], dim=1))
     if name == "rglru_scan":
         a, b = args
         t0 = a.shape[1] // 2
@@ -349,20 +360,43 @@ def _tensors(args):
             yield a
 
 
-def tolerance(want, tol_key: str) -> dict:
+def spread(c: dict):
+    """Per-element scale of a card case's ``of_spread`` tolerance: for flash
+    attention sum_j p_j |v_j|, its plain version run on |v|; else None."""
+    if not TOL[c["tol"]].get("of_spread"):
+        return None
+    check(c["name"] == "flash_attention", f"no spread for {c['name']}")
+    q, k, v = c["args"]
+    return c["ref"](q, k, v.abs()).float()
+
+
+def tolerance(want, tol_key: str, spread=None) -> dict:
+    """rtol and atol of |got - want| <= atol + rtol * |want|; atol is a
+    tensor where the tolerance takes a per-element ``spread``."""
     tol = TOL[tol_key]
     scale = float(want.float().abs().max()) if want.numel() else 0.0
-    return dict(rtol=tol["rtol"], atol=tol["atol"] + tol["of_max"] * scale)
+    atol = tol["atol"] + tol["of_max"] * scale
+    if tol.get("of_spread"):
+        atol = atol + tol["of_spread"] * spread
+    return dict(rtol=tol["rtol"], atol=atol)
 
 
-def compare(got, want, tol_key: str) -> tuple[float, bool]:
+def compare(got, want, tol_key: str, spread=None) -> tuple[float, float, bool]:
+    """(max |got - want|, the largest |got - want| / (atol + rtol |want|),
+    whether every element is within its bound)."""
     import torch
 
     g, w = got.float(), want.float()
-    err = float((g - w).abs().max()) if g.numel() else 0.0
-    ok = (g.shape == w.shape and bool(torch.isfinite(g).all())
-          and torch.allclose(g, w, **tolerance(w, tol_key)))
-    return err, ok
+    if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+        return math.inf, math.inf, False
+    if not g.numel():
+        return 0.0, 0.0, True
+    diff = (g - w).abs()
+    tol = tolerance(w, tol_key, spread)
+    bound = tol["atol"] + tol["rtol"] * w.abs()
+    of_bound = torch.where(diff > 0, diff / bound, torch.zeros_like(diff))
+    worst = float(of_bound.max())
+    return float(diff.max()), worst, worst <= 1.0
 
 
 # ---------------------------------------------------------------------------
@@ -383,17 +417,22 @@ def phase_parity(device, card: list[dict]) -> dict:
             got = c["run"]()
             torch.cuda.synchronize()
             want = c["plain"]()
-            err, ok = compare(got, want, c["tol"])
+            sp = spread(c)
+            err, of_bound, ok = compare(got, want, c["tol"], sp)
+            tol = tolerance(want, c["tol"], sp)
             row = {"kernel": c["name"], "case": c["label"],
-                   "max_abs_err": err, **tolerance(want.float(), c["tol"]),
+                   "max_abs_err": err, "err_of_bound": of_bound,
+                   "rtol": tol["rtol"], "atol_max": float(tol["atol"].max())
+                   if sp is not None else tol["atol"],
                    "bit_equal": bool(torch.equal(got, want)), "ok": ok}
             check(ok, f"parity {c['name']} {c['label']}: max_abs_err {err}")
             fault = (perturbed(c["name"], c["args"], want, c["ref"])
                      if scale == "card" and c["timed"] else None)
             if fault is not None:
                 what, bad = fault
-                bad_err, bad_ok = compare(bad, want, c["tol"])
-                row.update(perturbation=what, perturbed_err=bad_err)
+                bad_err, bad_of_bound, bad_ok = compare(bad, want, c["tol"], sp)
+                row.update(perturbation=what, perturbed_err=bad_err,
+                           perturbed_err_of_bound=bad_of_bound)
                 check(not bad_ok, f"card-scale {c['name']} tolerance does not "
                       f"catch: {what}")
             rows.append(row)

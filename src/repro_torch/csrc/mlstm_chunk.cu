@@ -10,9 +10,10 @@
 //
 // in fp32 whatever the input dtype, the output rounded once.
 //
-// What bounds it on this card: operations.  About 4 dh² + 4 c dh flops per
-// row against 8 dh bytes of q, k, v and h (bf16): ~ 1000 flops per byte at
-// the xlstm-1.3b width (dh = 1024, c = 256), far above the ridge.  This
+// What bounds it on this card: operations.  About 4 dh² + 2 (c + 1) dh flops
+// per row (the causal mask leaves (c + 1) / 2 keys a row on average) against
+// 8 dh bytes of q, k, v and h (bf16): ~ 600 flops per byte at the
+// xlstm-1.3b width (dh = 1024, c = 256), far above the ridge.  This
 // first version runs every product on the CUDA cores in fp32, as the
 // reference computes it, so its floor is the fp32 rate, not the tensor cores'.
 //

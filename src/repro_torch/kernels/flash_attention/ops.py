@@ -9,9 +9,9 @@ raises); on CPU tensors it runs the plain PyTorch version
 :func:`attention_ref`.
 
 ``block_q`` and ``block_kv`` are the reference's TPU tile sizes.  The port
-accepts them so that callers keep the reference's signature, but the card's
-tiles are fixed by the kernel (on the tensor cores 128 query rows, 64 at
-D = 256, and 32 keys), and the result does not depend on them.
+accepts them so that callers keep the reference's signature, and otherwise
+ignores them: the card's tiles are fixed by the kernel (on the tensor cores
+128 query rows, 64 at D = 256, and 32 keys).
 """
 from __future__ import annotations
 
@@ -26,15 +26,18 @@ from repro_torch import compat
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
 NEG_INF = -1e30
+#: Query rows the plain version takes at a time, so that it never holds an
+#: (Sq, Skv) score matrix of every head (2·28·4096² fp32 is 3.8 GB).
+ROW_BLOCK = 512
 
 
 def attention_ref(q, k, v, *, causal=True, window=None, softcap=0.0,
-                  scale=None, q_offset=0, block_rows=512):
+                  scale=None, q_offset=0):
     """q: (B, Sq, Hq, D), k, v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D), float32
     math; query row i sits at position ``q_offset + i``.
 
-    The reference oracle's masked softmax, taken ``block_rows`` query rows
-    at a time so that no (Sq, Skv) score matrix of every head is ever held.
+    The reference oracle's masked softmax, taken ``ROW_BLOCK`` query rows
+    at a time.
     A row whose keys are all masked gives 0, as the kernels give it."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -43,8 +46,8 @@ def attention_ref(q, k, v, *, causal=True, window=None, softcap=0.0,
     kf, vf = k.float(), v.float()
     kp = torch.arange(Skv, device=q.device)
     out = torch.empty((B, Sq, Hq, D), dtype=torch.float32, device=q.device)
-    for r0 in range(0, Sq, block_rows):
-        n = min(block_rows, Sq - r0)
+    for r0 in range(0, Sq, ROW_BLOCK):
+        n = min(ROW_BLOCK, Sq - r0)
         qq = q[:, r0:r0 + n].float().reshape(B, n, Hkv, G, D) * scale
         s = torch.einsum("bqhgd,bkhd->bqhgk", qq, kf)
         if softcap:

@@ -147,12 +147,13 @@ def mlstm_chunk_traffic(q, k, v, li, lf, *, chunk: int = 256) -> dict:
     """Bytes and flops of one ``chunked_mlstm`` call on (B, S, H, dh)
     inputs: q, k, v, li, lf read once and h written once, contiguous rows
     (``stream``); per row 4·dh² flops for the inter-chunk product and the
-    state update and 4·c·dh for the intra-chunk scores and their product
-    with v."""
+    state update, and per chunk 2·dh·c(c+1) for the intra-chunk scores and
+    their product with v over the c(c+1)/2 (query, key) pairs the causal
+    mask leaves live."""
     B, S, H, dh = q.shape
     c = chunk_size(S, chunk)
     nbytes = (4 * q.numel() * q.element_size()
               + li.numel() * li.element_size() + lf.numel() * lf.element_size())
-    return {"flops": float(B * H * S * (4 * dh * dh + 4 * c * dh)),
+    return {"flops": float(B * H * S * (4 * dh * dh + 2 * (c + 1) * dh)),
             "total_bytes": float(nbytes),
             "bytes_by_class": {"stream": float(nbytes)}}

@@ -75,7 +75,8 @@ def test_flash_attention(B, Sq, Skv, Hq, Hkv, D, causal, window, softcap,
 
 def test_flash_kernel_layout_and_row_blocks():
     """``flash_attention`` in (B, H, S, D) equals ``mha`` in (B, S, H, D),
-    and the plain version does not depend on its query-row blocking."""
+    and the plain version, taken ``ROW_BLOCK`` query rows at a time, equals
+    the masked softmax over all rows at once."""
     rng = np.random.default_rng(1)
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
                for s in ((2, 70, 6, 32), (2, 70, 3, 32), (2, 70, 3, 32)))
@@ -85,9 +86,18 @@ def test_flash_kernel_layout_and_row_blocks():
                              v.transpose(1, 2).contiguous(), window=20,
                              softcap=5.0)
     torch.testing.assert_close(got.transpose(1, 2), want, rtol=0, atol=1e-6)
+    S = FA.ROW_BLOCK + 88
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((1, S, 4, 16), (1, S, 2, 16), (1, S, 2, 16)))
+    s = torch.einsum("bqhgd,bkhd->bqhgk", q.reshape(1, S, 2, 2, 16) / 4.0, k)
+    s = torch.tanh(s / 5.0) * 5.0
+    pos = torch.arange(S)
+    live = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - 300)
+    s = s.masked_fill(~live[None, :, None, None, :], FA.NEG_INF)
+    whole = torch.einsum("bqhgk,bkhd->bqhgd", torch.softmax(s, -1), v)
     torch.testing.assert_close(
-        FA.attention_ref(q, k, v, window=20, softcap=5.0, block_rows=9),
-        want, rtol=0, atol=1e-6)
+        FA.attention_ref(q, k, v, window=300, softcap=5.0),
+        whole.reshape(1, S, 4, 16), rtol=0, atol=1e-6)
 
 
 def test_flash_rows_without_live_keys_are_zero():
@@ -214,7 +224,12 @@ def test_mlstm_traffic_is_the_launch_geometry():
     t = ML.mlstm_chunk_traffic(q, q, q, g, g, chunk=256)
     assert t["total_bytes"] == 4 * q.numel() * 2 + 2 * g.numel() * 4
     assert round(t["total_bytes"] / 1e6, 1) == 268.7
-    assert t["flops"] == 2 * 4 * 4096 * (4 * 1024 ** 2 + 4 * 256 * 1024)
+    # intra-chunk: 2·dh flops for each of the two products over the
+    # c(c+1)/2 live (query, key) pairs of every chunk
+    chunks = 4096 // 256
+    intra = 4 * 1024 * chunks * sum(i + 1 for i in range(256))
+    assert t["flops"] == 2 * 4 * (4096 * 4 * 1024 ** 2 + intra)
+    assert round(t["flops"] / 1e11, 2) == 1.55
     assert t["bytes_by_class"] == {"stream": t["total_bytes"]}
 
 
