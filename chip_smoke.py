@@ -11,7 +11,8 @@ the CPU, then ``Session.validate`` over the seven card-scale kernels — and
 times each kernel beside its bound, its plain version and, where one
 exists, the one PyTorch call that computes the same function.
 
-Prints one JSON object per phase (env, build, parity, estimator, validate,
+Prints one JSON object per phase (env, build with each kernel function's
+counts of Hopper instructions in its SASS, parity, estimator, validate,
 kernels); then the ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -25,6 +26,7 @@ import functools
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -96,6 +98,94 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+#: SASS instructions the build phase counts in every kernel function:
+#: Hopper's warpgroup products, TMA tile loads, 1-D bulk copies, and the
+#: warp-level products of the earlier tensor-core kernels.
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "HMMA")
+#: Kernel functions of the card shapes (mangled-name fragments) and the SASS
+#: instructions each must contain: flash attention at qwen2-7b prefill
+#: (D = 128, causal, no window, no cap) and decode attention at D = 128
+#: without a cap.
+SASS_REQUIRED = {
+    "flash_attention": ("flash_wgmmaILi128ELb1ELb0ELb0E", (("HGMMA",), ("UTMALDG",))),
+    "decode_attention": ("decode_bulkILi128ELb0E", (("UBLKCP", "UTMALDG"),)),
+}
+
+
+def cuobjdump() -> str:
+    import shutil
+
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    return str(pathlib.Path("/usr/local/cuda/bin/cuobjdump"))
+
+
+def short_name(mangled: str) -> str:
+    """A kernel's mangled name from its identifier on, through its template
+    arguments: ``flash_wgmmaILi128ELb1ELb0ELb0E`` for ``flash_wgmma<128,
+    true, false, false>``."""
+    m = re.search(r"(?:_cu_[0-9a-f]{8}|_GLOBAL__N_1)(\d+)(\w*)", mangled)
+    if not m:
+        return mangled
+    n, rest = int(m.group(1)), m.group(2)
+    name, rest = rest[:n], rest[n:]
+    if not rest.startswith("I"):
+        return name
+    depth, i = 0, 0
+    while i < len(rest):
+        ch = rest[i]
+        if ch.isdigit():                 # a length-prefixed identifier
+            j = i
+            while rest[j].isdigit():
+                j += 1
+            i = j + int(rest[i:j])
+            continue
+        if ch == "L":                    # a literal, L<type><value>E
+            i = rest.index("E", i) + 1
+            continue
+        if ch in "IN":
+            depth += 1
+        elif ch == "E":
+            depth -= 1
+            if depth == 0:
+                return name + rest[:i + 1]
+        i += 1
+    return name + rest
+
+
+def sass_counts(lib) -> dict:
+    """Kernel (``short_name``) -> {instruction: count} for ``SASS_OPS``,
+    from ``cuobjdump -sass`` of a built library."""
+    out = subprocess.run([cuobjdump(), "-sass", str(lib)], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        text = line.strip()
+        if text.startswith("Function :"):
+            fn = short_name(text.split(":", 1)[1].strip())
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn is not None and text.startswith("/*") and "*/" in text:
+            words = text.split("*/", 1)[1].split()
+            if words and words[0].startswith("@"):   # predicate
+                words = words[1:]
+            op = words[0].split(".")[0] if words else ""
+            if op in counts[fn]:
+                counts[fn][op] += 1
+    return counts
+
+
+def check_sass(sass: dict) -> None:
+    """Fail unless each card-shape kernel holds its required instructions
+    (any one of each alternative group)."""
+    for lib, (fragment, groups) in SASS_REQUIRED.items():
+        fns = [c for name, c in sass[lib].items() if fragment in name]
+        check(len(fns) == 1, f"{lib}: kernel {fragment} not found in the SASS")
+        for group in groups:
+            check(any(fns[0][op] > 0 for op in group),
+                  f"{lib}: {fragment} contains none of {group}")
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +262,10 @@ def test_cases(device) -> list[dict]:
     decodes += [(2, 200, 32, 2, 128, 150, torch.bfloat16, 64, 0.0),
                 (1, 96, 12, 2, 64, 77, torch.bfloat16, 32, 20.0),
                 (1, 64, 8, 1, 128, 50, torch.float32, 32, 20.0)]
+    # the bulk kernel over half the kv heads per CTA (8 of 128: one copy
+    # per row) and over two chunks of 16 query heads (G = 24)
+    decodes += [(1, 100, 16, 8, 128, 77, torch.bfloat16, 32, 0.0),
+                (1, 64, 24, 1, 64, 50, torch.bfloat16, 32, 0.0)]
     out = []
     for g, block, dt in aligned:
         xs = tuple(randn((n,), i, device, dt) for i in range(g))
@@ -225,6 +319,10 @@ def test_cases(device) -> list[dict]:
                 (1, 300, 300, 8, 1, 256, True, 64, 30.0, torch.bfloat16),
                 (1, 70, 90, 4, 2, 128, False, None, 0.0, torch.float32),
                 (1, 40, 40, 2, 1, 256, True, 16, 0.0, torch.float32)]
+    # the wgmma kernel without the causal mask: Skv > Sq, and a window
+    # with a softcap
+    flashes += [(1, 70, 90, 4, 2, 128, False, None, 0.0, torch.bfloat16),
+                (1, 96, 96, 4, 2, 64, False, 32, 5.0, torch.bfloat16)]
     for B, Sq, Skv, Hq, Hkv, D, causal, window, cap, dt in flashes:
         q = randn((B, Sq, Hq, D), 4, device, dt)
         k = randn((B, Skv, Hkv, D), 5, device, dt)
@@ -283,10 +381,16 @@ def card_cases(device) -> list[dict]:
     on the card and paired with its plain version on the same arguments;
     then one flash attention call that validate does not time, at
     recurrentgemma-9b's local-attention width (16 query heads over one KV
-    head of 256, window 2048)."""
+    head of 256, window 2048); then the edges of the Hopper kernels'
+    tiling at the qwen2-7b width, each with its fault check: flash
+    attention over S = 4000 (ragged against the 128-key tile), plain and
+    with Gemma 2's softcap of 50 and a window of 1024, and decode attention
+    at kv_len = 32,000 (not a whole number of 16-row stages), plain and
+    with the softcap."""
     import torch
 
     from repro_torch.core.validate import default_cases
+    from repro_torch.kernels.decode_attention import ops as DA
     from repro_torch.kernels.flash_attention import ops as FA
 
     out = []
@@ -306,6 +410,30 @@ def card_cases(device) -> list[dict]:
         lambda: local(q, k, v), "flash_card",
         FA.flash_attention_traffic(q, k, v, window=2048), args=(q, k, v),
         ref=local, timed=False))
+    # (the closures above read q, k, v late: the cases below bind their own)
+    for window, cap in ((None, 0.0), (1024, 50.0)):
+        qkv = tuple(randn((1, 4000, h, 128), 61 + i, device, torch.bfloat16)
+                    for i, h in enumerate((28, 4, 4)))
+        ref = functools.partial(FA.attention_ref, window=window, softcap=cap)
+        out.append(_case(
+            "flash_attention", f"qwen2-7b_ragged_win{window}_cap{cap:g}_"
+            + _shapes(qkv),
+            lambda a=qkv, w=window, c=cap: FA.mha(*a, window=w, softcap=c),
+            lambda a=qkv, r=ref: r(*a), "flash_card",
+            FA.flash_attention_traffic(*qkv, window=window), args=qkv,
+            ref=ref, timed=False, fault=True))
+    for cap in (0.0, 50.0):
+        args = (randn((8, 1, 28, 128), 71, device, torch.bfloat16),
+                randn((8, 32768, 4, 128), 72, device, torch.bfloat16),
+                randn((8, 32768, 4, 128), 73, device, torch.bfloat16),
+                torch.tensor(32000, dtype=torch.int32, device=device))
+        ref = functools.partial(DA.gqa_decode_ref, softcap=cap)
+        out.append(_case(
+            "decode_attention", f"qwen2-7b_len32000_cap{cap:g}_" + _shapes(args),
+            lambda a=args, c=cap: DA.gqa_decode(*a, softcap=c),
+            lambda a=args, r=ref: r(*a), "bfloat16_card",
+            DA.gqa_decode_traffic(*args[:3], 32000), args=args, ref=ref,
+            timed=False, fault=True))
     return out
 
 
@@ -427,7 +555,8 @@ def phase_parity(device, card: list[dict]) -> dict:
                    "bit_equal": bool(torch.equal(got, want)), "ok": ok}
             check(ok, f"parity {c['name']} {c['label']}: max_abs_err {err}")
             fault = (perturbed(c["name"], c["args"], want, c["ref"])
-                     if scale == "card" and c["timed"] else None)
+                     if scale == "card" and c.get("fault", c["timed"])
+                     else None)
             if fault is not None:
                 what, bad = fault
                 bad_err, bad_of_bound, bad_ok = compare(bad, want, c["tol"], sp)
@@ -623,8 +752,11 @@ def main() -> int:
     ptxas = {name: [ln.strip() for ln in (compat.BUILD_DIR / f"{name}.log")
                     .read_text().splitlines() if "registers" in ln or "spill" in ln]
              for name in built}
+    sass = {name: sass_counts(compat.library_path(name))
+            for name in compat.SOURCES}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "compiled": built, "ptxas": ptxas})
+          "compiled": built, "ptxas": ptxas, "sass": sass})
+    check_sass(sass)
 
     card = card_cases(device)
     card_err = phase_parity(device, card)

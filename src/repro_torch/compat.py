@@ -8,8 +8,8 @@ The kernels are CUDA C++ sources under ``repro_torch/csrc/``, one shared
 library each with a plain C interface, compiled by ``nvcc`` for ``sm_90a``
 and loaded through :mod:`ctypes`.  They are built at first use into
 ``build/repro_torch/`` at the root of the checkout; a library's file name
-carries the hash of its source and flags, so an unchanged source is never
-rebuilt.  Nothing here runs at import time, and nothing is built for CPU
+carries the hash of its source, the shared headers and the flags, so an
+unchanged source is never rebuilt.  Nothing here runs at import time, and nothing is built for CPU
 tensors.
 """
 from __future__ import annotations
@@ -70,8 +70,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    """Where the library of ``csrc/<name>.cu`` lives for its current hash."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+    """Where the library of ``csrc/<name>.cu`` lives for its current hash,
+    which covers the source, every shared header ``csrc/*.cuh`` and the
+    flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = hashlib.sha256(h.digest()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

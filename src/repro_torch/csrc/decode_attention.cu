@@ -10,21 +10,26 @@
 // once with no reuse, about 2G flops per cache element, far below the ridge.
 // The TPU grid walks S in order for every (b, kv head); on Hopper that would
 // give B * Hkv CTAs, 32 for the qwen2-7b decode shape, and leave 100 of 132
-// SMs idle.  So S is split across CTAs instead (flash-decoding): grid
-// (B * Hkv * head chunks, n_split), with n_split chosen by the wrapper for
-// several CTAs per SM, and decode_merge combines the splits' partial
-// (m, l, acc), divides by max(l, 1e-30) and casts to the output dtype.
-// Nothing is staged in shared memory: cache rows go straight from 16-byte
-// loads into registers, and rows past kv_len (read on the device, no host
-// sync) are never read.  Two split kernels, chosen by dtype and head size:
+// SMs idle.  So S is split across CTAs instead (flash-decoding): split s of
+// n_split covers the 16-row stages [s * n_stages / n_split, (s + 1) * n_stages
+// / n_split) of the cache, n_split chosen by the wrapper (`_plan` in ops.py)
+// so that the grid fills whole waves of the SMs; decode_merge combines the
+// splits' partial (m, l, acc), divides by max(l, 1e-30) and casts to the
+// output dtype.  Rows past kv_len (read on the device, no host sync) are
+// never read.  Two split kernels, chosen by dtype and head size (the wrapper
+// names the path, `kernel_path` in ops.py):
 //
-// * decode_split_mma (bfloat16, D a multiple of 64, the model path): Q·Kᵀ and
-//   P·V run on the tensor cores (mma.sync m16n8k16, fp32 accumulate), 16
-//   cache rows per warp step.  The dot product and the output channels may
-//   be taken in any order, so each lane's operand fragments are chosen to be
-//   the 16-byte runs it loads: K fragments need no shuffling at all, V
-//   fragments one byte-permute per pair of values.  Per 8 KB of cache a warp
-//   issues ~200 instructions, so the loads, not the arithmetic, set the pace.
+// * decode_bulk (bfloat16, D in {64, 128}, the model path): one CTA per
+//   (batch row, split, group of HC kv heads; all Hkv where the stages fit).
+//   For one b a run of positions of all heads is one contiguous run of bytes,
+//   so one producer thread streams K and V with 1-D bulk copies (no tensor
+//   map; one copy per stage, or one per row when HC < Hkv) into a ring of
+//   16-row stages with full and empty mbarriers: with 4 stages of 32 KB at
+//   qwen2-7b, 128 KB per SM stays in flight whatever the consumers do, and
+//   every cache row is fetched once, whole.  One consumer warp per kv head
+//   runs Q·Kᵀ and P·V on the tensor cores (mma.sync m16n8k16, fp32
+//   accumulate; 16 query heads as M) from shared memory, and writes its
+//   split's partial for its head.  The softcap is a template flag.
 // * decode_split (float32, or D < 64): CUDA cores.  A lane owns one 16-byte
 //   slice of a cache row and keeps q and the accumulator for up to 8 heads in
 //   registers; the lanes of a row reduce their dot products with shuffles.
@@ -37,16 +42,27 @@
 
 #include <type_traits>
 
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int kWarps = 4;                // warps per CTA
+constexpr int kWarps = 4;                // warps per CTA, decode_split
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxG = 8;                 // heads per CTA, CUDA-core kernel
-constexpr int kMmaG = 16;                // heads per CTA, tensor-core kernel (M = 16)
+constexpr int kMmaG = 16;                // query heads per warp, tensor cores (M = 16)
 constexpr int kUnroll = 4;               // row groups a warp loads per step
+constexpr int kStageRows = 16;           // cache rows per stage (ops.STAGE_ROWS)
+constexpr int kBulkStages = 4;           // ring depth of decode_bulk (ops.BULK_STAGES)
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
+
+// Cache rows [lo, hi) of split `split` of n_split over n_stages stages.
+__device__ __forceinline__ void split_rows(int split, int n_split, int n_stages, int& lo,
+                                           int& hi) {
+  lo = (int)((long long)split * n_stages / n_split) * kStageRows;
+  hi = (int)((long long)(split + 1) * n_stages / n_split) * kStageRows;
+}
 
 __device__ __forceinline__ void unpack(const uint4& v, float* f, float) {
   f[0] = __uint_as_float(v.x);
@@ -125,15 +141,15 @@ __device__ __forceinline__ void write_partial(const float (&sm_acc)[kWarps][HG][
 }
 
 // q: (B, Hkv, G, D); k, v: (B, S, Hkv, D).  blockIdx.x = (b * Hkv + h) * n_gc
-// + head chunk, blockIdx.y = split; the CTA covers cache rows [split * chunk,
-// min((split + 1) * chunk, kv_len)) for heads [gc * kMaxG, gc * kMaxG + Gc).
+// + head chunk, blockIdx.y = split; the CTA covers the cache rows of its
+// split (split_rows) below kv_len for heads [gc * kMaxG, gc * kMaxG + Gc).
 // Partials are indexed by ((b * Hkv + h) * n_split + split) * G + head.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 2)
     decode_split(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const int32_t* __restrict__ kv_len, float* __restrict__ m_part,
                  float* __restrict__ l_part, float* __restrict__ acc_part, int S, int Hkv,
-                 int G, int n_gc, int chunk, float scale, float softcap) {
+                 int G, int n_gc, int n_stages, float scale, float softcap) {
   constexpr int VEC = 16 / sizeof(T);    // channels per 16-byte load
   constexpr int LPR = D / VEC;           // lanes per cache row
   constexpr int RPW = 32 / LPR;          // rows one warp load covers
@@ -149,8 +165,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int b = bh / Hkv;
   const int h = bh % Hkv;
   const int len = max(0, min(kv_len[0], S));
-  const int start = split * chunk;
-  const int end = min(start + chunk, len);
+  int start, end;
+  split_rows(split, gridDim.y, n_stages, start, end);
+  end = min(end, len);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int sub = lane / LPR;            // which row of a warp load
@@ -284,48 +301,96 @@ __global__ void __launch_bounds__(kThreads, 2)
                           acc_part);
 }
 
-// Tensor-core split kernel: bfloat16, D % 64 == 0, up to 16 heads per CTA.
-// mma.sync m16n8k16 fragments (PTX ISA): lane = 4 * gid + tig; A (16 x 16):
-// a0 (row gid, k 2tig..+1), a1 (row gid+8), a2 (row gid, k 2tig+8..+9), a3;
-// B (16 x 8): b0 (k 2tig..+1, col gid), b1 (k 2tig+8..+9, col gid);
-// C (16 x 8): c0, c1 (row gid, col 2tig, 2tig+1), c2, c3 (row gid+8).
-// S = Q Kᵀ takes heads as rows, a warp step's 16 cache rows as two 8-column
-// tiles and channels as k, mapped so that lane (gid, tig) loads K row
-// gid of each tile at channels [32i + 8tig, +8): the loaded words are b0 and
-// b1 as they stand.  O += P V takes those 16 rows as k, so lane (gid, tig)
-// loads V rows 2tig, 2tig+1, 8+2tig, 9+2tig at channels [64j + 8gid, +8),
-// and output channel 64j + 8n + c of n-tile 8j + c is column n.
-template <int D>
-__global__ void __launch_bounds__(kThreads, 2)
-    decode_split_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ kv_len,
-                     float* __restrict__ m_part, float* __restrict__ l_part,
-                     float* __restrict__ acc_part, int S, int Hkv, int G, int n_gc, int chunk,
-                     float scale, float softcap) {
-  constexpr int KL = D / 32;             // 16-byte K loads per lane per tile
-  constexpr int VL = D / 64;             // 16-byte V loads per lane per row
+// tanh(x) = 1 - 2 / (e^(2x) + 1), absolute error ~1e-7.
+__device__ __forceinline__ float fast_tanh(float x) {
+  return 1.f - __fdividef(2.f, exp2f(2.f * kLog2e * x) + 1.f);
+}
+
+// Bulk-copy kernel: bfloat16, D in {64, 128}.  grid (n_split, B, n_hc * n_gc),
+// HC + 1 warps: warps 0..HC-1 consume kv heads h0 + warp, warp HC produces.
+// Stage s of the ring holds K then V of kStageRows cache rows, each row the
+// HC heads' D channels (HC * D * 2 bytes).  mma.sync m16n8k16 fragments (PTX
+// ISA): lane = 4 * gid + tig; A (16 x 16): a0 (row gid, k 2tig..+1), a1 (row
+// gid+8), a2 (row gid, k 2tig+8..+9), a3; B (16 x 8): b0 (k 2tig..+1, col
+// gid), b1 (k 2tig+8..+9, col gid); C (16 x 8): c0, c1 (row gid, col 2tig,
+// 2tig+1), c2, c3 (row gid+8).  S = Q Kᵀ takes heads as rows, a stage's 16
+// rows as two 8-column tiles and channels as k, mapped so that lane (gid,
+// tig) reads K row gid of each tile at channels [32i + 8tig, +8): the words
+// it reads are b0 and b1 as they stand.  O += P V takes those 16 rows as k,
+// so lane (gid, tig) reads V rows 2tig, 2tig+1, 8+2tig, 9+2tig at channels
+// [64j + 8gid, +8), and output channel 64j + 8n + c of n-tile 8j + c is
+// column n.
+template <int D, bool CAP>
+__global__ void __launch_bounds__(32 * 9, 1)
+    decode_bulk(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ kv_len,
+                float* __restrict__ m_part, float* __restrict__ l_part,
+                float* __restrict__ acc_part, int S, int Hkv, int G, int HC, int n_gc,
+                int n_stages, float scale, float softcap) {
+  constexpr int KL = D / 32;             // 16-byte K reads per lane per tile
+  constexpr int VL = D / 64;             // 16-byte V reads per lane per row
   constexpr int KS = D / 16;             // k steps of Q Kᵀ
   constexpr int NT = D / 8;              // n tiles of P V
-  __shared__ float sm_acc[kWarps][kMmaG][D];
-  __shared__ float sm_m[kWarps][kMmaG];
-  __shared__ float sm_l[kWarps][kMmaG];
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int row_bytes = HC * D * 2;
+  const int stage_bytes = kStageRows * row_bytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBulkStages * 2 * stage_bytes);
+  uint64_t* empty = full + kBulkStages;
 
-  const int bh = blockIdx.x / n_gc;
-  const int g0 = (blockIdx.x % n_gc) * kMmaG;
-  const int Gc = min(kMmaG, G - g0);
-  const int split = blockIdx.y;
-  const int b = bh / Hkv;
-  const int h = bh % Hkv;
+  const int split = blockIdx.x, n_split = gridDim.x, b = blockIdx.y;
+  const int h0 = (blockIdx.z / n_gc) * HC;
+  const int g0 = (blockIdx.z % n_gc) * kMmaG;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int len = max(0, min(kv_len[0], S));
-  const int start = split * chunk;
-  const int end = min(start + chunk, len);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int gid = lane / 4;
-  const int tig = lane % 4;
+  int start, end;
+  split_rows(split, n_split, n_stages, start, end);
+  end = min(end, len);
+  const int n = end > start ? (end - start + kStageRows - 1) / kStageRows : 0;
 
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBulkStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], HC);
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == HC) {
+    // ---- producer: one thread streams the split's rows, stage by stage.
+    if (lane == 0) {
+      for (int i = 0; i < n; ++i) {
+        const int s = i % kBulkStages;
+        sm90::mbar_wait(&empty[s], ((i / kBulkStages) & 1) ^ 1);
+        const int row0 = start + i * kStageRows;
+        const int rows = min(kStageRows, end - row0);
+        uint8_t* kd = smem + s * 2 * stage_bytes;
+        uint8_t* vd = kd + stage_bytes;
+        sm90::mbar_arrive_expect_tx(&full[s], 2 * rows * row_bytes);
+        const size_t off = ((size_t)(b * S + row0) * Hkv + h0) * D;
+        if (HC == Hkv) {
+          sm90::bulk_load(kd, k + off, rows * row_bytes, &full[s]);
+          sm90::bulk_load(vd, v + off, rows * row_bytes, &full[s]);
+        } else {
+          for (int r = 0; r < rows; ++r) {
+            sm90::bulk_load(kd + r * row_bytes, k + off + (size_t)r * Hkv * D, row_bytes,
+                            &full[s]);
+            sm90::bulk_load(vd + r * row_bytes, v + off + (size_t)r * Hkv * D, row_bytes,
+                            &full[s]);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warp: kv head h, query heads [g0, g0 + Gc).
+  const int h = h0 + warp;
+  const int Gc = min(kMmaG, G - g0);
+  const int gid = lane / 4, tig = lane % 4;
+  const size_t bh = (size_t)b * Hkv + h;
   // Q as A fragments (heads gid and gid + 8; absent heads are zero rows).
-  const uint32_t* q32 = reinterpret_cast<const uint32_t*>(q + ((size_t)bh * G + g0) * D);
+  const uint32_t* q32 = reinterpret_cast<const uint32_t*>(q + (bh * G + g0) * D);
   uint32_t qa[KS][4];
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks) {
@@ -339,57 +404,49 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-
-  const size_t row_stride = (size_t)Hkv * D;
-  const __nv_bfloat16* kb = k + ((size_t)b * S * Hkv + h) * D;
-  const __nv_bfloat16* vb = v + ((size_t)b * S * Hkv + h) * D;
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 
-  for (int base = start + warp * 16; base < end; base += kWarps * 16) {
-    uint4 kr[2][KL], vr[4][VL];
+  for (int i = 0; i < n; ++i) {
+    const int s = i % kBulkStages;
+    const int live = min(kStageRows, end - start - i * kStageRows);  // >= 1
+    const uint8_t* kt = smem + s * 2 * stage_bytes + warp * D * 2;
+    const uint8_t* vt = kt + stage_bytes;
+    sm90::mbar_wait(&full[s], (i / kBulkStages) & 1);
+    // Rows past `live` were not copied this round: read as zeros.  K now,
+    // V after the softmax, so that the two are never live together.
+    uint4 kr[2][KL];
 #pragma unroll
     for (int t = 0; t < 2; ++t) {
-      const int row = base + 8 * t + gid;
+      const int row = 8 * t + gid;
 #pragma unroll
-      for (int i = 0; i < KL; ++i)
-        kr[t][i] = row < end ? __ldcs(reinterpret_cast<const uint4*>(
-                                   kb + row * row_stride + 32 * i + 8 * tig))
-                             : zero;
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = base + 8 * (r / 2) + 2 * tig + r % 2;
-#pragma unroll
-      for (int j = 0; j < VL; ++j)
-        vr[r][j] = row < end ? __ldcs(reinterpret_cast<const uint4*>(
-                                   vb + row * row_stride + 64 * j + 8 * gid))
-                             : zero;
+      for (int c = 0; c < KL; ++c)
+        kr[t][c] = row < live ? *reinterpret_cast<const uint4*>(
+                                    kt + row * row_bytes + (32 * c + 8 * tig) * 2)
+                              : zero;
     }
     // S = Q Kᵀ for the two 8-row tiles.
-    float s[2][4];
+    float sc[2][4];
 #pragma unroll
     for (int t = 0; t < 2; ++t) {
-      s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
+      sc[t][0] = sc[t][1] = sc[t][2] = sc[t][3] = 0.f;
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        mma_bf16(s[t], qa[ks], word(kr[t][ks / 2], 2 * (ks % 2)),
+      for (int ks = 0; ks < KS; ++ks)
+        mma_bf16(sc[t], qa[ks], word(kr[t][ks / 2], 2 * (ks % 2)),
                  word(kr[t][ks / 2], 2 * (ks % 2) + 1));
-      }
     }
     // Scale, cap and mask; online softmax for head rows gid (hr 0), gid+8.
 #pragma unroll
-    for (int t = 0; t < 2; ++t) {
+    for (int t = 0; t < 2; ++t)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[t][e] * scale;
-        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-        s[t][e] = base + 8 * t + 2 * tig + e % 2 < end ? x * kLog2e : kNegInf;
+        float x = sc[t][e] * scale;
+        if (CAP) x = fast_tanh(x / softcap) * softcap;
+        sc[t][e] = 8 * t + 2 * tig + e % 2 < live ? x * kLog2e : kNegInf;
       }
-    }
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      float mt = fmaxf(fmaxf(s[0][2 * hr], s[0][2 * hr + 1]),
-                       fmaxf(s[1][2 * hr], s[1][2 * hr + 1]));
+      float mt = fmaxf(fmaxf(sc[0][2 * hr], sc[0][2 * hr + 1]),
+                       fmaxf(sc[1][2 * hr], sc[1][2 * hr + 1]));
       mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, 1));
       mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, 2));
       const float mn = fmaxf(m[hr], mt);
@@ -402,17 +459,28 @@ __global__ void __launch_bounds__(kThreads, 2)
         acc[nt][2 * hr + 1] *= alpha;
       }
 #pragma unroll
-      for (int t = 0; t < 2; ++t) {
+      for (int t = 0; t < 2; ++t)
 #pragma unroll
         for (int e = 2 * hr; e < 2 * hr + 2; ++e) {
-          s[t][e] = exp2f(s[t][e] - mn);
-          l[hr] += s[t][e];
+          sc[t][e] = exp2f(sc[t][e] - mn);
+          l[hr] += sc[t][e];
         }
-      }
     }
+    uint4 vr[4][VL];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = 8 * (r / 2) + 2 * tig + r % 2;
+#pragma unroll
+      for (int j = 0; j < VL; ++j)
+        vr[r][j] = row < live ? *reinterpret_cast<const uint4*>(
+                                    vt + row * row_bytes + (64 * j + 8 * gid) * 2)
+                              : zero;
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&empty[s]);  // the stage is in registers
     // O += P V, P from the S accumulators as bf16 A fragments.
-    const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
-                            pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+    const uint32_t pa[4] = {pack_bf16(sc[0][0], sc[0][1]), pack_bf16(sc[0][2], sc[0][3]),
+                            pack_bf16(sc[1][0], sc[1][1]), pack_bf16(sc[1][2], sc[1][3])};
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const int j = nt / 8;
@@ -424,120 +492,177 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
   }
 
-  // Each lane summed l over its own columns; the 4 lanes of a row share m.
+  // This warp's partial for its head: each lane summed l over its own
+  // columns; the 4 lanes of a row share m.
+  const size_t part = (bh * n_split + split) * G + g0;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     l[hr] += __shfl_xor_sync(kFull, l[hr], 1);
     l[hr] += __shfl_xor_sync(kFull, l[hr], 2);
-  }
+    const int g = gid + 8 * hr;
+    if (g >= Gc) continue;
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      sm_acc[warp][gid + 8 * (e / 2)][64 * (nt / 8) + 8 * (2 * tig + e % 2) + nt % 8] =
-          acc[nt][e];
-  }
-  if (tig == 0) {
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      sm_m[warp][gid + 8 * hr] = m[hr];
-      sm_l[warp][gid + 8 * hr] = l[hr];
+      for (int e = 2 * hr; e < 2 * hr + 2; ++e)
+        acc_part[(part + g) * D + 64 * (nt / 8) + 8 * (2 * tig + e % 2) + nt % 8] = acc[nt][e];
+    if (tig == 0) {
+      m_part[part + g] = m[hr];
+      l_part[part + g] = l[hr];
     }
   }
-  __syncthreads();
-  write_partial<kMmaG, D>(sm_acc, sm_m, sm_l, Gc,
-                          ((size_t)bh * gridDim.y + split) * G + g0, m_part, l_part,
-                          acc_part);
+}
+
+// One CTA per (b * Hkv + h, query head g), one thread per 4 channels: the
+// splits' partials of one head are merged with coalesced 16-byte reads.
+template <typename T>
+__global__ void __launch_bounds__(32)
+    decode_merge(const float* __restrict__ m_part, const float* __restrict__ l_part,
+                 const float* __restrict__ acc_part, T* __restrict__ out, int n_part, int G,
+                 int D) {
+  const int g = blockIdx.y, d = 4 * threadIdx.x;
+  const size_t base = (size_t)blockIdx.x * n_part * G + g;  // partial s at base + s * G
+  float mx = kNegInf;
+  for (int s = 0; s < n_part; ++s) mx = fmaxf(mx, m_part[base + s * G]);
+  float l = 0.f;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+  for (int s = 0; s < n_part; ++s) {
+    const float w = exp2f(m_part[base + s * G] - mx);
+    const float4 x = *reinterpret_cast<const float4*>(acc_part + (base + s * G) * D + d);
+    l += w * l_part[base + s * G];
+    a.x += w * x.x;
+    a.y += w * x.y;
+    a.z += w * x.z;
+    a.w += w * x.w;
+  }
+  const float inv = 1.f / fmaxf(l, 1e-30f);
+  T* o = out + ((size_t)blockIdx.x * G + g) * D + d;
+  o[0] = from_float<T>(a.x * inv);
+  o[1] = from_float<T>(a.y * inv);
+  o[2] = from_float<T>(a.z * inv);
+  o[3] = from_float<T>(a.w * inv);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    decode_merge(const float* __restrict__ m_part, const float* __restrict__ l_part,
-                 const float* __restrict__ acc_part, T* __restrict__ out, int n_split, int G,
-                 int D) {
-  const size_t base = (size_t)blockIdx.x * n_split;
-  for (int e = threadIdx.x; e < G * D; e += kThreads) {
-    const int g = e / D;
-    float mx = kNegInf;
-    for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, m_part[(base + s) * G + g]);
-    float l = 0.f, a = 0.f;
-    for (int s = 0; s < n_split; ++s) {
-      const float w = exp2f(m_part[(base + s) * G + g] - mx);
-      l += w * l_part[(base + s) * G + g];
-      a += w * acc_part[(base + s) * G * D + e];
-    }
-    out[(size_t)blockIdx.x * G * D + e] = from_float<T>(a / fmaxf(l, 1e-30f));
-  }
-}
-
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_len,
-                   void* out, float* m_part, float* l_part, float* acc_part, int B, int S,
-                   int Hkv, int G, int n_split, int chunk, float scale, float softcap,
-                   cudaStream_t s) {
-  const auto* kv = static_cast<const int32_t*>(kv_len);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value && D % 64 == 0) {
-    const int n_gc = (G + kMmaG - 1) / kMmaG;
-    decode_split_mma<D><<<dim3(B * Hkv * n_gc, n_split), kThreads, 0, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), kv,
-        m_part, l_part, acc_part, S, Hkv, G, n_gc, chunk, scale, softcap);
-  } else {
-    const int n_gc = (G + kMaxG - 1) / kMaxG;
-    decode_split<T, D><<<dim3(B * Hkv * n_gc, n_split), kThreads, 0, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), kv,
-        m_part, l_part, acc_part, S, Hkv, G, n_gc, chunk, scale, softcap);
-  }
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  decode_merge<T><<<B * Hkv, kThreads, 0, s>>>(m_part, l_part, acc_part, static_cast<T*>(out),
-                                                n_split, G, D);
+cudaError_t launch_merge(const float* m_part, const float* l_part, const float* acc_part,
+                         void* out, int B, int Hkv, int G, int D, int n_split, cudaStream_t s) {
+  decode_merge<T><<<dim3(B * Hkv, G), D / 4, 0, s>>>(
+      m_part, l_part, acc_part, static_cast<T*>(out), n_split, G, D);
   return cudaGetLastError();
 }
 
+template <typename T, int D>
+cudaError_t launch_split(const void* q, const void* k, const void* v, const int32_t* kv_len,
+                         void* out, float* m_part, float* l_part, float* acc_part, int B,
+                         int S, int Hkv, int G, int n_split, int n_stages, float scale,
+                         float softcap, cudaStream_t s) {
+  const int n_gc = (G + kMaxG - 1) / kMaxG;
+  decode_split<T, D><<<dim3(B * Hkv * n_gc, n_split), kThreads, 0, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), kv_len,
+      m_part, l_part, acc_part, S, Hkv, G, n_gc, n_stages, scale, softcap);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_merge<T>(m_part, l_part, acc_part, out, B, Hkv, G, D, n_split, s);
+}
+
+template <int D, bool CAP>
+cudaError_t launch_bulk(const void* q, const void* k, const void* v, const int32_t* kv_len,
+                        void* out, float* m_part, float* l_part, float* acc_part, int B, int S,
+                        int Hkv, int G, int HC, int n_split, int n_stages, float scale,
+                        float softcap, cudaStream_t s) {
+  if (HC < 1 || HC > 8 || Hkv % HC) return cudaErrorInvalidValue;
+  const int n_gc = (G + kMmaG - 1) / kMmaG;
+  const size_t smem =
+      (size_t)kBulkStages * 2 * kStageRows * HC * D * 2 + 2 * kBulkStages * sizeof(uint64_t);
+  const auto kernel = decode_bulk<D, CAP>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(n_split, B, Hkv / HC * n_gc), 32 * (HC + 1), smem, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), kv_len, m_part, l_part, acc_part, S, Hkv, G, HC,
+      n_gc, n_stages, scale, softcap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_merge<__nv_bfloat16>(m_part, l_part, acc_part, out, B, Hkv, G, D, n_split,
+                                     s);
+}
+
 template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, const void* kv_len,
-                       void* out, float* m, float* l, float* acc, int B, int S, int Hkv,
-                       int G, int n_split, int chunk, float scale, float softcap,
-                       cudaStream_t s) {
+cudaError_t dispatch_split(int D, const void* q, const void* k, const void* v,
+                           const int32_t* kv_len, void* out, float* m, float* l, float* acc,
+                           int B, int S, int Hkv, int G, int n_split, int n_stages,
+                           float scale, float softcap, cudaStream_t s) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, kv_len, out, m, l, acc, B, S, Hkv, G, n_split, chunk,
-                           scale, softcap, s);
+      return launch_split<T, 16>(q, k, v, kv_len, out, m, l, acc, B, S, Hkv, G, n_split,
+                                 n_stages, scale, softcap, s);
     case 32:
-      return launch<T, 32>(q, k, v, kv_len, out, m, l, acc, B, S, Hkv, G, n_split, chunk,
-                           scale, softcap, s);
+      return launch_split<T, 32>(q, k, v, kv_len, out, m, l, acc, B, S, Hkv, G, n_split,
+                                 n_stages, scale, softcap, s);
     case 64:
-      return launch<T, 64>(q, k, v, kv_len, out, m, l, acc, B, S, Hkv, G, n_split, chunk,
-                           scale, softcap, s);
+      return launch_split<T, 64>(q, k, v, kv_len, out, m, l, acc, B, S, Hkv, G, n_split,
+                                 n_stages, scale, softcap, s);
     case 128:
-      return launch<T, 128>(q, k, v, kv_len, out, m, l, acc, B, S, Hkv, G, n_split, chunk,
-                            scale, softcap, s);
+      return launch_split<T, 128>(q, k, v, kv_len, out, m, l, acc, B, S, Hkv, G, n_split,
+                                  n_stages, scale, softcap, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+template <int D>
+cudaError_t dispatch_bulk(const void* q, const void* k, const void* v, const int32_t* kv_len,
+                          void* out, float* m, float* l, float* acc, int B, int S, int Hkv,
+                          int G, int HC, int n_split, int n_stages, float scale, float softcap,
+                          cudaStream_t s) {
+  if (softcap > 0.f)
+    return launch_bulk<D, true>(q, k, v, kv_len, out, m, l, acc, B, S, Hkv, G, HC, n_split,
+                                n_stages, scale, softcap, s);
+  return launch_bulk<D, false>(q, k, v, kv_len, out, m, l, acc, B, S, Hkv, G, HC, n_split,
+                               n_stages, scale, softcap, s);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D in {16, 32, 64, 128}.  Scratch m_part
-// and l_part hold B*Hkv*n_split*G floats, acc_part B*Hkv*n_split*G*D; split s
-// covers cache rows [s*chunk, (s+1)*chunk).  Launches decode_split then
+// path: 0 = decode_split (float32 or bfloat16, D in {16, 32, 64, 128}), 1 =
+// decode_bulk (bfloat16, D in {64, 128}; HC kv heads per CTA, a divisor of
+// Hkv, at most 8, and 16-byte aligned caches); dtype: 0 = float32, 1 =
+// bfloat16.  Scratch m_part and l_part hold B*Hkv*n_split*G floats,
+// acc_part B*Hkv*n_split*G*D; split s covers the 16-row stages [s * n_stages /
+// n_split, (s + 1) * n_stages / n_split).  Launches the split kernel then
 // decode_merge on `stream`; returns the first cudaError_t met.
-extern "C" int decode_attention(int dtype, int D, const void* q, const void* k, const void* v,
-                                const void* kv_len, void* out, void* m_part, void* l_part,
-                                void* acc_part, int B, int S, int Hkv, int G, int n_split,
-                                int chunk, float scale, float softcap, void* stream) {
-  if (B < 1 || Hkv < 1 || G < 1 || chunk < 1 || n_split < 1 || n_split > 65535)
+extern "C" int decode_attention(int path, int dtype, int D, const void* q, const void* k,
+                                const void* v, const void* kv_len, void* out, void* m_part,
+                                void* l_part, void* acc_part, int B, int S, int Hkv, int G,
+                                int HC, int n_split, int n_stages, float scale, float softcap,
+                                void* stream) {
+  if (B < 1 || B > 65535 || Hkv < 1 || G < 1 || n_stages < 1 || n_split < 1 ||
+      n_split > 65535 || n_split > n_stages)
     return cudaErrorInvalidValue;
   auto* m = static_cast<float*>(m_part);
   auto* l = static_cast<float*>(l_part);
   auto* acc = static_cast<float*>(acc_part);
+  const auto* kv = static_cast<const int32_t*>(kv_len);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, kv_len, out, m, l, acc, B, S, Hkv, G, n_split, chunk,
-                             scale, softcap, s);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, kv_len, out, m, l, acc, B, S, Hkv, G,
-                                     n_split, chunk, scale, softcap, s);
+  if (path == 1 && dtype == 1) {
+    switch (D) {
+      case 64:
+        return dispatch_bulk<64>(q, k, v, kv, out, m, l, acc, B, S, Hkv, G, HC, n_split,
+                                 n_stages, scale, softcap, s);
+      case 128:
+        return dispatch_bulk<128>(q, k, v, kv, out, m, l, acc, B, S, Hkv, G, HC, n_split,
+                                  n_stages, scale, softcap, s);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  }
+  if (path == 0 && dtype == 0)
+    return dispatch_split<float>(D, q, k, v, kv, out, m, l, acc, B, S, Hkv, G, n_split,
+                                 n_stages, scale, softcap, s);
+  if (path == 0 && dtype == 1)
+    return dispatch_split<__nv_bfloat16>(D, q, k, v, kv, out, m, l, acc, B, S, Hkv, G,
+                                         n_split, n_stages, scale, softcap, s);
   return cudaErrorInvalidValue;
 }

@@ -10,36 +10,52 @@
 //
 // What bounds it on this card: operations for the model path (bf16, causal,
 // S = 4096: ~ 2000 flops per byte, above the ridge), so the tensor cores set
-// the floor.  The TPU grid is (B, Hq, q blocks, kv blocks) with kv sequential
-// and (m, l, acc) in VMEM; on Hopper one CTA walks its kv tiles in a loop.
-// A CTA owns a block of rows (128 on the tensor cores, 64 at D = 256) of the
+// the floor, and only wgmma reaches their full rate.  The TPU grid is (B, Hq,
+// q blocks, kv blocks) with kv sequential and (m, l, acc) in VMEM; on Hopper
+// one CTA walks its kv tiles in a loop.  A CTA owns 128 rows of the
 // flattened (position, head-in-group) index R = pos * G + g of one (b, kv
 // head): in the model layout (B, S, H, D) the G heads of a group are
 // adjacent, so every K/V tile a CTA loads serves all G query heads of the
-// group at once.  kv tiles that are wholly masked (past
-// the causal diagonal, outside the window, past Skv) are never loaded, as
-// pl.when(live) skips them on the TPU; CTAs are issued longest first.
-// Ragged Sq and Skv are masked here; D is never padded.  Two kernels, chosen
-// by dtype and head size:
+// group at once.  kv tiles that are wholly masked (past the causal diagonal,
+// outside the window, past Skv) are never loaded, as pl.when(live) skips
+// them on the TPU; CTAs are issued longest first.  Ragged Sq and Skv are
+// masked here; D is never padded.  Two kernels, chosen by dtype and head
+// size (the wrapper names the path, `kernel_path` in ops.py):
 //
-// * flash_mma (bfloat16, D in {64, 128, 256}, the model path): four warps
-//   of 32 rows (two m16 tiles; 16 rows at D = 256, for registers), as
-//   FlashAttention-2 lays out mma.sync: Q·Kᵀ and P·V on the tensor cores
-//   (m16n8k16, fp32 accumulate), each K and V fragment feeding every m16
-//   tile of the warp; scores in log2 units so each exponential is one ex2.approx,
-//   and no per-element mask on a tile that is wholly live for a warp's rows.
-//   K/V tiles of 32 keys are double-buffered in shared memory with cp.async,
-//   rows padded by 16 bytes so that the ldmatrix fragment loads (transposed
-//   for V) hit distinct banks.  Simple first: no wgmma or TMA yet.
+// * flash_wgmma (bfloat16, D in {64, 128, 256}, the model path), laid out as
+//   FlashAttention-3: three warpgroups.  The producer warpgroup gives up its
+//   registers (setmaxnreg) and one thread issues TMA loads of K and V tiles
+//   (128 keys; 64 at D = 256) into a ring of 3 stages (2 at D = 256),
+//   128-byte swizzled, each tile as D / 64 boxes of 64 columns, with full
+//   and empty mbarriers.  Two
+//   consumer warpgroups own 64 rows each: S = Q Kᵀ is wgmma with both
+//   operands in shared memory (Q loaded once, by plain 16-byte loads into the
+//   same swizzle, since a block of flattened rows is no TMA box when G does
+//   not divide 128); O += P V is wgmma with P, rounded to bf16, in
+//   registers as the A operand and V read MN-major.  The two consumers take
+//   turns at the tensor cores for S (named barriers), so one group's
+//   softmax runs under the other's products.  (Issuing S_i together with
+//   P_{i-1} V_{i-1}, FlashAttention-3's overlap inside a group, spilled with
+//   P in registers and was slower with P staged in shared memory.)
+//   Causal, window and softcap are template flags; the per-element mask runs
+//   only on tiles that cross the diagonal, the window edge or Skv, where a
+//   masked score is -inf.  Scores are in log2 units and every exponential is
+//   one ex2.approx; the softcap's tanh is 1 - 2 / (2^(2x log2 e) + 1), one
+//   more ex2 and a division.  O is staged in shared memory (over this
+//   group's Q rows) and written back in 16-byte stores.
 // * flash_simt (float32, or D < 64): CUDA cores, fp32 throughout; one lane per
 //   key for the scores, one lane per channel for P·V, 4 rows per warp.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kInf = __builtin_huge_valf();
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -75,9 +91,313 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// tanh softcap, out of line: inlined, the precise tanhf doubled the body of
-// the unrolled score loop, and the loop's code size set the kernel's pace
-// even where no cap is used.
+// tanh(x) = 1 - 2 / (e^(2x) + 1): absolute error ~1e-7 (ex2.approx and a
+// fast division), against 2^-11 relative for tanh.approx, which a cap of
+// 50 would turn into a logit error of ~0.02.
+__device__ __forceinline__ float fast_tanh(float x) {
+  return 1.f - __fdividef(2.f, fast_exp2(2.f * kLog2e * x) + 1.f);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// ---------------------------------------------------------------------------
+// wgmma kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kRows = 128;            // flattened rows per CTA, 64 per consumer
+constexpr int kWgThreads = 128;
+// Two consumer warpgroups (warps 0-7), then the producer warpgroup, which
+// hands its registers to the consumers (setmaxnreg): 384 threads launch at
+// 168 registers each (three warps on each quarter of the SM's register
+// file), and 128 * 24 + 256 * 240 = 384 * 168.
+constexpr int kThreads = 3 * kWgThreads;
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+// Named barriers (0 is __syncthreads): 1 + w lets consumer w issue its
+// products, 3 + w joins consumer w's own threads.
+constexpr int kTurnBar = 1;
+constexpr int kGroupBar = 3;
+
+template <int D>
+struct WgCfg {
+  static constexpr int BN = D <= 128 ? 128 : 64;    // keys per tile
+  // K/V ring depth: three tiles where they fit beside Q (D <= 128), two at
+  // D = 256 (Q alone is 64 KB).
+  static constexpr int STAGES = D <= 128 ? 3 : 2;
+  static constexpr int NC = D / 64;                 // 64-column (128-byte) blocks
+  static constexpr int Q_BLOCK = kRows * 128;       // bytes of one column block of Q
+  static constexpr int KV_BLOCK = BN * 128;         // ... of K or V
+  static constexpr int KV_TILE = NC * KV_BLOCK;     // one tile of K (or V)
+  static constexpr int Q_BYTES = NC * Q_BLOCK;
+  static constexpr int BAR_OFF = Q_BYTES + 2 * STAGES * KV_TILE;
+  // 1024 bytes of slack to align the swizzled tiles, then the barriers.
+  static constexpr size_t SMEM = 1024 + BAR_OFF + 3 * STAGES * sizeof(uint64_t);
+};
+
+// Byte offset of 16-byte chunk c of row r in a 128-byte-swizzled tile whose
+// column blocks are `block` bytes apart.
+__device__ __forceinline__ int swz(int r, int c, int block) {
+  return (c / 8) * block + r * 128 + (((c % 8) ^ (r % 8)) << 4);
+}
+
+// Built with -DFLASH_TIMING (tools/flash_cta_timing.py), every CTA of the
+// wgmma kernel below records its start and end (%globaltimer, ns), its
+// number of kv tiles and its SM, for the first 8192 CTAs of a launch.
+#ifdef FLASH_TIMING
+__device__ unsigned long long g_timing[4 * 8192];
+__device__ __forceinline__ unsigned long long gtime() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
+  return t;
+}
+#endif
+
+// grid (ceil(Sq * G / kRows), B * Hkv), kThreads threads.
+template <int D, bool CAUSAL, bool WINDOW, bool CAP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_wgmma(const Params p, const __grid_constant__ CUtensorMap tmk,
+                const __grid_constant__ CUtensorMap tmv) {
+  using C = WgCfg<D>;
+  constexpr int BN = C::BN;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  // Swizzled tiles start on 1024 bytes; offsetting the shared array itself
+  // (not a generic address) keeps every access a shared-memory one.
+  uint8_t* sm = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* Qs = sm;                                   // [NC][kRows][128 B]
+  uint8_t* Ks = Qs + C::Q_BYTES;                      // [STAGES][NC][BN][128 B]
+  uint8_t* Vs = Ks + C::STAGES * C::KV_TILE;
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
+  uint64_t* full_v = full_k + C::STAGES;
+  uint64_t* empty = full_v + C::STAGES;
+
+  const int n_rows = p.Sq * p.G;
+  const int R0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // longest rows first
+  const int b = blockIdx.y / p.Hkv, h = blockIdx.y % p.Hkv;
+  int k_lo, k_hi;  // R0 < n_rows: the grid holds no empty CTA
+  key_range(p, R0 / p.G, (min(R0 + kRows, n_rows) - 1) / p.G, k_lo, k_hi);
+  const int t_lo = k_lo / BN;
+  const int n_tiles = k_hi > k_lo ? (k_hi + BN - 1) / BN - t_lo : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      sm90::mbar_init(&full_k[s], 1);
+      sm90::mbar_init(&full_v[s], 1);
+      sm90::mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+#ifdef FLASH_TIMING
+  const int cta = blockIdx.y * gridDim.x + blockIdx.x;
+  if (threadIdx.x == 0 && cta < 8192) {
+    unsigned smid;
+    asm volatile("mov.u32 %0, %smid;" : "=r"(smid));
+    g_timing[4 * cta] = gtime();
+    g_timing[4 * cta + 2] = n_tiles;
+    g_timing[4 * cta + 3] = smid;
+  }
+#endif
+
+  const int wg = threadIdx.x / kWgThreads;
+  if (wg == 2) {
+    // ---- producer: one thread keeps the ring of K and V tiles full.
+    sm90::reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 2 * kWgThreads) {
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % C::STAGES;
+        sm90::mbar_wait(&empty[s], ((i / C::STAGES) & 1) ^ 1);
+        const int key0 = (t_lo + i) * BN;
+        sm90::mbar_arrive_expect_tx(&full_k[s], C::KV_TILE);
+#pragma unroll
+        for (int c = 0; c < C::NC; ++c)
+          sm90::tma_load_4d(Ks + s * C::KV_TILE + c * C::KV_BLOCK, &tmk, &full_k[s], 64 * c,
+                            key0, h, b);
+        sm90::mbar_arrive_expect_tx(&full_v[s], C::KV_TILE);
+#pragma unroll
+        for (int c = 0; c < C::NC; ++c)
+          sm90::tma_load_4d(Vs + s * C::KV_TILE + c * C::KV_BLOCK, &tmv, &full_v[s], 64 * c,
+                            key0, h, b);
+      }
+    }
+  } else {
+    // ---- consumers: group w owns rows [64w, 64w + 64) of the CTA.
+    sm90::reg_alloc<kConsumerRegs>();
+    const int w = wg;
+    const int tid = threadIdx.x - wg * kWgThreads;
+    const int warp = tid / 32, lane = tid % 32;
+    const auto* q = static_cast<const __nv_bfloat16*>(p.q);
+
+    // Q rows into shared memory, swizzled as TMA would (absent rows zero).
+    for (int e = tid; e < 64 * D / 8; e += kWgThreads) {
+      const int r = 64 * w + e / (D / 8), c = e % (D / 8);
+      const int R = R0 + r;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (R < n_rows)
+        val = *reinterpret_cast<const uint4*>(q + b * p.qsb +
+                                              (long long)(h * p.G + R % p.G) * p.qsh +
+                                              (long long)(R / p.G) * p.qss + c * 8);
+      *reinterpret_cast<uint4*>(Qs + swz(r, c, C::Q_BLOCK)) = val;
+    }
+    sm90::fence_proxy_async();
+    sm90::bar_sync(kGroupBar + w, kWgThreads);
+
+    // Rows of this thread: 64w + 16 warp + lane / 4 (+ 8).
+    const int row0 = 64 * w + 16 * warp + lane / 4;
+    const int pos[2] = {(R0 + row0) / p.G, (R0 + row0 + 8) / p.G};
+    const int w_lo = (R0 + 64 * w) / p.G, w_hi = (R0 + 64 * w + 63) / p.G;
+    const float sl2 = CAP ? p.scale / p.softcap : p.scale * kLog2e;
+    const float cl2 = p.softcap * kLog2e;
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    // Running max (log2 units; -inf until a live key) and sum of each row.
+    float m[2] = {-kInf, -kInf}, l[2] = {0.f, 0.f};
+    const float f = CAP ? 1.f : sl2;  // score -> log2 units, after the cap
+    const uint8_t* q_w = Qs + 64 * w * 128;
+    float sc[BN / 2];                 // S of the current tile, then its P
+    float alpha[2];
+
+    // Cap, and mask only where the tile crosses an edge of this group's rows
+    // (a masked score is -inf and weighs 0); then the online softmax per row
+    // (the 4 lanes of a quad share a row): P into sc, alpha for O.
+    auto softmax = [&](int i) {
+      const int key0 = (t_lo + i) * BN;
+      const int k_last = key0 + BN - 1;
+      const bool edge = k_last >= p.Skv || (CAUSAL && k_last > w_lo) ||
+                        (WINDOW && key0 <= w_hi - p.window);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * j + e];
+          if (CAP) x = fast_tanh(x * sl2) * cl2;
+          if (edge) {
+            const int key = key0 + 8 * j + 2 * (lane % 4) + (e % 2);
+            const int ps = pos[e / 2];
+            const bool live = key < p.Skv && (!CAUSAL || key <= ps) &&
+                              (!WINDOW || key > ps - p.window);
+            x = live ? x : -kInf;
+          }
+          sc[4 * j + e] = x;
+        }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        // four partial maxima and sums: short dependency chains
+        float t4[4] = {-kInf, -kInf, -kInf, -kInf};
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+          t4[j % 4] = fmaxf(t4[j % 4], fmaxf(sc[4 * j + 2 * hr], sc[4 * j + 2 * hr + 1]));
+        float t = fmaxf(fmaxf(t4[0], t4[1]), fmaxf(t4[2], t4[3]));
+        t = fmaxf(t, __shfl_xor_sync(kFull, t, 1));
+        t = fmaxf(t, __shfl_xor_sync(kFull, t, 2));
+        const float mx = fmaxf(m[hr], t * f);
+        const float base = mx == -kInf ? 0.f : mx;
+        alpha[hr] = fast_exp2(m[hr] - base);
+        m[hr] = mx;
+        float ls[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 2 * hr; e < 2 * hr + 2; ++e) {
+            sc[4 * j + e] = fast_exp2(fmaf(sc[4 * j + e], f, -base));
+            ls[j % 4] += sc[4 * j + e];
+          }
+        l[hr] = l[hr] * alpha[hr] + ((ls[0] + ls[1]) + (ls[2] + ls[3]));
+      }
+    };
+
+    // Each tile: one turn at the tensor cores for S_i = Q K_iᵀ (both
+    // K-major: k step ks is 32 bytes into column block ks / 4); the group
+    // computes P_i while the other group takes its turn, then O += P_i V_i
+    // with P_i as the A operand in registers and V MN-major (k step kk is
+    // 16 rows, 2048 bytes, down each column block).
+    if (w == 1 && n_tiles > 0) sm90::bar_arrive(kTurnBar, 2 * kWgThreads);  // group 0 first
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % C::STAGES;
+      const uint32_t ph = (i / C::STAGES) & 1;
+      const uint8_t* kt = Ks + s * C::KV_TILE;
+      const uint8_t* vt = Vs + s * C::KV_TILE;
+      sm90::mbar_wait(&full_k[s], ph);
+      sm90::bar_sync(kTurnBar + w, 2 * kWgThreads);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        sm90::wgmma_ss<BN>(
+            sc, sm90::desc_sw128(q_w + (ks / 4) * C::Q_BLOCK + (ks % 4) * 32, 16, 1024),
+            sm90::desc_sw128(kt + (ks / 4) * C::KV_BLOCK + (ks % 4) * 32, 16, 1024), ks > 0);
+      sm90::wgmma_commit();
+      if (!(w == 1 && i == n_tiles - 1)) sm90::bar_arrive(kTurnBar + 1 - w, 2 * kWgThreads);
+      sm90::wgmma_wait<0>();
+      sm90::fence_operands(sc);
+      softmax(i);
+      uint32_t pa[BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
+      sm90::mbar_wait(&full_v[s], ph);
+      sm90::fence_operands(o);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        sm90::wgmma_rs<D>(o, pa[kk], sm90::desc_sw128(vt + kk * 2048, C::KV_BLOCK, 1024));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_operands(o);
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(&empty[s]);
+    }
+
+    // O / l into this group's Q rows (no wgmma reads them any more), then
+    // out in 16-byte stores.
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float lt = l[hr];
+      lt += __shfl_xor_sync(kFull, lt, 1);
+      lt += __shfl_xor_sync(kFull, lt, 2);
+      const float inv = 1.f / fmaxf(lt, 1e-30f);
+      const int r = row0 + 8 * hr;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(Qs + swz(r, j, C::Q_BLOCK) + 4 * (lane % 4)) =
+            pack_bf16(o[4 * j + 2 * hr] * inv, o[4 * j + 2 * hr + 1] * inv);
+    }
+    sm90::bar_sync(kGroupBar + w, kWgThreads);
+    auto* out = static_cast<__nv_bfloat16*>(p.out);
+    for (int e = tid; e < 64 * D / 8; e += kWgThreads) {
+      const int r = 64 * w + e / (D / 8), c = e % (D / 8);
+      const int R = R0 + r;
+      if (R < n_rows)
+        *reinterpret_cast<uint4*>(out + b * p.qsb + (long long)(h * p.G + R % p.G) * p.qsh +
+                                  (long long)(R / p.G) * p.qss + c * 8) =
+            *reinterpret_cast<const uint4*>(Qs + swz(r, c, C::Q_BLOCK));
+    }
+#ifdef FLASH_TIMING
+    if (threadIdx.x == 0 && cta < 8192) g_timing[4 * cta + 1] = gtime();
+#endif
+  }
+}
+
+// ---------------------------------------------------------------------------
+// CUDA-core kernel
+// ---------------------------------------------------------------------------
+
+// tanh softcap of the CUDA-core kernel, out of line: inlined, the precise
+// tanhf doubles the body of the score loop even where no cap is used.
 __device__ __noinline__ float capped(float x, float cap) { return tanhf(x / cap) * cap; }
 
 // Score in log2 units after scale and softcap.
@@ -86,294 +406,6 @@ __device__ __forceinline__ float logit2(const Params& p, float s) {
   if (p.softcap > 0.f) x = capped(x, p.softcap);
   return x * kLog2e;
 }
-
-// ---------------------------------------------------------------------------
-// tensor-core kernel
-// ---------------------------------------------------------------------------
-
-constexpr int kMmaWarps = 4;
-constexpr int kMmaKeys = 32;              // keys per kv tile
-constexpr int kMmaNT = kMmaKeys / 8;      // n-tiles of S per tile
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem_row) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem_row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem_row) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem_row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// 16-byte asynchronous copy; src_bytes = 0 fills the destination with zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// bf16 per shared row: 16 bytes of padding keep fragment loads conflict-free.
-template <int D>
-__host__ __device__ constexpr int mma_stride() { return D + 8; }
-
-// m16 row tiles per warp: two where their accumulators fit in registers.
-template <int D>
-__host__ __device__ constexpr int mma_mtiles() { return D <= 128 ? 2 : 1; }
-
-template <int D>
-__host__ __device__ constexpr int mma_rows() { return kMmaWarps * 16 * mma_mtiles<D>(); }
-
-template <int D>
-constexpr size_t mma_smem_bytes() {
-  return (size_t)(mma_rows<D>() + 4 * kMmaKeys) * mma_stride<D>() * sizeof(__nv_bfloat16);
-}
-
-// grid (ceil(Sq * G / mma_rows<D>()), B * Hkv), kMmaWarps * 32 threads.
-template <int D>
-__global__ void __launch_bounds__(kMmaWarps * 32) flash_mma(const Params p) {
-  constexpr int MT = mma_mtiles<D>();
-  constexpr int ROWS = mma_rows<D>();
-  constexpr int LD = mma_stride<D>();
-  constexpr int CH = D / 8;   // 16-byte chunks per row
-  constexpr int NB = 4;       // V fragments in flight
-  extern __shared__ __align__(16) __nv_bfloat16 sm[];
-  __nv_bfloat16* Qs = sm;                            // [ROWS][LD]
-  __nv_bfloat16* Ks = Qs + ROWS * LD;                // [2][kMmaKeys][LD]
-  __nv_bfloat16* Vs = Ks + 2 * kMmaKeys * LD;        // [2][kMmaKeys][LD]
-
-  const int n_rows = p.Sq * p.G;
-  const int R0 = (gridDim.x - 1 - blockIdx.x) * ROWS;  // longest rows first
-  const int bh = blockIdx.y;
-  const int b = bh / p.Hkv, h = bh % p.Hkv;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int gid = lane / 4, tig = lane % 4;
-  const int w0 = warp * 16 * MT;  // first row of this warp in the CTA
-
-  const auto* q = static_cast<const __nv_bfloat16*>(p.q);
-  const auto* kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.ksb + h * p.ksh;
-  const auto* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.ksb + h * p.ksh;
-
-  // Q rows into shared memory (absent rows are zero).
-  for (int e = tid; e < ROWS * CH; e += kMmaWarps * 32) {
-    const int r = e / CH, c = e % CH;
-    const int R = R0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (R < n_rows) {
-      const int pos = R / p.G, g = R % p.G;
-      val = *reinterpret_cast<const uint4*>(q + b * p.qsb + (long long)(h * p.G + g) * p.qsh +
-                                            pos * p.qss + c * 8);
-    }
-    *reinterpret_cast<uint4*>(Qs + r * LD + c * 8) = val;
-  }
-
-  int k_lo, k_hi;  // R0 < n_rows: the grid holds no empty CTA
-  key_range(p, R0 / p.G, (min(R0 + ROWS, n_rows) - 1) / p.G, k_lo, k_hi);
-  const int t_lo = k_lo / kMmaKeys;
-  const int t_hi = k_hi > k_lo ? (k_hi + kMmaKeys - 1) / kMmaKeys : t_lo;
-
-  auto load_kv = [&](int stage, int tile) {
-    __nv_bfloat16* kd = Ks + stage * kMmaKeys * LD;
-    __nv_bfloat16* vd = Vs + stage * kMmaKeys * LD;
-    for (int e = tid; e < kMmaKeys * CH; e += kMmaWarps * 32) {
-      const int r = e / CH, c = e % CH;
-      const int key = tile * kMmaKeys + r;
-      const bool ok = key < p.Skv;
-      const long long off = ok ? key * p.kss + c * 8 : 0;
-      cp_async16(kd + r * LD + c * 8, kg + off, ok ? 16 : 0);
-      cp_async16(vd + r * LD + c * 8, vg + off, ok ? 16 : 0);
-    }
-    cp_async_commit();
-  };
-
-  // Rows of this lane: w0 + 16 * mt + gid + 8 * hr.
-  int pos[MT][2];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) pos[mt][hr] = (R0 + w0 + 16 * mt + gid + 8 * hr) / p.G;
-
-  float o[MT][D / 8][4];
-  float m[MT][2], l[MT][2];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-      o[mt][nt][0] = o[mt][nt][1] = o[mt][nt][2] = o[mt][nt][3] = 0.f;
-    m[mt][0] = m[mt][1] = kNegInf;
-    l[mt][0] = l[mt][1] = 0.f;
-  }
-
-  // ldmatrix row addresses of this lane: Q as A fragments (rows gid, gid + 8;
-  // k 0-7, 8-15), K as B fragments of two n-tiles (keys; k 0-7, 8-15), V
-  // transposed as B fragments of two n-tiles (keys as k; channels).
-  const int q_row = w0 + lane % 8 + 8 * ((lane / 8) % 2), q_col = 8 * (lane / 16);
-  const int k_row = lane % 8 + 8 * (lane / 16), k_col = 8 * ((lane / 8) % 2);
-  const int v_row = lane % 8 + 8 * ((lane / 8) % 2), v_col = 8 * (lane / 16);
-  // Positions of this warp's rows, for the test of a wholly live tile.
-  const int w_lo = (R0 + w0) / p.G, w_hi = (R0 + w0 + 16 * MT - 1) / p.G;
-  if (t_lo < t_hi) load_kv(0, t_lo);
-  for (int t = t_lo; t < t_hi; ++t) {
-    const int stage = (t - t_lo) & 1;
-    if (t + 1 < t_hi) {
-      load_kv(stage ^ 1, t + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* kt = Ks + stage * kMmaKeys * LD;
-    const __nv_bfloat16* vt = Vs + stage * kMmaKeys * LD;
-
-    // S = Q Kᵀ: MT m16 tiles x kMmaKeys keys per warp.  Each step issues its
-    // fragment loads before its products (the asm statements keep their
-    // source order), and each K fragment feeds MT products.
-    float s[MT][kMmaNT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < kMmaNT; ++nt)
-        s[mt][nt][0] = s[mt][nt][1] = s[mt][nt][2] = s[mt][nt][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      uint32_t a[MT][4], bk[kMmaNT / 2][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        ldmatrix_x4(a[mt], Qs + (q_row + 16 * mt) * LD + ks * 16 + q_col);
-#pragma unroll
-      for (int np = 0; np < kMmaNT / 2; ++np)
-        ldmatrix_x4(bk[np], kt + (np * 16 + k_row) * LD + ks * 16 + k_col);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int np = 0; np < kMmaNT / 2; ++np) {
-          mma_bf16(s[mt][2 * np], a[mt][0], a[mt][1], a[mt][2], a[mt][3], bk[np][0], bk[np][1]);
-          mma_bf16(s[mt][2 * np + 1], a[mt][0], a[mt][1], a[mt][2], a[mt][3], bk[np][2],
-                   bk[np][3]);
-        }
-    }
-    // Scale, cap, mask (a masked score is exactly kNegInf, which no live
-    // score reaches); online softmax per row (4 lanes share a row).
-    const int k_last = t * kMmaKeys + kMmaKeys - 1;
-    const bool full = k_last < p.Skv && (!p.causal || k_last <= w_lo) &&
-                      (p.window <= 0 || t * kMmaKeys > w_hi - p.window);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < kMmaNT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = t * kMmaKeys + nt * 8 + 2 * tig + (e % 2);
-          s[mt][nt][e] = full || key_live(p, pos[mt][e / 2], key) ? logit2(p, s[mt][nt][e])
-                                                                  : kNegInf;
-        }
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        float mx = m[mt][hr];
-#pragma unroll
-        for (int nt = 0; nt < kMmaNT; ++nt)
-          mx = fmaxf(mx, fmaxf(s[mt][nt][2 * hr], s[mt][nt][2 * hr + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-        const float alpha = fast_exp2(m[mt][hr] - mx);
-        m[mt][hr] = mx;
-        l[mt][hr] *= alpha;
-#pragma unroll
-        for (int nt = 0; nt < D / 8; ++nt) {
-          o[mt][nt][2 * hr] *= alpha;
-          o[mt][nt][2 * hr + 1] *= alpha;
-        }
-#pragma unroll
-        for (int nt = 0; nt < kMmaNT; ++nt) {
-#pragma unroll
-          for (int e = 2 * hr; e < 2 * hr + 2; ++e) {
-            s[mt][nt][e] = s[mt][nt][e] > kNegInf ? fast_exp2(s[mt][nt][e] - mx) : 0.f;
-            l[mt][hr] += s[mt][nt][e];
-          }
-        }
-      }
-    }
-    // O += P V: P from the S accumulators as bf16 A fragments, 16 keys a
-    // step; each V fragment feeds MT products.
-#pragma unroll
-    for (int kk = 0; kk < kMmaNT / 2; ++kk) {
-      uint32_t pa[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        pa[mt][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
-        pa[mt][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
-        pa[mt][2] = pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
-        pa[mt][3] = pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
-      }
-#pragma unroll
-      for (int dn0 = 0; dn0 < D / 16; dn0 += NB) {
-        uint32_t bv[NB][4];
-#pragma unroll
-        for (int u = 0; u < NB; ++u)
-          ldmatrix_x4_trans(bv[u], vt + (kk * 16 + v_row) * LD + (dn0 + u) * 16 + v_col);
-#pragma unroll
-        for (int u = 0; u < NB; ++u)
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            mma_bf16(o[mt][2 * (dn0 + u)], pa[mt][0], pa[mt][1], pa[mt][2], pa[mt][3], bv[u][0],
-                     bv[u][1]);
-            mma_bf16(o[mt][2 * (dn0 + u) + 1], pa[mt][0], pa[mt][1], pa[mt][2], pa[mt][3],
-                     bv[u][2], bv[u][3]);
-          }
-      }
-    }
-    __syncthreads();  // this stage is refilled two tiles on
-  }
-
-  auto* out = static_cast<__nv_bfloat16*>(p.out);
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      float lt = l[mt][hr];
-      lt += __shfl_xor_sync(kFull, lt, 1);
-      lt += __shfl_xor_sync(kFull, lt, 2);
-      const int R = R0 + w0 + 16 * mt + gid + 8 * hr;
-      if (R >= n_rows) continue;
-      const int g = R % p.G;
-      const float inv = 1.f / fmaxf(lt, 1e-30f);
-      uint32_t* orow = reinterpret_cast<uint32_t*>(
-          out + b * p.qsb + (long long)(h * p.G + g) * p.qsh + pos[mt][hr] * p.qss);
-#pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt)
-        orow[nt * 4 + tig] = pack_bf16(o[mt][nt][2 * hr] * inv, o[mt][nt][2 * hr + 1] * inv);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// CUDA-core kernel
-// ---------------------------------------------------------------------------
 
 constexpr int kSimtWarps = 4;
 constexpr int kSimtRowsPerWarp = 4;
@@ -499,15 +531,75 @@ __global__ void __launch_bounds__(kSimtWarps * 32) flash_simt(const Params p) {
   }
 }
 
-template <int D>
-cudaError_t launch_mma(const Params& p, int B, cudaStream_t s) {
-  const size_t smem = mma_smem_bytes<D>();
-  cudaError_t err =
-      cudaFuncSetAttribute(flash_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// cuTensorMapEncodeTiled, a driver-API function, through the runtime's entry
+// point query, so that the library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// Tensor map of a (B, Hkv, Skv, D) bf16 view with element strides (sb, sh,
+// ss, 1): boxes of 64 channels (128 bytes, 128-byte swizzle) by `rows` keys;
+// keys past Skv read as zeros.
+bool kv_map(CUtensorMap* map, const void* base, int B, int Hkv, int Skv, int D, long long sb,
+            long long sh, long long ss, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Skv, (cuuint64_t)Hkv, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, bool CAUSAL, bool WINDOW, bool CAP>
+cudaError_t launch_wgmma(const Params& p, int B, cudaStream_t s) {
+  using C = WgCfg<D>;
+  CUtensorMap tmk, tmv;
+  if (!kv_map(&tmk, p.k, B, p.Hkv, p.Skv, D, p.ksb, p.ksh, p.kss, C::BN) ||
+      !kv_map(&tmv, p.v, B, p.Hkv, p.Skv, D, p.ksb, p.ksh, p.kss, C::BN))
+    return cudaErrorInvalidValue;
+  const auto kernel = flash_wgmma<D, CAUSAL, WINDOW, CAP>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq * p.G + mma_rows<D>() - 1) / mma_rows<D>(), B * p.Hkv);
-  flash_mma<D><<<grid, kMmaWarps * 32, smem, s>>>(p);
+  const dim3 grid((p.Sq * p.G + kRows - 1) / kRows, B * p.Hkv);
+  kernel<<<grid, kThreads, C::SMEM, s>>>(p, tmk, tmv);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t dispatch_wgmma(const Params& p, int B, cudaStream_t s) {
+  const bool c = p.causal, w = p.window > 0, cap = p.softcap > 0.f;
+  if (c && !w && !cap) return launch_wgmma<D, true, false, false>(p, B, s);
+  if (c && !w && cap) return launch_wgmma<D, true, false, true>(p, B, s);
+  if (c && w && !cap) return launch_wgmma<D, true, true, false>(p, B, s);
+  if (c && w && cap) return launch_wgmma<D, true, true, true>(p, B, s);
+  if (!c && !w && !cap) return launch_wgmma<D, false, false, false>(p, B, s);
+  if (!c && !w && cap) return launch_wgmma<D, false, false, true>(p, B, s);
+  if (!c && w && !cap) return launch_wgmma<D, false, true, false>(p, B, s);
+  return launch_wgmma<D, false, true, true>(p, B, s);
 }
 
 template <typename T, int D>
@@ -535,29 +627,38 @@ cudaError_t dispatch_simt(const Params& p, int D, int B, cudaStream_t s) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D in {16, 32, 64, 128, 256}.  q and out:
-// (B, Hq = Hkv * G, Sq, D) views with element strides (qsb, qsh, qss, 1); k
-// and v: (B, Hkv, Skv, D) views with strides (ksb, ksh, kss, 1).  bfloat16
-// with D >= 64 takes the tensor-core kernel, which needs 16-byte aligned
-// rows.  window <= 0 means no window, softcap <= 0 no cap.
-extern "C" int flash_attention(int dtype, int D, const void* q, const void* k, const void* v,
-                               void* out, int B, int Hkv, int G, int Sq, int Skv, long long qsb,
-                               long long qsh, long long qss, long long ksb, long long ksh,
-                               long long kss, int causal, int window, float scale, float softcap,
-                               void* stream) {
+// path: 0 = flash_simt (float32 or bfloat16, D in {16, 32, 64, 128, 256}),
+// 1 = flash_wgmma (bfloat16, D in {64, 128, 256}); dtype: 0 = float32, 1 =
+// bfloat16.  q and out: (B, Hq = Hkv * G, Sq, D) views with element strides
+// (qsb, qsh, qss, 1); k and v: (B, Hkv, Skv, D) views with strides (ksb, ksh,
+// kss, 1).  The wgmma path needs 16-byte aligned bases and strides.  window
+// <= 0 means no window, softcap <= 0 no cap.
+extern "C" int flash_attention(int path, int dtype, int D, const void* q, const void* k,
+                               const void* v, void* out, int B, int Hkv, int G, int Sq, int Skv,
+                               long long qsb, long long qsh, long long qss, long long ksb,
+                               long long ksh, long long kss, int causal, int window,
+                               float scale, float softcap, void* stream) {
   if (B < 1 || Hkv < 1 || G < 1 || Sq < 1 || Skv < 1 || B * Hkv > 65535)
     return cudaErrorInvalidValue;
   const Params p{q, k, v, out, Sq, Skv, Hkv, G, qsb, qsh, qss, ksb, ksh, kss,
                  causal, window, scale, softcap};
   const auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
+  if (path == 1 && dtype == 1) {
     switch (D) {
-      case 64: return launch_mma<64>(p, B, s);
-      case 128: return launch_mma<128>(p, B, s);
-      case 256: return launch_mma<256>(p, B, s);
-      default: return dispatch_simt<__nv_bfloat16>(p, D, B, s);
+      case 64: return dispatch_wgmma<64>(p, B, s);
+      case 128: return dispatch_wgmma<128>(p, B, s);
+      case 256: return dispatch_wgmma<256>(p, B, s);
+      default: return cudaErrorInvalidValue;
     }
   }
-  if (dtype == 0) return dispatch_simt<float>(p, D, B, s);
+  if (path == 0 && dtype == 1) return dispatch_simt<__nv_bfloat16>(p, D, B, s);
+  if (path == 0 && dtype == 0) return dispatch_simt<float>(p, D, B, s);
   return cudaErrorInvalidValue;
 }
+
+#ifdef FLASH_TIMING
+// Copies the CTA records of the last launch (4 * 8192 uint64) to `dst`.
+extern "C" int flash_timing(void* dst) {
+  return cudaMemcpyFromSymbol(dst, g_timing, sizeof(g_timing));
+}
+#endif

@@ -7,6 +7,10 @@ device — and ``decode_attention`` the kernel's grouped layout
 ``(B, Hkv, G, D)``.  On CUDA tensors ``decode_attention`` launches the
 split-S kernel of ``csrc/decode_attention.cu`` (or raises); on CPU tensors
 it runs the plain PyTorch version :func:`decode_attention_ref`.
+
+``block_s`` is the reference's TPU tile size.  The port accepts it so that
+callers keep the reference's signature, and otherwise ignores it: the card
+deals the cache to CTAs in stages of ``STAGE_ROWS`` rows (:func:`_plan`).
 """
 from __future__ import annotations
 
@@ -19,8 +23,34 @@ from repro_torch import compat
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
-#: CTAs per SM the S split aims for: enough waves that the last one is short.
-_CTAS_PER_SM = 8
+#: Head sizes the bfloat16 bulk-copy kernel takes; every other (dtype, D)
+#: runs on the CUDA cores.
+BULK_HEAD_DIMS = (64, 128)
+_PATHS = {"simt": 0, "bulk": 1}
+#: Cache rows per stage: the unit in which the kernels deal S to splits.
+STAGE_ROWS = 16
+#: Stages of the bulk kernel's ring, and the most shared memory they may
+#: take; kv heads per CTA (``heads_per_cta``) are cut to fit.
+BULK_STAGES = 4
+BULK_SMEM = 200 * 1024
+#: CTAs each path keeps resident on an SM, for whole waves: the bulk kernel
+#: fills an SM's shared memory; the CUDA-core kernel aims at 8.
+_CTAS_PER_SM = {"bulk": 1, "simt": 8}
+
+
+def kernel_path(dtype: torch.dtype, D: int) -> str:
+    """Which kernel of ``csrc/decode_attention.cu`` a CUDA call takes:
+    ``"bulk"`` (bfloat16, D in ``BULK_HEAD_DIMS``) or ``"simt"``."""
+    return "bulk" if dtype == torch.bfloat16 and D in BULK_HEAD_DIMS \
+        else "simt"
+
+
+def heads_per_cta(Hkv: int, D: int) -> int:
+    """KV heads one bulk CTA covers: the largest divisor of Hkv (at most
+    8, one consumer warp each) whose K and V stages fit ``BULK_SMEM``."""
+    fits = [hc for hc in range(1, min(Hkv, 8) + 1) if Hkv % hc == 0
+            and BULK_STAGES * 2 * STAGE_ROWS * hc * D * 2 <= BULK_SMEM]
+    return max(fits)
 
 
 def decode_attention_ref(q, k_cache, v_cache, kv_len, *, softcap=0.0,
@@ -42,23 +72,32 @@ def decode_attention_ref(q, k_cache, v_cache, kv_len, *, softcap=0.0,
     return out.to(q.dtype)
 
 
-def _plan(S: int, B: int, Hkv: int, block_s: int,
-          device) -> tuple[int, int]:
-    """(n_split, chunk): split S into ``chunk``-row ranges, each a whole
-    number of ``block_s`` blocks, so that the grid holds about
-    ``_CTAS_PER_SM`` CTAs per SM."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    n_blocks = -(-S // block_s)
-    n_split = max(1, min(-(-_CTAS_PER_SM * sms // (B * Hkv)), n_blocks))
-    chunk = -(-n_blocks // n_split) * block_s
-    return -(-S // chunk), chunk
+
+def _plan(S: int, ctas: int, sms: int, per_sm: int = 1) -> tuple[int, int]:
+    """(n_split, n_stages): S in ``n_stages`` stages of ``STAGE_ROWS`` rows,
+    dealt to ``n_split`` splits of whole stages (:func:`split_rows`).  With
+    ``ctas`` CTAs per split, ``n_split`` is the least count that fills whole
+    waves of ``sms * per_sm`` CTAs, or every stage where S has fewer."""
+    n_stages = -(-S // STAGE_ROWS)
+    slots = sms * per_sm
+    return min(slots // math.gcd(slots, ctas), n_stages), n_stages
+
+
+def split_rows(n_split: int, n_stages: int, S: int) -> list[tuple[int, int]]:
+    """The cache rows [lo, hi) of each split, as the kernels compute them:
+    split s takes stages [s * n_stages // n_split, (s + 1) * n_stages //
+    n_split); the last split stops at S."""
+    return [(s * n_stages // n_split * STAGE_ROWS,
+             min((s + 1) * n_stages // n_split * STAGE_ROWS, S))
+            for s in range(n_split)]
 
 
 def decode_attention(q, k_cache, v_cache, kv_len, *, softcap: float = 0.0,
                      block_s: int = 512, scale: float | None = None):
     """q: (B, Hkv, G, D) grouped heads; caches (B, S, Hkv, D); ``kv_len`` an
     int or a one-element int tensor (never read on the host) -> (B,Hkv,G,D).
-    The cache rows are dealt to CTAs in whole blocks of ``block_s``."""
+    The cache rows are dealt to CTAs in whole stages of ``STAGE_ROWS``
+    (``block_s`` is accepted and ignored, see the module note)."""
     B, Hkv, G, D = q.shape
     if (k_cache.dim() != 4 or k_cache.shape[0] != B or k_cache.shape[2] != Hkv
             or k_cache.shape[3] != D or v_cache.shape != k_cache.shape):
@@ -80,6 +119,9 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, softcap: float = 0.0,
     if not (q.is_contiguous() and k_cache.is_contiguous()
             and v_cache.is_contiguous()):
         raise ValueError("q and the caches must be contiguous")
+    path = kernel_path(q.dtype, D)
+    if path == "bulk" and any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
+        raise ValueError("the bulk-copy kernel needs 16-byte aligned caches")
     S = k_cache.shape[1]
     if block_s < 1:
         raise ValueError("block_s must be >= 1")
@@ -88,7 +130,14 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, softcap: float = 0.0,
         raise ValueError("kv_len must be a scalar")
     kv_len = kv_len.to(torch.int32).reshape(1).contiguous()
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    n_split, chunk = _plan(S, B, Hkv, min(block_s, S), q.device)
+    if path == "bulk":
+        hc = heads_per_cta(Hkv, D)
+        ctas = B * (Hkv // hc) * -(-G // 16)
+    else:
+        hc = 1
+        ctas = B * Hkv * -(-G // 8)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    n_split, n_stages = _plan(S, ctas, sms, _CTAS_PER_SM[path])
     out = torch.empty_like(q)
     m_part = torch.empty((B * Hkv, n_split, G), dtype=torch.float32,
                          device=q.device)
@@ -99,12 +148,12 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, softcap: float = 0.0,
     i = ctypes.c_int
     f = ctypes.c_float
     lib = compat.load("decode_attention", decode_attention=[
-        i, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, f, p])
+        i, i, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, f, p])
     err = lib.decode_attention(
-        _DTYPES[q.dtype], D, q.data_ptr(), k_cache.data_ptr(),
+        _PATHS[path], _DTYPES[q.dtype], D, q.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
         m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-        B, S, Hkv, G, n_split, chunk, scale, float(softcap),
+        B, S, Hkv, G, hc, n_split, n_stages, scale, float(softcap),
         compat.stream_ptr(q.device))
     compat.check_launch(err, "decode_attention")
     decode_attention.launches += 1

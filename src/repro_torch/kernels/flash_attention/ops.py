@@ -11,7 +11,7 @@ raises); on CPU tensors it runs the plain PyTorch version
 ``block_q`` and ``block_kv`` are the reference's TPU tile sizes.  The port
 accepts them so that callers keep the reference's signature, and otherwise
 ignores them: the card's tiles are fixed by the kernel (on the tensor cores
-128 query rows, 64 at D = 256, and 32 keys).
+128 query rows and 128 keys, 64 keys at D = 256).
 """
 from __future__ import annotations
 
@@ -29,6 +29,17 @@ NEG_INF = -1e30
 #: Query rows the plain version takes at a time, so that it never holds an
 #: (Sq, Skv) score matrix of every head (2·28·4096² fp32 is 3.8 GB).
 ROW_BLOCK = 512
+#: Head sizes the bfloat16 wgmma kernel takes; every other (dtype, D) runs on
+#: the CUDA cores.
+WGMMA_HEAD_DIMS = (64, 128, 256)
+_PATHS = {"simt": 0, "wgmma": 1}
+
+
+def kernel_path(dtype: torch.dtype, D: int) -> str:
+    """Which kernel of ``csrc/flash_attention.cu`` a CUDA call takes:
+    ``"wgmma"`` (bfloat16, D in ``WGMMA_HEAD_DIMS``) or ``"simt"``."""
+    return "wgmma" if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS \
+        else "simt"
 
 
 def attention_ref(q, k, v, *, causal=True, window=None, softcap=0.0,
@@ -104,7 +115,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
             or out.stride() != q.stride():
         raise ValueError("q must be a dense view and k, v views of one layout, "
                          "each with a contiguous last dimension")
-    if q.dtype == torch.bfloat16 and D >= 64 and (
+    path = kernel_path(q.dtype, D)
+    if path == "wgmma" and (
             any(s % 8 for s in (*q.stride()[:3], *k.stride()[:3]))
             or any(t.data_ptr() % 16 for t in (q, k, v))):
         raise ValueError("the tensor-core kernel needs 16-byte aligned rows")
@@ -115,9 +127,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     ll = ctypes.c_longlong
     f = ctypes.c_float
     lib = compat.load("flash_attention", flash_attention=[
-        i, i, p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, ll, i, i, f, f, p])
+        i, i, i, p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, ll, i, i, f, f, p])
     err = lib.flash_attention(
-        _DTYPES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        _PATHS[path], _DTYPES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), B, Hkv, Hq // Hkv, Sq, Skv,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
