@@ -54,11 +54,21 @@ PEAK_BF16_TENSOR_FLOPS = 989e12   # bf16 on the tensor cores, dense
 #:   plain version run on |v| -- per element, twice that rounding's reach.
 #:   On the long rows, where nearly all the work is, that is ~3e-3 against
 #:   outputs of ~3e-2; a row of one key may move by ~1e-2;
-#: * the RG-LRU scan is float32 on both sides, the carry into each chunk
-#:   combined in another order: 1e-5 relative plus 1e-5 of the largest;
-#: * the mLSTM is float32 arithmetic on both sides, rounded once to bf16:
-#:   rtol 1e-2 (above 2^-7, one ulp at the foot of a binade) plus 1e-3 of
-#:   the largest output for the near-zero ones.
+#: * the RG-LRU scan is float32 on both sides, one fmaf a step against the
+#:   plain version's multiply-add: 1e-5 relative plus 1e-5 of the largest;
+#: * the mLSTM's tensor-core kernels hand three operands to the tensor cores
+#:   in bf16 that the plain version keeps in fp32: the entering state C_j
+#:   (q C_j), the scores s (s v), and k e^(total - cum + li) (the state
+#:   update).  Each rounding moves a term of the numerator by at most 2^-9
+#:   of its magnitude, and a term meets at most two of them (C_j is built
+#:   from rounded k e^..., then rounded itself; s v meets one), so the
+#:   numerator moves by at most 2^-8 of the same arithmetic run on |q|,
+#:   |k|, |v| with the same gates.  Divided by the true max(|den|, 1)
+#:   (the denominator is fp32 on both sides) that is the per-element
+#:   spread (``mlstm_chunk_spread``); the bound is twice that reach,
+#:   2^-7 * spread, plus rtol 1e-2 for the two roundings of the output to
+#:   bf16 (each within 2^-8 of |want|).  The skipped-chunk fault must fall
+#:   outside it, and the parity row prints by what factor.
 TOL = {"membench": dict(rtol=1e-6, atol=0.0, of_max=0.0),
        "float32": dict(rtol=2e-5, atol=2e-5, of_max=0.0),
        "bfloat16": dict(rtol=2e-2, atol=2e-2, of_max=0.0),
@@ -67,7 +77,7 @@ TOL = {"membench": dict(rtol=1e-6, atol=0.0, of_max=0.0),
        "bfloat16_card": dict(rtol=0.0, atol=0.0, of_max=1e-2),
        "flash_card": dict(rtol=2e-2, atol=0.0, of_max=0.0, of_spread=2 ** -8),
        "rglru_card": dict(rtol=1e-5, atol=0.0, of_max=1e-5),
-       "mlstm_card": dict(rtol=1e-2, atol=0.0, of_max=1e-3)}
+       "mlstm_card": dict(rtol=1e-2, atol=0.0, of_max=0.0, of_spread=2 ** -7)}
 CARD_TOL = {"decode_attention": "bfloat16_card", "flash_attention": "flash_card",
             "rglru_scan": "rglru_card", "mlstm_chunk": "mlstm_card"}
 
@@ -104,13 +114,19 @@ def nvidia_smi() -> str:
 #: Hopper's warpgroup products, TMA tile loads, 1-D bulk copies, and the
 #: warp-level products of the earlier tensor-core kernels.
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "HMMA")
-#: Kernel functions of the card shapes (mangled-name fragments) and the SASS
-#: instructions each must contain: flash attention at qwen2-7b prefill
-#: (D = 128, causal, no window, no cap) and decode attention at D = 128
-#: without a cap.
+#: Kernel functions of the card shapes (mangled-name fragments), by library,
+#: and the SASS instructions each must contain: flash attention at qwen2-7b
+#: prefill (D = 128, causal, no window, no cap), decode attention at D = 128
+#: without a cap, the three tensor-core mLSTM kernels of the xlstm-1.3b
+#: shape (bf16, dh 1024, chunk 256), and the RG-LRU's copy-ring scan
+#: (float32), so that none of them silently runs on the CUDA cores or
+#: without its bulk copies.
 SASS_REQUIRED = {
-    "flash_attention": ("flash_wgmmaILi128ELb1ELb0ELb0E", (("HGMMA",), ("UTMALDG",))),
-    "decode_attention": ("decode_bulkILi128ELb0E", (("UBLKCP", "UTMALDG"),)),
+    "flash_attention": (("flash_wgmmaILi128ELb1ELb0ELb0E", (("HGMMA",), ("UTMALDG",))),),
+    "decode_attention": (("decode_bulkILi128ELb0E", (("UBLKCP", "UTMALDG"),)),),
+    "mlstm_chunk": tuple((f"mlstm_wg_{k}", (("HGMMA",), ("UTMALDG",)))
+                         for k in ("state", "scores", "out")),
+    "rglru": (("rglru_ringIfE", (("UTMALDG", "UBLKCP"),)),),
 }
 
 
@@ -180,12 +196,13 @@ def sass_counts(lib) -> dict:
 def check_sass(sass: dict) -> None:
     """Fail unless each card-shape kernel holds its required instructions
     (any one of each alternative group)."""
-    for lib, (fragment, groups) in SASS_REQUIRED.items():
-        fns = [c for name, c in sass[lib].items() if fragment in name]
-        check(len(fns) == 1, f"{lib}: kernel {fragment} not found in the SASS")
-        for group in groups:
-            check(any(fns[0][op] > 0 for op in group),
-                  f"{lib}: {fragment} contains none of {group}")
+    for lib, kernels in SASS_REQUIRED.items():
+        for fragment, groups in kernels:
+            fns = [c for name, c in sass[lib].items() if fragment in name]
+            check(len(fns) == 1, f"{lib}: kernel {fragment} not found in the SASS")
+            for group in groups:
+                check(any(fns[0][op] > 0 for op in group),
+                      f"{lib}: {fragment} contains none of {group}")
 
 
 # ---------------------------------------------------------------------------
@@ -345,33 +362,65 @@ def test_cases(device) -> list[dict]:
         lambda: FA.attention_ref(*(t.transpose(1, 2) for t in (q, k, v)))
         .transpose(1, 2), "bfloat16",
         FA.flash_attention_traffic(*(t.transpose(1, 2) for t in (q, k, v)))))
-    for B, S, W, bs, bw in [(2, 64, 96, 16, 32), (1, 128, 64, 64, 64),
-                            (3, 96, 128, 32, 128)]:
-        for dt in (torch.float32, torch.bfloat16):
-            gen = torch.Generator(device=device).manual_seed(8)
-            a = (0.6 + 0.399 * torch.rand((B, S, W), generator=gen,
-                                          device=device)).to(dt)
-            b = randn((B, S, W), 9, device, dt)
-            out.append(_case(
-                "rglru_scan", f"B{B}_S{S}_W{W}_bs{bs}_bw{bw}_{str(dt)[6:]}",
-                lambda a=a, b=b, bs=bs, bw=bw: RG.scan(a, b, block_s=bs,
-                                                       block_w=bw),
-                lambda a=a, b=b: RG.rglru_scan_ref(a, b),
-                f"rglru_{str(dt)[6:]}", RG.rglru_scan_traffic(a, b)))
-    for B, S, H, dh, chunk in [(2, 64, 3, 16, 16), (1, 96, 2, 32, 32),
-                               (2, 32, 4, 8, 32)]:
-        for dt in (torch.float32, torch.bfloat16):
-            args = (randn((B, S, H, dh), 10, device, dt),
-                    (randn((B, S, H, dh), 11, device) / dh ** 0.5).to(dt),
-                    randn((B, S, H, dh), 12, device, dt),
-                    torch.nn.functional.logsigmoid(randn((B, S, H), 13, device)),
-                    torch.nn.functional.logsigmoid(
-                        randn((B, S, H), 14, device) + 2.0))
-            out.append(_case(
-                "mlstm_chunk", f"B{B}_S{S}_H{H}_dh{dh}_chunk{chunk}_{str(dt)[6:]}",
-                lambda a=args, c=chunk: ML.chunked_mlstm(*a, chunk=c),
-                lambda a=args, c=chunk: ML.chunked_mlstm_ref(*a, chunk=c),
-                str(dt)[6:], ML.mlstm_chunk_traffic(*args, chunk=chunk)))
+    rglrus = [(B, S, W, bs, bw, dt)
+              for B, S, W, bs, bw in [(2, 64, 96, 16, 32), (1, 128, 64, 64, 64),
+                                      (3, 96, 128, 32, 128)]
+              for dt in (torch.float32, torch.bfloat16)]
+    # rows of 200 bytes (no TMA box: plain loads), fewer channels than one
+    # tile, and S and W ragged against the stage and the tile
+    rglrus += [(1, 100, 100, 32, 128, torch.bfloat16),
+               (1, 50, 16, 256, 512, torch.float32),
+               (2, 77, 200, 64, 64, torch.float32)]
+    for B, S, W, bs, bw, dt in rglrus:
+        gen = torch.Generator(device=device).manual_seed(8)
+        a = (0.6 + 0.399 * torch.rand((B, S, W), generator=gen,
+                                      device=device)).to(dt)
+        b = randn((B, S, W), 9, device, dt)
+        out.append(_case(
+            "rglru_scan", f"B{B}_S{S}_W{W}_bs{bs}_bw{bw}_{str(dt)[6:]}",
+            lambda a=a, b=b, bs=bs, bw=bw: RG.scan(a, b, block_s=bs,
+                                                   block_w=bw),
+            lambda a=a, b=b: RG.rglru_scan_ref(a, b),
+            f"rglru_{str(dt)[6:]}", RG.rglru_scan_traffic(a, b)))
+    mlstms = [(B, S, H, dh, chunk, dt)
+              for B, S, H, dh, chunk in [(2, 64, 3, 16, 16), (1, 96, 2, 32, 32),
+                                         (2, 32, 4, 8, 32)]
+              for dt in (torch.float32, torch.bfloat16)]
+    # the tensor-core kernels: dh 64 and 128, chunks of 64, 128 and 256 over
+    # 2-4 chunks, a chunk the reference halves (256 -> 128 at S = 384), and
+    # dh 192, which leaves part of a 256-column state tile and of a
+    # 128-column output tile empty
+    mlstms += [(2, 128, 2, 64, 64, torch.bfloat16),
+               (1, 384, 2, 128, 128, torch.bfloat16),
+               (1, 1024, 1, 64, 256, torch.bfloat16),
+               (2, 512, 2, 128, 256, torch.bfloat16),
+               (1, 384, 2, 64, 256, torch.bfloat16),
+               (1, 256, 2, 192, 64, torch.bfloat16)]
+    for B, S, H, dh, chunk, dt in mlstms:
+        args = (randn((B, S, H, dh), 10, device, dt),
+                (randn((B, S, H, dh), 11, device) / dh ** 0.5).to(dt),
+                randn((B, S, H, dh), 12, device, dt),
+                torch.nn.functional.logsigmoid(randn((B, S, H), 13, device)),
+                torch.nn.functional.logsigmoid(
+                    randn((B, S, H), 14, device) + 2.0))
+        out.append(_case(
+            "mlstm_chunk", f"B{B}_S{S}_H{H}_dh{dh}_chunk{chunk}_{str(dt)[6:]}",
+            lambda a=args, c=chunk: ML.chunked_mlstm(*a, chunk=c),
+            lambda a=args, c=chunk: ML.chunked_mlstm_ref(*a, chunk=c),
+            str(dt)[6:], ML.mlstm_chunk_traffic(*args, chunk=chunk)))
+    # the kernel's own (B, H, S, dh) layout, contiguous: rows dh apart (k
+    # scaled by dh^-1/2, as in every case here and in the reference's tests)
+    heads_first = (randn((1, 2, 256, 128), 15, device, torch.bfloat16),
+                   (randn((1, 2, 256, 128), 16, device) / 128 ** 0.5).to(torch.bfloat16),
+                   randn((1, 2, 256, 128), 17, device, torch.bfloat16),
+                   torch.nn.functional.logsigmoid(randn((1, 2, 256), 18, device)),
+                   torch.nn.functional.logsigmoid(randn((1, 2, 256), 19, device) + 2.0))
+    out.append(_case(
+        "mlstm_chunk", "BHSD_B1_H2_S256_dh128_chunk128_bfloat16",
+        lambda a=heads_first: ML.mlstm_chunk(*a, chunk=128),
+        lambda a=heads_first: ML.mlstm_chunk_ref(*a, chunk=128), "bfloat16",
+        ML.mlstm_chunk_traffic(*(t.transpose(1, 2) for t in heads_first),
+                               chunk=128)))
     return out
 
 
@@ -490,9 +539,14 @@ def _tensors(args):
 
 def spread(c: dict):
     """Per-element scale of a card case's ``of_spread`` tolerance: for flash
-    attention sum_j p_j |v_j|, its plain version run on |v|; else None."""
+    attention sum_j p_j |v_j|, its plain version run on |v|; for the mLSTM
+    ``chunked_mlstm_spread``; else None."""
     if not TOL[c["tol"]].get("of_spread"):
         return None
+    if c["name"] == "mlstm_chunk":
+        from repro_torch.kernels.mlstm_chunk import ops as ML
+
+        return ML.chunked_mlstm_spread(*c["args"], chunk=c["ref"].keywords["chunk"])
     check(c["name"] == "flash_attention", f"no spread for {c['name']}")
     q, k, v = c["args"]
     return c["ref"](q, k, v.abs()).float()

@@ -531,46 +531,13 @@ __global__ void __launch_bounds__(kSimtWarps * 32) flash_simt(const Params p) {
   }
 }
 
-// cuTensorMapEncodeTiled, a driver-API function, through the runtime's entry
-// point query, so that the library needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
 // Tensor map of a (B, Hkv, Skv, D) bf16 view with element strides (sb, sh,
 // ss, 1): boxes of 64 channels (128 bytes, 128-byte swizzle) by `rows` keys;
 // keys past Skv read as zeros.
 bool kv_map(CUtensorMap* map, const void* base, int B, int Hkv, int Skv, int D, long long sb,
             long long sh, long long ss, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Skv, (cuuint64_t)Hkv, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return sm90::tile_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, {D, Skv, Hkv, B},
+                       {ss, sh, sb}, {64, rows, 1, 1}, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int D, bool CAUSAL, bool WINDOW, bool CAP>

@@ -5,34 +5,36 @@
 // every (batch, channel) of (B, S, W) inputs, the carry held in fp32 and each
 // output rounded once to the input dtype.
 //
-// What bounds it on this card: bytes.  Two flops per element against at
-// least 3 * s bytes (a and b read, h written), far below the ridge.  The TPU
-// marches time over 128-lane channel tiles, one (b, w tile) per grid row; on
-// Hopper one thread per channel gives B * W / 32 warps (512 at the
-// recurrentgemma-9b width, B = 4), under four per SM: too few loads in flight
-// to stream from HBM.  So S is split into chunks of `chunk` steps and the
-// scan runs in three launches (a chunked scan):
+// What bounds it on this card: bytes.  Two flops per element against 3 * s
+// bytes (a and b read, h written), far below the ridge.  The TPU marches time
+// over 128-lane channel tiles, one (b, w tile) per grid row; so does this
+// kernel, in one pass that reads a and b once and needs no scratch.  A CTA
+// owns `cw` channels (at most 128) of one batch row, one thread per channel,
+// and keeps the carry in a register for the whole of S.  At the
+// recurrentgemma-9b width (B = 4, W = 4096) that is 128 CTAs, one wave of
+// 132 SMs: channels are plenty, and what one thread per channel lacks is
+// bytes in flight.  So a producer warp streams (steps x cw) tiles of a and b
+// by TMA into a ring of kStages stages (32 KB a stage at 32 steps of 128 fp32
+// channels), and the consumers walk each stage step by step (fmaf) and write
+// h with coalesced stores: each SM needs ~25 GB/s, which four stages of
+// ~1.5 us latency cover (Little's law).
 //
-//   rglru_summary  per (b, chunk, channel): the chunk's scan from h = 0 (its
-//                  last value H) and the product P of its a, both fp32;
-//   rglru_carry    per (b, channel): walks the chunks in order, replacing H of
-//                  chunk c by the carry into it, h_{c-1} = P_{c-1} h + H_{c-1};
-//   rglru_apply    per (b, chunk, channel): rescans the chunk from its carry
-//                  and writes h in the input dtype.
-//
-// Threads own one channel each, so a warp reads 32 neighbouring channels of
-// one time step (coalesced); the time loop is unrolled so that the loads of
-// several steps are in flight at once.  The price of the split is bytes: a
-// and b are read twice (5 * s bytes per element instead of 3 * s), plus
-// 2 * B * n_chunks * W floats of summaries.  A single pass with decoupled
-// look-back between consecutive chunks would avoid the second read.
+// Rows whose byte length is not a multiple of 16 (bf16 W = 100) are no TMA
+// box; there every thread reads its channel with plain loads, several steps
+// ahead (rglru_plain), still one pass.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int kUnroll = 8;
+constexpr int kStages = 4;
+constexpr int kMaxTile = 128;   // channels a CTA
+constexpr int kMaxSteps = 32;   // steps a stage
+constexpr int kUnroll = 8;      // steps of plain loads in flight
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -46,87 +48,76 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// grid (ceil(W / blockDim.x), n_chunks, B).  P and H: (B, n_chunks, W) fp32.
+// grid (ceil(W / cw), B); cw + 32 threads (cw a multiple of 32, at most
+// kMaxTile): consumers 0 .. cw - 1, then the producer warp.
 template <typename T>
-__global__ void rglru_summary(const T* __restrict__ a, const T* __restrict__ b,
-                              float* __restrict__ P, float* __restrict__ H, int S, int W,
-                              int chunk) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= W) return;
-  const int c = blockIdx.y;
-  const int bi = blockIdx.z;
-  const int t0 = c * chunk;
-  const int t1 = min(t0 + chunk, S);
-  const size_t base = ((size_t)bi * S) * W + w;
-  float h = 0.f, p = 1.f;
-  int t = t0;
-  for (; t + kUnroll <= t1; t += kUnroll) {
-    float av[kUnroll], bv[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      av[u] = to_float(__ldcs(a + base + (size_t)(t + u) * W));
-      bv[u] = to_float(__ldcs(b + base + (size_t)(t + u) * W));
+__global__ void __launch_bounds__(kMaxTile + 32)
+    rglru_ring(const __grid_constant__ CUtensorMap tma, const __grid_constant__ CUtensorMap tmb,
+               T* __restrict__ out, int S, int W, int steps) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int cw = blockDim.x - 32;
+  const int tile = steps * cw;  // elements of one array in a stage
+  T* as = reinterpret_cast<T*>(smem);            // [kStages][steps][cw]
+  T* bs = as + kStages * tile;
+  uint64_t* full = reinterpret_cast<uint64_t*>(bs + kStages * tile);
+  uint64_t* empty = full + kStages;
+  const int w0 = blockIdx.x * cw, bi = blockIdx.y;
+  const int n_st = (S + steps - 1) / steps;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], cw / 32);
     }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      h = av[u] * h + bv[u];
-      p *= av[u];
-    }
+    sm90::mbar_init_fence();
   }
-  for (; t < t1; ++t) {
-    const float av = to_float(a[base + (size_t)t * W]);
-    h = av * h + to_float(b[base + (size_t)t * W]);
-    p *= av;
-  }
-  const size_t s = ((size_t)bi * gridDim.y + c) * W + w;
-  P[s] = p;
-  H[s] = h;
-}
+  __syncthreads();
 
-// grid (ceil(W / blockDim.x), B).  Replaces H[b, c, w] by the carry into
-// chunk c (0 for the first chunk).
-__global__ void rglru_carry(const float* __restrict__ P, float* __restrict__ H, int W,
-                            int n_chunks) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= W) return;
-  const size_t base = (size_t)blockIdx.y * n_chunks * W + w;
+  if (threadIdx.x >= cw) {
+    if (threadIdx.x == cw) {
+      for (int i = 0; i < n_st; ++i) {
+        const int s = i % kStages;
+        sm90::mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&full[s], 2 * tile * sizeof(T));
+        sm90::tma_load_4d(as + s * tile, &tma, &full[s], w0, i * steps, bi, 0);
+        sm90::tma_load_4d(bs + s * tile, &tmb, &full[s], w0, i * steps, bi, 0);
+      }
+    }
+    return;
+  }
+  const int t = threadIdx.x;
+  const int w = w0 + t;
+  T* o = out + (size_t)bi * S * W + w;
   float h = 0.f;
-  int c = 0;
-  for (; c + kUnroll <= n_chunks; c += kUnroll) {
-    float pv[kUnroll], hv[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      pv[u] = P[base + (size_t)(c + u) * W];
-      hv[u] = H[base + (size_t)(c + u) * W];
+  for (int i = 0; i < n_st; ++i) {
+    const int s = i % kStages;
+    sm90::mbar_wait(&full[s], (i / kStages) & 1);
+    const T* a = as + s * tile + t;
+    const T* b = bs + s * tile + t;
+    const int n = min(steps, S - i * steps);
+    T* oi = o + (size_t)i * steps * W;
+    if (w < W) {
+#pragma unroll kUnroll
+      for (int u = 0; u < n; ++u) {
+        h = fmaf(to_float(a[u * cw]), h, to_float(b[u * cw]));
+        __stcs(oi + (size_t)u * W, from_float<T>(h));
+      }
     }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      H[base + (size_t)(c + u) * W] = h;
-      h = pv[u] * h + hv[u];
-    }
-  }
-  for (; c < n_chunks; ++c) {
-    const float hv = H[base + (size_t)c * W];
-    H[base + (size_t)c * W] = h;
-    h = P[base + (size_t)c * W] * h + hv;
+    __syncwarp();
+    if (t % 32 == 0) sm90::mbar_arrive(&empty[s]);
   }
 }
 
-// grid as rglru_summary: rescan each chunk from its carry and write h.
+// grid (ceil(W / cw), B), cw threads: plain loads, kUnroll steps ahead.
 template <typename T>
-__global__ void rglru_apply(const T* __restrict__ a, const T* __restrict__ b,
-                            const float* __restrict__ carry, T* __restrict__ out, int S, int W,
-                            int chunk) {
+__global__ void __launch_bounds__(kMaxTile)
+    rglru_plain(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ out, int S,
+                int W) {
   const int w = blockIdx.x * blockDim.x + threadIdx.x;
   if (w >= W) return;
-  const int c = blockIdx.y;
-  const int bi = blockIdx.z;
-  const int t0 = c * chunk;
-  const int t1 = min(t0 + chunk, S);
-  const size_t base = ((size_t)bi * S) * W + w;
-  float h = carry[((size_t)bi * gridDim.y + c) * W + w];
-  int t = t0;
-  for (; t + kUnroll <= t1; t += kUnroll) {
+  const size_t base = (size_t)blockIdx.y * S * W + w;
+  float h = 0.f;
+  int t = 0;
+  for (; t + kUnroll <= S; t += kUnroll) {
     float av[kUnroll], bv[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -135,48 +126,57 @@ __global__ void rglru_apply(const T* __restrict__ a, const T* __restrict__ b,
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      h = av[u] * h + bv[u];
+      h = fmaf(av[u], h, bv[u]);
       __stcs(out + base + (size_t)(t + u) * W, from_float<T>(h));
     }
   }
-  for (; t < t1; ++t) {
-    h = to_float(a[base + (size_t)t * W]) * h + to_float(b[base + (size_t)t * W]);
+  for (; t < S; ++t) {
+    h = fmaf(to_float(a[base + (size_t)t * W]), h, to_float(b[base + (size_t)t * W]));
     out[base + (size_t)t * W] = from_float<T>(h);
   }
 }
 
 template <typename T>
-cudaError_t launch(const void* a, const void* b, void* out, float* P, float* H, int B, int S,
-                   int W, int chunk, int threads, cudaStream_t s) {
-  const int n_chunks = (S + chunk - 1) / chunk;
-  const int wb = (W + threads - 1) / threads;
-  const dim3 grid(wb, n_chunks, B);
-  const auto* ta = static_cast<const T*>(a);
-  const auto* tb = static_cast<const T*>(b);
-  rglru_summary<T><<<grid, threads, 0, s>>>(ta, tb, P, H, S, W, chunk);
-  cudaError_t err = cudaGetLastError();
+cudaError_t launch(const void* a, const void* b, void* out, int B, int S, int W, int cw,
+                   int steps, cudaStream_t s) {
+  const dim3 grid((W + cw - 1) / cw, B);
+  const bool boxes = ((size_t)W * sizeof(T)) % 16 == 0 && (uintptr_t)a % 16 == 0 &&
+                     (uintptr_t)b % 16 == 0;
+  if (!boxes) {
+    rglru_plain<T><<<grid, cw, 0, s>>>(static_cast<const T*>(a), static_cast<const T*>(b),
+                                       static_cast<T*>(out), S, W);
+    return cudaGetLastError();
+  }
+  const CUtensorMapDataType type =
+      sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const long long dims[4] = {W, S, B, 1};
+  const long long strides[3] = {W, (long long)S * W, (long long)B * S * W};
+  CUtensorMap tma, tmb;
+  if (!sm90::tile_map(&tma, type, sizeof(T), a, dims, strides, {cw, steps, 1, 1},
+                      CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !sm90::tile_map(&tmb, type, sizeof(T), b, dims, strides, {cw, steps, 1, 1},
+                      CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  const size_t smem = 2 * (size_t)kStages * steps * cw * sizeof(T) + 2 * kStages * sizeof(uint64_t);
+  const cudaError_t err =
+      cudaFuncSetAttribute(rglru_ring<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  rglru_carry<<<dim3(wb, B), threads, 0, s>>>(P, H, W, n_chunks);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  rglru_apply<T><<<grid, threads, 0, s>>>(ta, tb, H, static_cast<T*>(out), S, W, chunk);
+  rglru_ring<T><<<grid, cw + 32, smem, s>>>(tma, tmb, static_cast<T*>(out), S, W, steps);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  a, b, out: contiguous (B, S, W); P and
-// H: scratch of B * ceil(S / chunk) * W floats each; `threads` channels per
-// CTA (a multiple of 32, at most 1024).  Returns the first cudaError_t met.
-extern "C" int rglru_scan(int dtype, const void* a, const void* b, void* out, void* P, void* H,
-                          int B, int S, int W, int chunk, int threads, void* stream) {
-  if (B < 1 || S < 1 || W < 1 || chunk < 1 || threads < 32 || threads > 1024 ||
-      threads % 32 || B > 65535 || (S + chunk - 1) / chunk > 65535)
+// dtype: 0 = float32, 1 = bfloat16.  a, b, out: contiguous (B, S, W).  cw
+// channels a CTA (a multiple of 32, at most 128), `steps` time steps a
+// stage (1 .. 32).  One launch; returns its cudaError_t.
+extern "C" int rglru_scan(int dtype, const void* a, const void* b, void* out, int B, int S,
+                          int W, int cw, int steps, void* stream) {
+  if (B < 1 || S < 1 || W < 1 || cw < 32 || cw > kMaxTile || cw % 32 || steps < 1 ||
+      steps > kMaxSteps || B > 65535)
     return cudaErrorInvalidValue;
-  auto* p = static_cast<float*>(P);
-  auto* h = static_cast<float*>(H);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(a, b, out, p, h, B, S, W, chunk, threads, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(a, b, out, p, h, B, S, W, chunk, threads, s);
+  if (dtype == 0) return launch<float>(a, b, out, B, S, W, cw, steps, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(a, b, out, B, S, W, cw, steps, s);
   return cudaErrorInvalidValue;
 }

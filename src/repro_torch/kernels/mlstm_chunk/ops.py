@@ -7,6 +7,11 @@ kernel's ``(B, H, S, dh)``; both take views, so no layout is copied.  On
 CUDA tensors ``mlstm_chunk`` launches ``csrc/mlstm_chunk.cu`` (or raises);
 on CPU tensors it runs the plain PyTorch version :func:`mlstm_chunk_ref`,
 which repeats the kernel's chunkwise arithmetic in float32.
+
+Which kernels a CUDA call takes is decided by shape (:func:`kernel_path`):
+bfloat16 with dh and the chunk multiples of 64 runs on the tensor cores in
+three launches (states, scores, outputs), which :func:`mlstm_chunk_staged_ref`
+repeats in plain PyTorch; every other call keeps the fp32 CUDA-core kernels.
 """
 from __future__ import annotations
 
@@ -17,9 +22,35 @@ import torch
 from repro_torch import compat
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: Largest chunk and head size the CUDA kernel takes (shared-memory bound).
+#: Largest chunk and head size the CUDA kernels take (shared-memory bound).
 MAX_CHUNK = 256
 MAX_HEAD = 1024
+_PATHS = {"simt": 0, "wgmma": 1}
+
+
+def kernel_path(dtype: torch.dtype, dh: int, c: int) -> str:
+    """Which kernels of ``csrc/mlstm_chunk.cu`` a CUDA call takes for head
+    size ``dh`` and chunk ``c``: ``"wgmma"`` (bfloat16, dh and c multiples
+    of 64: the tensor cores) or ``"simt"`` (the fp32 CUDA cores)."""
+    return "wgmma" if dtype == torch.bfloat16 and dh % 64 == 0 \
+        and c % 64 == 0 else "simt"
+
+
+def scratch_shapes(path: str, B: int, H: int, S: int, dh: int,
+                   c: int) -> dict:
+    """name -> (shape, dtype) of the scratch a call on ``path`` allocates.
+    ``"simt"``: the scores s in float32.  ``"wgmma"``: s in bfloat16 (the
+    s v operand), each row's denominator, and the state (C in bfloat16, n
+    in float32) entering every chunk after the first (one slot when there
+    is a single chunk)."""
+    n_chunks = S // c
+    if path == "simt":
+        return {"s_buf": ((B * H, n_chunks, c, c), torch.float32)}
+    n_states = max(n_chunks - 1, 1)
+    return {"s_buf": ((B * H, n_chunks, c, c), torch.bfloat16),
+            "den": ((B * H, S), torch.float32),
+            "states": ((B * H, n_states, dh, dh), torch.bfloat16),
+            "n_buf": ((B * H, n_states, dh), torch.float32)}
 
 
 def chunk_size(S: int, chunk: int) -> int:
@@ -66,6 +97,67 @@ def mlstm_chunk_ref(q, k, v, li, lf, *, chunk: int = 256):
     return out.to(q.dtype)
 
 
+def _staged(q, k, v, li, lf, c: int, rounded: bool):
+    """(numerator, denominator) of every row, float32, split as the
+    tensor-core kernels split the work: per chunk j the entering state
+    (C_j, n_j); the scores s = (q kᵀ) ∘ w and the denominator
+    e^cum (q · n_j) + rowsum(s); the numerator e^cum (q C_j) + s v; then
+    C_{j+1} = e^total C_j + (k e^(total - cum + li))ᵀ v and n likewise.
+    With ``rounded`` the three operands the kernels hand to the tensor
+    cores in bfloat16 are rounded to it: C_j in the output product, s in
+    s v, and k e^(total - cum + li) in the state update (n sums it
+    unrounded, as the kernels do)."""
+    B, H, S, dh = q.shape
+    rnd = (lambda x: x.to(torch.bfloat16).float()) if rounded else (lambda x: x)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    lif, lff = li.float(), lf.float()
+    C = q.new_zeros((B, H, dh, dh), dtype=torch.float32)
+    n = q.new_zeros((B, H, dh), dtype=torch.float32)
+    causal = torch.ones(c, c, dtype=torch.bool, device=q.device).tril()
+    num = torch.empty((B, H, S, dh), dtype=torch.float32, device=q.device)
+    den = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    for j in range(S // c):
+        rows = slice(j * c, (j + 1) * c)
+        qc, kc, vc = qf[:, :, rows], kf[:, :, rows], vf[:, :, rows]
+        lic = lif[:, :, rows]
+        cum = torch.cumsum(lff[:, :, rows], dim=-1)
+        total = cum[..., -1:]
+        ecum = torch.exp(cum)
+        w_log = cum[..., :, None] - cum[..., None, :] + lic[..., None, :]
+        w = torch.where(causal, torch.exp(w_log), torch.zeros_like(w_log))
+        s = (qc @ kc.transpose(-1, -2)) * w
+        den[:, :, rows] = ecum * (qc @ n[..., None])[..., 0] + s.sum(-1)
+        num[:, :, rows] = ecum[..., None] * (qc @ rnd(C)) + rnd(s) @ vc
+        kw = kc * torch.exp(total - cum + lic)[..., None]
+        C = C * torch.exp(total)[..., None] + rnd(kw).transpose(-1, -2) @ vc
+        n = n * torch.exp(total) + kw.sum(-2)
+    return num, den
+
+
+def mlstm_chunk_staged_ref(q, k, v, li, lf, *, chunk: int = 256,
+                           rounded: bool = False):
+    """q, k, v: (B, H, S, dh); li, lf: (B, H, S) -> (B, H, S, dh) in q's
+    dtype: the function of :func:`mlstm_chunk_ref`, computed in the three
+    stages of the tensor-core kernels (states, scores, outputs) and, with
+    ``rounded``, with their bfloat16 operands (see :func:`_staged`)."""
+    num, den = _staged(q, k, v, li, lf, chunk_size(q.shape[2], chunk), rounded)
+    return (num / torch.clamp(den.abs(), min=1.0)[..., None]).to(q.dtype)
+
+
+def mlstm_chunk_spread(q, k, v, li, lf, *, chunk: int = 256):
+    """Per-element scale of the tensor-core kernels' rounding, (B, H, S, dh)
+    float32: the numerator of the float32 arithmetic run on |q|, |k|, |v|
+    with the same gates, over the true max(|den|, 1).  Each of the
+    bfloat16 operands (C_j, s, k e^(total - cum + li)) moves a term of the
+    numerator by at most 2^-9 of its magnitude, and a term meets at most
+    two of them (C_j built from rounded k e^..., or s alone), so the
+    kernels sit within 2^-8 of this spread of the float32 result."""
+    c = chunk_size(q.shape[2], chunk)
+    num_abs, _ = _staged(q.abs(), k.abs(), v.abs(), li, lf, c, False)
+    _, den = _staged(q, k, v, li, lf, c, False)
+    return num_abs / torch.clamp(den.abs(), min=1.0)[..., None]
+
+
 def mlstm_chunk(q, k, v, li, lf, *, chunk: int = 256):
     """q, k, v: (B, H, S, dh) float32 or bfloat16 views of one layout with
     contiguous rows; li, lf: (B, H, S) float32 views of one layout ->
@@ -102,18 +194,26 @@ def mlstm_chunk(q, k, v, li, lf, *, chunk: int = 256):
                          "contiguous rows, and li and lf views of one layout")
     if out.numel() == 0:
         return out
-    n_chunks = S // c
-    s_buf = torch.empty((B * H, n_chunks, c, c), dtype=torch.float32,
-                        device=q.device)
+    path = kernel_path(q.dtype, dh, c)
+    if path == "wgmma" and (
+            any(st % 8 for st in q.stride()[:3])
+            or any(t.data_ptr() % 16 for t in (q, k, v, out))):
+        raise ValueError("the tensor-core kernels need 16-byte aligned rows")
+    bufs = {name: torch.empty(shape, dtype=dt, device=q.device)
+            for name, (shape, dt) in scratch_shapes(path, B, H, S, dh,
+                                                    c).items()}
+    ptr = {name: t.data_ptr() for name, t in bufs.items()}
     p = ctypes.c_void_p
     i = ctypes.c_int
     ll = ctypes.c_longlong
     lib = compat.load("mlstm_chunk", mlstm_chunk=[
-        i, p, p, p, p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, ll, p])
+        i, i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i,
+        ll, ll, ll, ll, ll, ll, p])
     err = lib.mlstm_chunk(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        li.data_ptr(), lf.data_ptr(), out.data_ptr(), s_buf.data_ptr(),
-        B, H, dh, c, n_chunks, q.stride(0), q.stride(1), q.stride(2),
+        _PATHS[path], _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), li.data_ptr(), lf.data_ptr(), out.data_ptr(),
+        ptr["s_buf"], ptr.get("den"), ptr.get("states"), ptr.get("n_buf"),
+        B, H, dh, c, S // c, q.stride(0), q.stride(1), q.stride(2),
         li.stride(0), li.stride(1), li.stride(2), compat.stream_ptr(q.device))
     compat.check_launch(err, "mlstm_chunk")
     mlstm_chunk.launches += 1
@@ -141,6 +241,12 @@ def chunked_mlstm_ref(q, k, v, li, lf, *, chunk: int = 256):
     """Plain version of :func:`chunked_mlstm`, on any device."""
     return mlstm_chunk_ref(*_heads_first(q, k, v, li, lf),
                            chunk=chunk).transpose(1, 2)
+
+
+def chunked_mlstm_spread(q, k, v, li, lf, *, chunk: int = 256):
+    """:func:`mlstm_chunk_spread` in the model layout: (B, S, H, dh)."""
+    return mlstm_chunk_spread(*_heads_first(q, k, v, li, lf),
+                              chunk=chunk).transpose(1, 2)
 
 
 def mlstm_chunk_traffic(q, k, v, li, lf, *, chunk: int = 256) -> dict:

@@ -3,14 +3,15 @@
 Port of ``repro.kernels.rglru`` (``ops``, ``kernel``, ``ref``):
 ``h_t = a_t * h_{t-1} + b_t`` along S of ``(B, S, W)`` inputs, the carry in
 float32 and the output in the input dtype.  On CUDA tensors :func:`scan`
-launches the chunked scan of ``csrc/rglru.cu`` (or raises); on CPU tensors
+launches the one-pass scan of ``csrc/rglru.cu`` (or raises); on CPU tensors
 it runs the plain PyTorch version :func:`rglru_scan_ref`.
 
-The port reads the reference's blocks as the card's: ``block_s`` is the
-number of time steps one CTA scans (S is split into chunks of that length,
-the last one may be short), ``block_w`` the number of channels one CTA
-holds (rounded up to a whole warp, at most 1024).  Neither has to divide
-S or W: the kernel masks the ragged edges.
+The port reads the reference's blocks as the card's tile: ``block_w``
+caps the channels one CTA holds (rounded up to a whole warp, at most
+``MAX_TILE``), ``block_s`` the time steps of one stage of its copy ring (at
+most ``MAX_STEPS``).  Neither has to divide S or W: the kernel masks the
+ragged edges.  One launch per call reads a and b once; nothing else is
+allocated.
 """
 from __future__ import annotations
 
@@ -21,6 +22,15 @@ import torch
 from repro_torch import compat
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: Channels a CTA holds and time steps a stage of its ring, at most.
+MAX_TILE = 128
+MAX_STEPS = 32
+
+
+def tile(W: int, block_s: int, block_w: int) -> tuple[int, int]:
+    """(channels a CTA, steps a stage) of a call on rows of W channels."""
+    return (min(MAX_TILE, -(-min(block_w, W) // 32) * 32),
+            min(MAX_STEPS, block_s))
 
 
 def rglru_scan_ref(a, b):
@@ -56,17 +66,13 @@ def scan(a, b, *, block_s: int = 256, block_w: int = 512):
     out = torch.empty_like(a)
     if out.numel() == 0:
         return out
-    chunk = min(block_s, S)
-    threads = min(1024, -(-min(block_w, W) // 32) * 32)
-    n_chunks = -(-S // chunk)
-    P = torch.empty((B, n_chunks, W), dtype=torch.float32, device=a.device)
-    H = torch.empty_like(P)
+    cw, steps = tile(W, block_s, block_w)
     p = ctypes.c_void_p
     i = ctypes.c_int
-    lib = compat.load("rglru", rglru_scan=[i, p, p, p, p, p, i, i, i, i, i, p])
+    lib = compat.load("rglru", rglru_scan=[i, p, p, p, i, i, i, i, i, p])
     err = lib.rglru_scan(_DTYPES[a.dtype], a.data_ptr(), b.data_ptr(),
-                         out.data_ptr(), P.data_ptr(), H.data_ptr(), B, S, W,
-                         chunk, threads, compat.stream_ptr(a.device))
+                         out.data_ptr(), B, S, W, cw, steps,
+                         compat.stream_ptr(a.device))
     compat.check_launch(err, "rglru_scan")
     scan.launches += 1
     return out

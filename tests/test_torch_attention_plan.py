@@ -115,6 +115,17 @@ SASS = """\
 \t\tFunction : _ZN12_GLOBAL__N_111decode_bulkILi128ELb0EEEvPK13__nv_bfloat16
         /*0000*/                   UBLKCP.S.G [UR4], [UR6], R2 ; /* 0x00 */
         /*0010*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ; /* 0x00 */
+\t\tFunction : _ZN12_GLOBAL__N_114mlstm_wg_stateENS_8WgParamsE14CUtensorMap_stS1_S1_
+        /*0000*/                   UTMALDG.4D [UR8], [UR4] ;    /* 0x0000000000000000 */
+        /*0010*/                   HGMMA.64x256x16.F32.BF16 R24, gdesc[UR4], R24 ; /* 0x00 */
+\t\tFunction : _ZN12_GLOBAL__N_115mlstm_wg_scoresENS_8WgParamsE14CUtensorMap_stS1_
+        /*0000*/                   UTMALDG.4D [UR8], [UR4] ;    /* 0x0000000000000000 */
+        /*0010*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24 ; /* 0x00 */
+\t\tFunction : _ZN12_GLOBAL__N_112mlstm_wg_outENS_8WgParamsE14CUtensorMap_stS1_S1_S1_
+        /*0000*/                   UTMALDG.4D [UR8], [UR4] ;    /* 0x0000000000000000 */
+        /*0010*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24 ; /* 0x00 */
+\t\tFunction : _ZN12_GLOBAL__N_110rglru_ringIfEEv14CUtensorMap_stS1_PT_iii
+        /*0000*/                   UTMALDG.4D [UR8], [UR4] ;    /* 0x0000000000000000 */
 """
 
 
@@ -126,18 +137,35 @@ def test_sass_counts_and_required_instructions(tmp_path, monkeypatch):
     (tmp_path / "sass.txt").write_text(SASS)
     monkeypatch.setattr(cs, "cuobjdump", lambda: str(fake))
     counts = cs.sass_counts("lib.so")
-    flash, decode = counts.values()
+    flash, decode, state, scores, out, ring = counts.values()
     assert flash == {"HGMMA": 2, "UTMALDG": 1, "UBLKCP": 0, "HMMA": 0}
     assert decode == {"HGMMA": 0, "UTMALDG": 0, "UBLKCP": 1, "HMMA": 1}
+    assert state == scores == out == {"HGMMA": 1, "UTMALDG": 1, "UBLKCP": 0,
+                                      "HMMA": 0}
+    assert ring == {"HGMMA": 0, "UTMALDG": 1, "UBLKCP": 0, "HMMA": 0}
     names = list(counts)
-    cs.check_sass({"flash_attention": {names[0]: flash},
-                   "decode_attention": {names[1]: decode}})
+    assert names[2:] == ["mlstm_wg_state", "mlstm_wg_scores", "mlstm_wg_out",
+                         "rglru_ringIfE"]
+
+    def libs(**broken):
+        fns = dict(zip(names, counts.values()))
+        for name, ops in broken.items():
+            fns[name] = dict(fns[name], **ops)
+        return {"flash_attention": {names[0]: fns[names[0]]},
+                "decode_attention": {names[1]: fns[names[1]]},
+                "mlstm_chunk": {n: fns[n] for n in names[2:5]},
+                "rglru": {names[5]: fns[names[5]]}}
+
+    cs.check_sass(libs())
     with pytest.raises(cs.CheckFailed, match="HGMMA"):
-        cs.check_sass({"flash_attention": {names[0]: dict(flash, HGMMA=0)},
-                       "decode_attention": {names[1]: decode}})
+        cs.check_sass(libs(**{names[0]: {"HGMMA": 0}}))
     with pytest.raises(cs.CheckFailed, match="UBLKCP"):
-        cs.check_sass({"flash_attention": {names[0]: flash},
-                       "decode_attention": {names[1]: dict(decode, UBLKCP=0)}})
+        cs.check_sass(libs(**{names[1]: {"UBLKCP": 0}}))
+    for name in names[2:5]:      # an mLSTM kernel on the CUDA cores
+        with pytest.raises(cs.CheckFailed, match=f"{name} contains none of"):
+            cs.check_sass(libs(**{name: {"HGMMA": 0}}))
+    with pytest.raises(cs.CheckFailed, match="rglru_ringIfE"):
+        cs.check_sass(libs(rglru_ringIfE={"UTMALDG": 0}))
 
 
 @pytest.mark.parametrize("mangled,short", [

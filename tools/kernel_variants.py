@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Build one CUDA source of the port with extra ``nvcc`` flags per variant and
 time its card-scale cases on one H100: ``python3 tools/kernel_variants.py
-flash_attention "" "-DSOME_MACRO"``.
+mlstm_chunk "" "-DSOME_MACRO=1"`` (the first argument names a source of
+``csrc/``).
 
 For each variant (a comma-separated list of ``nvcc`` flags, "" for none) it
-prints the compiler's registers and spills for the kernel function of the
-card shape (``chip_smoke.SASS_REQUIRED``), that function's Hopper
-instructions in the SASS, each card case's error against its plain version
-as a share of ``chip_smoke``'s bound, the timed case's time beside the one
-PyTorch call that computes the same function, and each CUDA kernel's
-device time from ``torch.profiler``.  Compare variants only within one run.
-Writes each variant's ``-Xptxas -v`` log to ``chiprun_out/``.
+prints the compiler's registers and spills for the kernel functions of the
+card shape (``chip_smoke.SASS_REQUIRED``), their Hopper instructions in the
+SASS, each card case's error against its plain version as a share of
+``chip_smoke``'s bound, the timed case's time (beside the one PyTorch call
+that computes the same function, for the attention kernels), and each CUDA
+kernel's device time from ``torch.profiler``.  Compare variants only within
+one run.  Writes each variant's ``-Xptxas -v`` log to ``chiprun_out/``.
 """
 from __future__ import annotations
 
@@ -35,9 +36,11 @@ def main(argv) -> int:
         print("kernel_variants: needs the CUDA card", file=sys.stderr)
         return 2
     which, variants = argv[0], [tuple(v.split(",")) if v else () for v in argv[1:] or [""]]
-    fragment = cs.SASS_REQUIRED[which][0]
+    fragments = [f for f, _ in cs.SASS_REQUIRED[which]]
+    kernel = {"rglru": "rglru_scan", "membench": "membench_aligned"}.get(which, which)
+    attention = which in ("flash_attention", "decode_attention")
     dev = torch.device("cuda")
-    card = [c for c in cs.card_cases(dev) if c["name"] == which]
+    card = [c for c in cs.card_cases(dev) if c["name"] == kernel]
     base = compat.NVCC_FLAGS
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -51,11 +54,11 @@ def main(argv) -> int:
         (out_dir / f"variants_{which}_{i}.log").write_text(" ".join(flags) + "\n" + log)
         print(f"variant {flags}: build {time.perf_counter() - t0:.1f} s", flush=True)
         for block in log.split("Compiling entry function")[1:]:
-            if fragment in block.split("\n")[0]:
+            if any(f in block.split("\n")[0] for f in fragments):
                 print("  ", " | ".join(ln.strip() for ln in block.split("\n")[1:4]
                                       if "bytes" in ln or "registers" in ln))
         sass = cs.sass_counts(compat.library_path(which))
-        print("  ", [c for n, c in sass.items() if fragment in n])
+        print("  ", {n: c for n, c in sass.items() if any(f in n for f in fragments)})
         for c in card:
             got = c["run"]()
             torch.cuda.synchronize()
@@ -63,11 +66,14 @@ def main(argv) -> int:
             err, of_bound, ok = cs.compare(got, want, c["tol"], cs.spread(c))
             print(f"   {c['label'][:48]} err {err:.3g} of_bound {of_bound:.3g} ok {ok}")
         for c in (c for c in card if c["timed"]):
-            qt, kt, vt = (t.transpose(1, 2) for t in c["args"][:3])
-            causal = which == "flash_attention"
-            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, is_causal=causal, enable_gqa=True)
-            print("   ms", cs.time_ms(c["run"], dev), "sdpa_ms", cs.time_ms(sdpa, dev))
+            if attention:
+                qt, kt, vt = (t.transpose(1, 2) for t in c["args"][:3])
+                sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    qt, kt, vt, is_causal=which == "flash_attention",
+                    enable_gqa=True)
+                print("   ms", cs.time_ms(c["run"], dev), "sdpa_ms", cs.time_ms(sdpa, dev))
+            else:
+                print("   ms", cs.time_ms(c["run"], dev))
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(10):
                     c["run"]()
