@@ -7,13 +7,17 @@ PyTorch version on the card (at the reference's test shapes and at the
 main path's card shapes, where one deliberately broken plain version per
 kernel must fall outside the bound), drives the port's main path —
 estimate and sweep with ``Session(backend="torch")`` on the card and on
-the CPU, then ``Session.validate`` over the seven card-scale kernels — and
-times each kernel beside its bound, its plain version and, where one
-exists, the one PyTorch call that computes the same function.
+the CPU; streaming sweeps of the reference's 1,024,000- and
+10,240,000-point grids through the device fold, the host fold, two worker
+processes and constraints, each held bit-equal to the others; the
+reference's 1m optimizer contract; then ``Session.validate`` over the
+seven card-scale kernels — and times each kernel beside its bound, its
+plain version and, where one exists, the one PyTorch call that computes
+the same function.
 
 Prints one JSON object per phase (env, build with each kernel function's
-counts of Hopper instructions in its SASS, parity, estimator, validate,
-kernels); then the ``{"kernels": [...]}`` line, the card's
+counts of Hopper instructions in its SASS, parity, estimator, stream,
+optimize, validate, kernels); then the ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
 code is non-zero and no result line is printed; so does a machine without
@@ -708,6 +712,264 @@ def phase_estimator(device) -> None:
     emit({"phase": "estimator", "rows": rows})
 
 
+def _stream_ids(rep):
+    """(sorted front ids, top-k ids best first) of a streaming report."""
+    import numpy as np
+
+    ids = np.asarray(rep.point_ids)
+    return np.sort(ids[rep.pareto()]), ids[rep.topk_idx]
+
+
+def _host_fold_report(sess, space, chunk, workers=None):
+    """The host fold of ``space`` through the plan's evaluator on the
+    session's device (the path a constrained or custom sweep takes),
+    with the reference's stage names."""
+    from repro_torch import api
+    from repro_torch.core import stream as S
+
+    plan = sess.plan(space, chunk_size=chunk)
+    prof = {"path": "host-stream"} if workers is None else None
+    t0 = time.perf_counter()
+    if prof is not None:
+        out = S.run_stream(plan.n, plan.chunk_size,
+                           plan.evaluator(stage_times=prof),
+                           S.default_reducers(10), stage_times=prof)
+    else:
+        out = plan.run(S.default_reducers(10), workers=workers)
+    wall = time.perf_counter() - t0
+    if prof is not None:
+        prof["total_s"] = wall
+    return api._stream_report(out, plan.tables(), backend=sess.backend,
+                              profile=prof), wall
+
+
+def _same_fold(a, b, what: str) -> None:
+    """Front ids, top-k rows (every carried column) and every stats field
+    bit-equal between two streaming reports."""
+    import numpy as np
+
+    fa, ka = _stream_ids(a)
+    fb, kb = _stream_ids(b)
+    check(np.array_equal(fa, fb), f"{what}: front ids differ")
+    check(np.array_equal(ka, kb), f"{what}: top-k ids differ")
+    check(a.rows(a.topk_idx) == b.rows(b.topk_idx), f"{what}: top-k rows")
+    ta = next(r for r in a.reducers if type(r).__name__ == "TopKReducer")
+    tb = next(r for r in b.reducers if type(r).__name__ == "TopKReducer")
+    check(all(np.array_equal(ta.cols[c], tb.cols[c]) for c in tb.cols),
+          f"{what}: top-k columns differ")
+    check(a.stats == b.stats, f"{what}: stats differ: {a.stats} {b.stats}")
+
+
+def timed_runs(run, repeats: int = 3):
+    """``run()`` ``repeats`` times, each ended by a synchronize: (the last
+    result, the wall seconds of each run)."""
+    import torch
+
+    walls = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return out, walls
+
+
+def device_busy_share(run) -> float | None:
+    """Device kernel time over wall time of one ``run()`` under
+    ``torch.profiler`` (None when the trace holds no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = sum(getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0))
+                  for e in prof.key_averages())
+    return busy_us * 1e-6 / wall if busy_us > 0 else None
+
+
+def phase_stream(device):
+    """Streaming sweeps on the card: the reference's stream_1m and
+    stream_10m grids (benchmarks/sweep_bench.py) at chunk 2^17 and k = 10,
+    each through the device fold (as chosen, forced op by op, forced into a
+    CUDA graph) and the host fold; the 1m grid also
+    materialized, folded on the CPU, through two worker processes and
+    under constraints.  Returns the 1m device-fold report."""
+    import numpy as np
+    import torch
+
+    import repro_torch as rt
+    from repro_torch.core import device_stream as DS
+    from repro_torch.core import sweep as SW
+    from repro_torch.search import constraints as C
+
+    chunk = 1 << 17
+    grid1m = grids()["grid1m"]
+    spaces = {"stream_1m": grid1m,
+              "stream_10m": dict(grid1m, n_ga=list(range(1, 101)))}
+    sess = rt.Session(device=device)
+    rows, peaks, device_1m = [], {}, None
+    for name, axes in spaces.items():
+        space = rt.Space.grid(**axes)
+        prof_rep = sess.sweep(space, chunk_size=chunk, profile=True)
+        check(prof_rep.profile.get("path") == "device"
+              and "device_overflow" not in prof_rep.profile,
+              f"{name}: the device fold did not run: {prof_rep.profile}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        dev_rep, dev_s = timed_runs(
+            lambda: sess.sweep(space, chunk_size=chunk))
+        peaks[name] = torch.cuda.max_memory_allocated() - base
+        busy = device_busy_share(lambda: sess.sweep(space, chunk_size=chunk))
+        host_rep, host_s = _host_fold_report(sess, space, chunk)
+        # the device fold forced op by op and forced into a CUDA graph
+        forced_s = {}
+        for mode, attrs in (("eager", {"use_graph": False}),
+                            ("graph", {"graph_min_chunks": 1})):
+            saved = {k: getattr(DS.DeviceSweep, k) for k in attrs}
+            for k, v in attrs.items():
+                setattr(DS.DeviceSweep, k, v)
+            try:
+                forced, forced_s[mode] = timed_runs(
+                    lambda: sess.sweep(space, chunk_size=chunk))
+            finally:
+                for k, v in saved.items():
+                    setattr(DS.DeviceSweep, k, v)
+            _same_fold(dev_rep, forced, f"{name}: device fold, {mode}")
+        _same_fold(dev_rep, prof_rep, f"{name}: profiled device fold")
+        _same_fold(dev_rep, host_rep, f"{name}: device fold vs card host fold")
+        n = dev_rep.n_points
+        check(n == int(np.prod([len(v) for v in axes.values()])),
+              f"{name}: point count {n}")
+        check(np.isfinite(dev_rep.stats["t_exe_sum"])
+              and dev_rep.stats["t_exe_min"] > 0, f"{name}: stats not finite")
+        row = {"grid": name, "n_points": n, "chunk": chunk,
+               "points_per_s": {"device": [n / t for t in dev_s],
+                                "device_eager": [n / t for t in
+                                                 forced_s["eager"]],
+                                "device_graph": [n / t for t in
+                                                 forced_s["graph"]],
+                                "host_stream": n / host_s},
+               "profile": {"device": prof_rep.profile,
+                           "host_stream": host_rep.profile},
+               "peak_device_bytes": peaks[name],
+               "device_busy_share": busy,
+               "front_points": len(dev_rep.pareto()),
+               "t_exe_min": dev_rep.stats["t_exe_min"],
+               "t_exe_min_id": dev_rep.stats["t_exe_min_id"]}
+        if name == "stream_1m":
+            device_1m = dev_rep
+            front, topk = _stream_ids(dev_rep)
+            t0 = time.perf_counter()
+            mat = sess.sweep(space)
+            mat_s = time.perf_counter() - t0
+            check(np.array_equal(front, mat.pareto()),
+                  "stream_1m: front ids differ from the materialized sweep")
+            check(np.array_equal(topk, np.argsort(mat.t_exe,
+                                                  kind="stable")[:10]),
+                  "stream_1m: top-k ids differ from the materialized sweep")
+            cpu_rep, cpu_s = _host_fold_report(rt.Session(device="cpu"),
+                                               space, chunk, workers=4)
+            cf, ck = _stream_ids(cpu_rep)
+            check(np.array_equal(front, cf) and np.array_equal(topk, ck),
+                  "stream_1m: ids differ from the CPU host fold")
+            t0 = time.perf_counter()
+            proc = sess.sweep(space, chunk_size=chunk, executor="processes",
+                              workers=2)
+            proc_s = time.perf_counter() - t0
+            check(np.array_equal(proc.point_ids, dev_rep.point_ids)
+                  and np.array_equal(proc.front_idx, dev_rep.front_idx)
+                  and np.array_equal(proc.topk_idx, dev_rep.topk_idx)
+                  and proc.rows() == dev_rep.rows(),
+                  "stream_1m: processes differ from threads")
+            check({k: v for k, v in proc.stats.items() if k != "t_exe_var"}
+                  == {k: v for k, v in dev_rep.stats.items()
+                      if k != "t_exe_var"}
+                  and math.isclose(proc.stats["t_exe_var"],
+                                   dev_rep.stats["t_exe_var"],
+                                   rel_tol=1e-12),
+                  "stream_1m: processes stats differ from threads")
+            # constrained: an envelope and a bound, against the
+            # unconstrained materialized sweep filtered after the fact
+            cons = [C.EnvelopeConstraint(rt.ResourceEnvelope(
+                        lsu_ports=8, interconnect_bytes=256)),
+                    C.BoundConstraint("n_elems", float(1 << 20))]
+            t0 = time.perf_counter()
+            con = sess.sweep(space, chunk_size=chunk, constraints=cons,
+                             profile=True)
+            con_s = time.perf_counter() - t0
+            cats = {a: SW._factorize(mat.points[a]) for a in SW._CATEGORICAL}
+            mask = C.feasibility_mask(tuple(cons), C.columns_from_parts(
+                {a: np.asarray(mat.points[a]) for a in SW._NUMERIC}, cats, n))
+            keep = np.flatnonzero(mask)
+            t_k = mat.t_exe[keep]
+            want_front = keep[SW.pareto_front(np.stack(
+                [t_k, mat.resource[keep]], 1))]
+            want_topk = keep[np.argsort(t_k, kind="stable")[:10]]
+            cfront, ctopk = _stream_ids(con)
+            check(con.profile["path"] == "host-stream"
+                  and con.n_candidates == n
+                  and con.stats["n_points"] == len(keep) > 0,
+                  f"constrained sweep: counts {con.summary()}")
+            check(np.array_equal(cfront, want_front)
+                  and np.array_equal(ctopk, want_topk),
+                  "constrained sweep: ids differ from the post-filtered one")
+            check(con.stats["t_exe_min"] == t_k.min()
+                  and con.stats["t_exe_min_id"] == keep[np.argmin(t_k)]
+                  and math.isclose(con.stats["t_exe_sum"], math.fsum(t_k),
+                                   rel_tol=1e-12),
+                  "constrained sweep: stats differ from the post-filtered one")
+            row["points_per_s"].update(
+                materialized=n / mat_s, cpu_host_stream=n / cpu_s,
+                processes_2=n / proc_s, constrained_host_stream=n / con_s)
+            row["constrained"] = {"feasible": len(keep),
+                                  "profile": con.profile}
+        rows.append(row)
+    check(peaks["stream_10m"] <= 1.25 * peaks["stream_1m"] + (16 << 20),
+          f"the 10m device fold's memory grew with the grid: {peaks}")
+    emit({"phase": "stream", "rows": rows})
+    return device_1m
+
+
+def phase_optimize(device, full) -> None:
+    """The reference's optimize_1m contract (benchmarks/sweep_bench.py) on
+    the card: 2-objective search of the 1m grid against its exhaustive
+    device-fold sweep ``full``."""
+    import repro_torch as rt
+
+    sess = rt.Session(device=device)
+    t0 = time.perf_counter()
+    rep = sess.optimize(rt.Space.grid(**grids()["grid1m"]),
+                        objective=("t_exe", "resource"), seed=0)
+    wall = time.perf_counter() - t0
+    ref_front = {(float(full.t_exe[i]), float(full.resource[i]))
+                 for i in full.pareto()}
+    got = {(float(rep.front["t_exe"][i]), float(rep.front["resource"][i]))
+           for i in range(rep.n_front)}
+    recall = len(ref_front & got) / max(1, len(ref_front))
+    descend = next(t for t in rep.trajectory if t["phase"] == "descend")
+    emit({"phase": "optimize", "seconds": wall, "n_total": rep.n_total,
+          "n_evals": rep.n_evals, "evals_fraction": rep.evals_fraction,
+          "matched_optimum": rep.best.t_exe == full.stats["t_exe_min"],
+          "front_recall": recall, "ref_front_size": len(ref_front),
+          "descend": descend, "phases": [dict(t) for t in rep.trajectory]})
+    check(rep.best.t_exe == full.stats["t_exe_min"],
+          f"optimize: best {rep.best.t_exe} != grid min "
+          f"{full.stats['t_exe_min']}")
+    check(recall >= 0.95, f"optimize: front recall {recall}")
+    check(rep.evals_fraction < 0.01,
+          f"optimize: evals fraction {rep.evals_fraction}")
+    check(descend["lanes"] > 0 and "skipped" not in descend,
+          f"optimize: the descent did not run: {descend}")
+
+
 def phase_validate(device) -> None:
     import numpy as np
 
@@ -815,12 +1077,14 @@ def main() -> int:
     card = card_cases(device)
     card_err = phase_parity(device, card)
 
-    # The main path: estimate -> sweep -> validate, with every launch
-    # counter at zero just before it and read just after.
+    # The main path: estimate -> sweep -> streaming sweeps -> optimize ->
+    # validate, with every launch counter at zero just before it and read
+    # just after.
     wrappers = {name: spec[0] for name, spec in kernel_table().items()}
     for fn in wrappers.values():
         fn.launches = 0
     phase_estimator(device)
+    phase_optimize(device, phase_stream(device))
     phase_validate(device)
     launches = {name: fn.launches for name, fn in wrappers.items()}
     emit({"phase": "launches", "main_path": launches})

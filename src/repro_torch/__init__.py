@@ -13,6 +13,8 @@ measured kernels:
     >>> d = rt.Design.microbench(rt.LsuType.BC_ALIGNED, n_ga=4)
     >>> sess.estimate(d).t_exe
     >>> sess.sweep(rt.Space.grid(n_ga=[1, 2, 4], simd=[1, 16])).top_k(3)
+    >>> sess.sweep(rt.Space.grid(n_ga=list(range(1, 101))).stream())
+    >>> sess.optimize(rt.Space.grid(n_ga=list(range(1, 101))))
     >>> sess.validate()                             # the seven-kernel table
 
 ``Session(device="cpu")`` runs the same pipeline on the CPU, with the
@@ -21,28 +23,37 @@ kernels' plain PyTorch versions in place of the CUDA kernels.
 from repro_torch import hw
 from repro_torch.api import (
     BACKENDS,
+    DEFAULT_CHUNK,
+    EXECUTORS,
     Design,
     Estimate,
     Report,
     Session,
     Space,
+    SweepPlan,
     SweepReport,
     ValidateReport,
 )
 from repro_torch.core.fpga import BspParams, DramParams
 from repro_torch.core.lsu import Lsu, LsuType, make_global_access
 from repro_torch.hw import ClockDomain, DramOrganization, Hardware, MemorySystem
-from repro_torch.search import ResourceEnvelope
+from repro_torch.search import (
+    Constraint,
+    OptimizeReport,
+    ResourceEnvelope,
+    within,
+)
 
 DDR4_1866 = hw.get("stratix10_ddr4_1866").dram_params()
 DDR4_2666 = hw.get("stratix10_ddr4_2666").dram_params()
 STRATIX10_BSP = hw.get("stratix10_ddr4_1866").bsp_params()
 
 __all__ = [
-    "Design", "Session", "Space", "Estimate", "Report", "SweepReport",
-    "ValidateReport", "BACKENDS",
+    "Design", "Session", "Space", "Estimate", "Report", "SweepPlan",
+    "SweepReport", "ValidateReport", "BACKENDS", "EXECUTORS",
+    "DEFAULT_CHUNK", "ResourceEnvelope", "Constraint", "within",
+    "OptimizeReport",
     "hw", "Hardware", "MemorySystem", "DramOrganization", "ClockDomain",
-    "ResourceEnvelope",
     "Lsu", "LsuType", "make_global_access",
     "DramParams", "BspParams", "DDR4_1866", "DDR4_2666", "STRATIX10_BSP",
 ]

@@ -7,17 +7,22 @@ Port of ``repro.api`` for the paper's main loop:
   vectorization factor (``microbench``/``from_app``/``from_classes`` and
   the ``with_*`` builders);
 * :class:`Space` — a grid or random design space over the microbenchmark
-  axes;
+  axes (``.stream()`` marks a grid for chunked streaming);
 * :class:`Session` — the evaluation context: hardware (DRAM + BSP, or one
   :class:`repro_torch.hw.Hardware` spec), a calibration factor, a backend
   (``scalar`` reference loop or the ``torch`` array core) and the
   ``device`` the torch core and the kernels run on — the CUDA card unless
-  the caller passes ``device="cpu"``.
+  the caller passes ``device="cpu"``.  ``sweep`` materializes or streams
+  (with the device fold, constraints and a process executor), ``plan``
+  describes a streaming sweep as picklable data, ``optimize`` searches a
+  grid without enumerating it.
 
     >>> from repro_torch import Design, Session, Space, LsuType
     >>> sess = Session()                     # DDR4-1866 on the CUDA card
     >>> est = sess.estimate(Design.microbench(LsuType.BC_ALIGNED, n_ga=4))
     >>> res = sess.sweep(Space.grid(n_ga=[1, 2, 4], simd=[1, 4, 16]))
+    >>> big = sess.sweep(Space.grid(n_ga=list(range(1, 101))),
+    ...                  chunk_size=1 << 17, profile=True)
     >>> rep = sess.validate()                # the CUDA kernels, measured
 """
 from __future__ import annotations
@@ -25,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import time
 from typing import Any, Iterable, Mapping, Sequence
 
 import numpy as np
@@ -36,14 +42,22 @@ from repro_torch.core import model_batch as _mb
 from repro_torch.core import sweep as _sweep
 from repro_torch.core.fpga import BspParams, DramParams
 from repro_torch.core.lsu import Lsu, LsuType, make_global_access
+from repro_torch.core.stream import SweepPlan
 from repro_torch.hw import DEFAULT_BOARD, Hardware
 from repro_torch.hw import get as _hw_get
 
 #: Session compute backends: the readable scalar loop and the torch core.
 BACKENDS = ("scalar", "torch")
 
-__all__ = ["BACKENDS", "Design", "Space", "Session", "Estimate", "Report",
-           "SweepReport", "ValidateReport"]
+#: How ``Session.sweep`` drives streaming chunks: the in-process pipeline
+#: or the coordinator/worker process pool.
+EXECUTORS = ("threads", "processes")
+
+__all__ = ["BACKENDS", "EXECUTORS", "DEFAULT_CHUNK", "Design", "Space",
+           "Session", "Estimate", "Report", "SweepReport", "ValidateReport",
+           "SweepPlan"]
+
+_perf_counter = time.perf_counter
 
 #: LSU types whose stride axis is live (mirrors apps.microbench semantics).
 _STRIDE_TYPES = (LsuType.BC_ALIGNED, LsuType.BC_NON_ALIGNED, LsuType.BC_CACHE)
@@ -158,17 +172,27 @@ class Design:
 # Space: a declarative design space
 # ---------------------------------------------------------------------------
 
+#: Default streaming chunk: 64k points keeps the working set to tens of MB
+#: while amortizing the per-chunk cost.
+DEFAULT_CHUNK = 1 << 16
+
+
 @dataclasses.dataclass(frozen=True)
 class Space:
     """A design space over the microbenchmark axes (``sweep.AXES``):
     ``Space.grid(**axes)`` is the Cartesian product, ``Space.random(n,
     seed=..., **axes)`` samples ``n`` points (2-tuples of numbers =
     inclusive integer ranges).  Unset axes default to the session's
-    hardware and the sweep defaults."""
+    hardware and the sweep defaults.
+
+    ``Space.grid(...).stream()`` marks a grid for bounded-memory streaming:
+    points are enumerated lazily from integer ids and folded chunk by chunk
+    into online reducers (see ``Session.sweep``)."""
 
     axes: Mapping[str, Any]
     n: int | None = None       # None -> full grid
     seed: int = 0
+    chunk_size: int | None = None   # set by stream(); None -> materialize
 
     @classmethod
     def grid(cls, **axes) -> "Space":
@@ -184,15 +208,39 @@ class Space:
     def is_grid(self) -> bool:
         return self.n is None
 
-    def points(self, *, dram: DramParams, bsp: BspParams,
+    def stream(self, chunk_size: int = DEFAULT_CHUNK) -> "Space":
+        """This grid, marked for chunked streaming evaluation (only grids
+        stream: their points are index arithmetic on the point id)."""
+        if not self.is_grid:
+            raise TypeError("streaming sweeps need a grid space; "
+                            "Space.random materializes its draws")
+        if chunk_size < 1:
+            raise ValueError("chunk_size must be >= 1")
+        return dataclasses.replace(self, chunk_size=int(chunk_size))
+
+    def lists(self, *, dram: DramParams, bsp: BspParams) -> dict[str, list]:
+        """Normalized per-axis value lists, defaulting the hardware axes."""
+        axes = dict(self.axes)
+        axes.setdefault("dram", dram)
+        axes.setdefault("bsp", bsp)
+        return _sweep._normalize_axes(axes)
+
+    def points(self, *, dram: DramParams, bsp: BspParams, constraints=(),
                ) -> tuple[dict[str, np.ndarray], int, dict]:
-        """Materialize per-point axis arrays, defaulting hardware axes."""
+        """Materialize per-point axis arrays, defaulting hardware axes.
+
+        For a random space, ``constraints`` switches to seeded rejection
+        sampling (every returned point is feasible; an empty feasible
+        region raises).  Grid spaces ignore them here — the sweep masks
+        the enumerated grid itself.
+        """
         axes = dict(self.axes)
         axes.setdefault("dram", dram)
         axes.setdefault("bsp", bsp)
         if self.is_grid:
             return _sweep._grid_points(axes)
-        return _sweep._random_points(self.n, self.seed, axes)
+        return _sweep._random_points(self.n, self.seed, axes,
+                                     constraints=tuple(constraints))
 
 
 # ---------------------------------------------------------------------------
@@ -283,35 +331,212 @@ class Report:
 @dataclasses.dataclass(frozen=True)
 class SweepReport(_sweep.SweepResult, Report):
     """Scored design space (a :class:`~repro_torch.core.sweep.SweepResult`
-    that is also a :class:`Report`), tagged with the backend that scored it."""
+    that is also a :class:`Report`), tagged with the backend that scored it.
+
+    A *streaming* sweep returns the same class backed by reducer state: the
+    held arrays (``points``/``estimate``/``resource``) cover only the
+    surviving points (Pareto front + top-k), ``point_ids`` maps them back
+    to global point ids, ``stats`` carries the exact whole-space summary,
+    and ``pareto()`` / ``top_k()`` / ``rows()`` answer from that state.
+    """
 
     backend: str = "torch"
+    # -- streaming state (None on a materialized sweep) --------------------
+    n_total: int | None = None        # points swept (held arrays are fewer)
+    stats: Mapping[str, Any] | None = None   # StatsReducer.summary()
+    point_ids: np.ndarray | None = None      # global id of each held row
+    front_idx: np.ndarray | None = None      # held-row indices of the front
+    front_objectives: tuple | None = None    # the reducer's objective names
+    topk_idx: np.ndarray | None = None       # held-row indices, best first
+    topk_key: str | None = None
+    reducers: tuple | None = None     # the folded reducer instances
+    # -- constraint telemetry (None on an unconstrained sweep) -------------
+    n_candidates: int | None = None   # points enumerated before feasibility
+    # -- per-stage timing (None unless swept with profile=True) ------------
+    profile: Mapping[str, Any] | None = None
     kind = "sweep"
+
+    @property
+    def is_streaming(self) -> bool:
+        return self.n_total is not None
+
+    @property
+    def n_points(self) -> int:
+        """Points swept (for a streaming report: the whole space, not the
+        survivors — ``len(report.resource)`` counts the held rows)."""
+        return self.n_total if self.n_total is not None \
+            else int(len(self.resource))
+
+    def pareto(self, objectives: Sequence[Any] | None = None) -> np.ndarray:
+        if self.is_streaming:
+            if self.front_idx is None:
+                raise ValueError(
+                    "a streaming report holds only the reducer's front; "
+                    "re-sweep with reducers=[ParetoReducer(objectives=...)]")
+            wanted = tuple(objectives) if objectives is not None \
+                else ("t_exe", "resource")
+            if wanted != self.front_objectives:
+                raise ValueError(
+                    f"streaming report holds the front over "
+                    f"{self.front_objectives}; re-sweep with "
+                    f"reducers=[ParetoReducer(objectives={wanted!r})] or "
+                    f"call pareto({list(self.front_objectives)!r})")
+            return np.asarray(self.front_idx, dtype=np.int64)
+        return super().pareto(objectives)
+
+    def top_k(self, k: int = 10, key: str = "t_exe") -> list[dict]:
+        if self.is_streaming:
+            if self.topk_idx is None or key != self.topk_key:
+                raise ValueError(
+                    f"streaming report kept top-k by {self.topk_key!r}; "
+                    f"re-sweep with reducers=[TopKReducer(k, {key!r})]")
+            # A reducer that kept the whole space answers any k; only a
+            # truncated selection caps k.
+            if k > len(self.topk_idx) and len(self.topk_idx) < self.n_points:
+                raise ValueError(
+                    f"streaming report kept only the top {len(self.topk_idx)}"
+                    f"; re-sweep with reducers=[TopKReducer(k={k})]")
+            return self.rows(self.topk_idx[:k])
+        return super().top_k(k, key)
 
     def estimates(self, indices: Sequence[int] | None = None,
                   ) -> list[Estimate]:
-        """Per-point :class:`Estimate` objects (default: all points)."""
+        """Per-point :class:`Estimate` objects (default: all held points)."""
         if indices is None:
-            indices = range(self.n_points)
+            indices = range(len(self.resource))
         return [_estimate_row(self.estimate, int(i), backend=self.backend)
                 for i in indices]
 
     def best(self) -> Estimate:
-        """The fastest design point of the space."""
+        """The fastest design point of the space.
+
+        For a streaming report this is cross-checked against the exact
+        whole-space minimum the stats reducer tracked: if the survivors the
+        reducers kept do not include that point, this raises rather than
+        returning a wrong row.  The default reducers always keep it.
+        """
         if self.n_points == 0:
+            if self.n_candidates:
+                raise ValueError(
+                    f"constraints eliminated every point: 0 of "
+                    f"{self.n_candidates} candidates feasible; relax the "
+                    f"constraints or widen the space")
             raise ValueError("the swept space is empty (n_points == 0); "
                              "there is no best design point")
-        return self.estimates([int(np.argmin(self.t_exe))])[0]
+        if self.is_streaming and len(self.resource) == 0:
+            raise ValueError(
+                "streaming report holds no survivor rows (stats-only "
+                f"reducers; t_exe_min={self.stats['t_exe_min']!r} at point "
+                f"id {self.stats['t_exe_min_id']}); re-sweep with "
+                "reducers=[TopKReducer(1), ...] to keep the best row")
+        i = int(np.argmin(self.t_exe))
+        if self.is_streaming and self.stats is not None \
+                and float(np.asarray(self.t_exe)[i]) != self.stats["t_exe_min"]:
+            raise ValueError(
+                "streaming report's survivors do not include the fastest "
+                f"point (held min {float(np.asarray(self.t_exe)[i])!r} vs "
+                f"whole-space min {self.stats['t_exe_min']!r} at point id "
+                f"{self.stats['t_exe_min_id']}); re-sweep with "
+                "reducers=[TopKReducer(1), ...] to keep it")
+        return self.estimates([i])[0]
 
     def summary(self) -> dict:
-        return {
-            "kind": self.kind, "backend": self.backend,
-            "n_points": self.n_points,
-            "memory_bound_points": int(np.asarray(self.memory_bound).sum()),
-            "pareto_points": int(len(self.pareto()) if self.n_points else 0),
-            "t_exe_min_ms": (float(np.min(self.t_exe)) * 1e3
-                             if self.n_points else math.inf),
-        }
+        if self.is_streaming:
+            out = {
+                "kind": self.kind, "backend": self.backend,
+                "n_points": int(self.stats["n_points"]),
+                "memory_bound_points": int(self.stats["memory_bound_points"]),
+                "pareto_points": int(len(self.front_idx)
+                                     if self.front_idx is not None else 0),
+                "t_exe_min_ms": float(self.stats["t_exe_min"]) * 1e3,
+            }
+        else:
+            out = {
+                "kind": self.kind, "backend": self.backend,
+                "n_points": self.n_points,
+                "memory_bound_points": int(
+                    np.asarray(self.memory_bound).sum()),
+                "pareto_points": int(len(self.pareto())
+                                     if self.n_points else 0),
+                "t_exe_min_ms": (float(np.min(self.t_exe)) * 1e3
+                                 if self.n_points else math.inf),
+            }
+        if self.n_candidates is not None:
+            # the feasible/total split of a constrained sweep
+            out["n_candidates"] = int(self.n_candidates)
+            out["n_feasible"] = out["n_points"]
+        if self.profile is not None:
+            out["profile"] = dict(self.profile)
+        return out
+
+
+def _stream_report(outcome, tables: Mapping[str, list], *,
+                   backend: str,
+                   n_candidates: int | None = None,
+                   profile: Mapping[str, Any] | None = None) -> SweepReport:
+    """Fold a :class:`repro_torch.core.stream.StreamOutcome` into a
+    SweepReport.
+
+    Survivors = union of the Pareto reducer's front and the top-k rows,
+    deduplicated by point id and held in ascending id order; the front and
+    top-k index into those held rows.  For a constrained sweep the
+    reducers only saw feasible rows, so ``n_total`` is the stats reducer's
+    exact feasible count, not the enumerated grid size.
+    """
+    from repro_torch.core import stream as _stream
+
+    front = next((r for r in outcome.reducers
+                  if isinstance(r, _stream.ParetoReducer)), None)
+    topk = next((r for r in outcome.reducers
+                 if isinstance(r, _stream.TopKReducer)), None)
+    stats = next(r for r in outcome.reducers
+                 if isinstance(r, _stream.StatsReducer))
+
+    pieces = [r.cols for r in (front, topk)
+              if r is not None and r.cols is not None]
+    if pieces:
+        merged = {k: np.concatenate([p[k] for p in pieces])
+                  for k in pieces[0]}
+        ids, first = np.unique(np.asarray(merged["id"], dtype=np.int64),
+                               return_index=True)
+        merged = {k: np.asarray(v)[first] for k, v in merged.items()}
+    else:   # stats-only reducers: nothing held beyond the summary
+        ids = np.empty(0, dtype=np.int64)
+        merged = {k: np.empty(0) for k in _stream.COLUMNS}
+
+    points: dict[str, np.ndarray] = {}
+    for name in _sweep.AXES:
+        col = merged[name]
+        if name in _sweep._CATEGORICAL:
+            points[name] = _sweep._object_array(tables[name])[
+                np.asarray(col, dtype=np.int64)] if len(col) \
+                else _sweep._object_array([])
+        else:
+            points[name] = np.asarray(col)
+    est = _mb.BatchEstimate(
+        t_exe=np.asarray(merged["t_exe"], dtype=np.float64),
+        t_ideal=np.asarray(merged["t_ideal"], dtype=np.float64),
+        t_ovh=np.asarray(merged["t_ovh"], dtype=np.float64),
+        bound_ratio=np.asarray(merged["bound_ratio"], dtype=np.float64),
+        memory_bound=np.asarray(merged["memory_bound"], dtype=bool),
+        total_bytes=np.asarray(merged["total_bytes"], dtype=np.float64),
+        n_lsu=np.asarray(merged["n_lsu"], dtype=np.int64),
+        groups={})
+    return SweepReport(
+        points=points, estimate=est,
+        resource=np.asarray(merged["resource"], dtype=np.float64),
+        backend=backend,
+        n_total=(outcome.n_points if n_candidates is None
+                 else int(stats.n_points)),
+        n_candidates=n_candidates, stats=stats.summary(),
+        point_ids=ids,
+        front_idx=(np.searchsorted(ids, front.ids)
+                   if front is not None else None),
+        front_objectives=front.objectives if front is not None else None,
+        topk_idx=(np.searchsorted(ids, topk.ids)
+                  if topk is not None else None),
+        topk_key=topk.key if topk is not None else None,
+        reducers=outcome.reducers, profile=profile)
 
 
 class ValidateReport(Report):
@@ -450,38 +675,166 @@ class Session:
 
     # -- sweep --------------------------------------------------------------
 
+    @staticmethod
+    def _as_space(space: "Space | Mapping[str, Any] | None",
+                  axes: Mapping[str, Any]) -> Space:
+        """Normalize the (space | mapping | keyword axes) calling forms."""
+        if space is None:
+            return Space.grid(**axes)
+        if axes:
+            raise TypeError("pass either a Space/mapping or keyword axes, "
+                            "not both")
+        if isinstance(space, Mapping):
+            return Space.grid(**space)
+        return space
+
+    def plan(self, space: "Space | Mapping[str, Any] | None" = None, *,
+             chunk_size: int | None = None, constraints=(),
+             **axes) -> SweepPlan:
+        """A frozen, picklable :class:`SweepPlan` for streaming this space.
+
+        The data-only description of what ``sweep`` would stream —
+        normalized axis lists (session hardware defaulted in), backend,
+        calibration factor, chunk size, feasibility ``constraints`` and this
+        session's device as a string — from which ``plan.evaluator()``
+        rebuilds the chunk evaluator in any process (how
+        ``executor="processes"`` ships work to spawned workers).  Only grid
+        spaces plan: a random space materializes its draws.
+        """
+        space = self._as_space(space, axes)
+        if not space.is_grid:
+            raise TypeError("streaming sweeps need a grid space; "
+                            "Space.random materializes its draws")
+        chunk = chunk_size if chunk_size is not None else space.chunk_size
+        return SweepPlan(
+            lists=space.lists(dram=self.dram, bsp=self.bsp),
+            backend=self.backend,
+            calibration_factor=self.calibration_factor,
+            chunk_size=int(chunk) if chunk is not None else DEFAULT_CHUNK,
+            constraints=constraints or (),
+            device=str(self.device))
+
     def sweep(self, space: "Space | Mapping[str, Any] | None" = None, *,
               chunk_size: int | None = None, reducers=None,
               workers: int | None = None, executor: str = "threads",
-              constraints=(), **axes) -> SweepReport:
-        """Score a whole design space (materialized) on this backend.
+              constraints=(), profile: bool = False,
+              **axes) -> SweepReport:
+        """Score a whole design space through this session's backend.
 
         Accepts a :class:`Space`, a plain axes mapping (a grid), or keyword
-        axes.  The torch backend scores every point in one pass with the
+        axes.  The torch backend scores on this session's device with the
         split-add segment sum, so ids and values agree bit for bit across
-        devices.  Streaming (``chunk_size``/``reducers``/``workers``), the
-        process executor and ``constraints`` are not ported yet.
+        devices.
+
+        Passing ``chunk_size`` (or a ``Space.grid(...).stream()`` space, or
+        explicit ``reducers``) switches to **bounded-memory streaming**:
+        points are enumerated lazily, scored in fixed-shape chunks and
+        folded into online reducers — by default a running Pareto front, a
+        ``top_k(10)`` selection and exact summary stats — so a 10M-point
+        grid sweeps in O(chunk + front + k) memory.  On the torch backend an
+        unconstrained sweep with those standard reducers runs the **device
+        fold** (:mod:`repro_torch.core.device_stream`): enumeration,
+        scoring and folds on the session's device, bit-equal to the host
+        fold, which takes over only for constraints, other reducers, an
+        explicit thread pool, or a device carry's capacity overflow.
+
+        ``executor`` picks how streaming chunks are driven:
+
+        * ``"threads"`` (default) — the in-process pipeline; ``workers``
+          sizes the host pipeline's thread pool on a CPU torch session
+          (and then the host fold runs).  A CUDA session already runs the
+          whole chunk on the card, and the scalar reference loop is
+          GIL-bound: both reject ``workers > 1`` here;
+        * ``"processes"`` — the coordinator/worker process pool
+          (:mod:`repro_torch.core.distributed`): chunk-aligned id ranges,
+          ``workers`` spawned processes that each rebuild the evaluator from
+          the picklable :class:`SweepPlan` on the plan's device, stragglers
+          re-issued, the merged report bit-equal to the in-process run.
+
+        ``constraints`` (a :class:`repro_torch.search.Constraint`, a
+        :class:`repro_torch.search.ResourceEnvelope`, a ``callable(cols) ->
+        bool mask``, or a sequence of those) restricts the sweep to the
+        feasible region: grid points are masked *before* scoring, random
+        spaces rejection-sample, and ``summary()`` carries the
+        feasible/candidate split.  Results are bit-equal to post-filtering
+        the unconstrained sweep.
+
+        ``profile=True`` records a per-stage wall-time breakdown
+        (``enumerate``/``transfer``/``score``/``reduce`` seconds, plus the
+        ``path`` taken: ``materialized``, ``host-stream``, ``device`` or
+        ``distributed``) on ``report.profile``.  Profiling synchronizes each
+        stage, so profiled throughput is a lower bound.
         """
-        if (chunk_size is not None or reducers is not None
-                or workers is not None or executor != "threads"
-                or constraints):
-            raise NotImplementedError(
-                "streaming sweeps, reducers, the process executor and "
-                "constraints are not ported yet (ROADMAP.md, Queue 1: "
-                "'Streaming sweeps, reducers and the process executor')")
-        if space is None:
-            space = Space.grid(**axes)
-        elif axes:
-            raise TypeError("pass either a Space/mapping or keyword axes, "
-                            "not both")
-        elif isinstance(space, Mapping):
-            space = Space.grid(**space)
-        points, n, cats = space.points(dram=self.dram, bsp=self.bsp)
+        space = self._as_space(space, axes)
+        if constraints:
+            from repro_torch.search.constraints import normalize_constraints
+
+            constraints = normalize_constraints(constraints)
+        else:
+            constraints = ()
+        if executor not in EXECUTORS:
+            raise ValueError(
+                f"unknown executor {executor!r}: pick 'threads' (in-process "
+                f"chunk pipeline) or 'processes' (coordinator/worker "
+                f"process pool)")
+        if workers is not None and workers < 1:
+            raise ValueError("workers must be >= 1")
+        if executor == "threads" and workers is not None and workers > 1:
+            if self.backend == "torch" and self.device.type == "cuda":
+                raise ValueError(
+                    "workers > 1 under executor='threads' does not apply to "
+                    "a CUDA session (the card already runs the whole chunk "
+                    "on the device); use executor='processes' to fan out "
+                    "across process workers")
+            if self.backend == "scalar":
+                raise ValueError(
+                    "workers > 1 under executor='threads' cannot speed up "
+                    "the scalar backend (the reference loop is GIL-bound); "
+                    "use executor='processes' to fan out across process "
+                    "workers")
+        chunk = chunk_size if chunk_size is not None else space.chunk_size
+        if chunk is None and (reducers is not None or workers is not None
+                              or executor == "processes"):
+            chunk = DEFAULT_CHUNK      # these options all imply streaming
+        if chunk is not None:
+            if not space.is_grid:
+                raise TypeError("streaming sweeps need a grid space; "
+                                "Space.random materializes its draws")
+            return self._sweep_stream(space, int(chunk), reducers, workers,
+                                      executor, constraints, profile)
+        prof = {"path": "materialized"} if profile else None
+        t0 = _perf_counter()
+        points, n, cats = space.points(dram=self.dram, bsp=self.bsp,
+                                       constraints=constraints)
+        if profile:
+            prof["enumerate_s"] = _perf_counter() - t0
+        n_candidates = None
+        if constraints and space.is_grid:
+            # Mask the enumerated grid before anything is scored; scoring
+            # is per-point independent, so this is bit-equal to scoring
+            # everything and filtering after.
+            from repro_torch.search.constraints import (
+                columns_from_parts,
+                feasibility_mask,
+            )
+
+            mask = feasibility_mask(
+                constraints, columns_from_parts(points, cats, n))
+            n_candidates = n
+            points = {k: np.asarray(v)[mask] for k, v in points.items()}
+            cats = {k: (t, np.asarray(idx)[mask])
+                    for k, (t, idx) in cats.items()}
+            n = int(np.count_nonzero(mask))
+            if n == 0:
+                return self._empty_report(n_candidates)
+        t0 = _perf_counter()
         if self.backend == "scalar":
             result = _sweep._score_scalar(points, n, cats)
         else:
             result = _sweep._build(points, n, cats, functools.partial(
                 _mb.estimate_batch, device=self.device, paired_kernel=True))
+        if profile:
+            prof["score_s"] = _perf_counter() - t0
         est = result.estimate
         if self.calibration_factor != 1.0:
             # points overridden by a hardware-axis spec already carry that
@@ -494,7 +847,136 @@ class Session:
                 t_ideal=np.asarray(est.t_ideal) * c,
                 t_ovh=np.asarray(est.t_ovh) * c)
         return SweepReport(points=result.points, estimate=est,
-                           resource=result.resource, backend=self.backend)
+                           resource=result.resource, backend=self.backend,
+                           n_candidates=n_candidates, profile=prof)
+
+    def _empty_report(self, n_candidates: int | None) -> SweepReport:
+        """A zero-row materialized report (constraints ate every point)."""
+        points = {name: (_sweep._object_array([])
+                         if name in _sweep._CATEGORICAL else np.empty(0))
+                  for name in _sweep.AXES}
+        est = _mb.BatchEstimate(
+            t_exe=np.empty(0), t_ideal=np.empty(0), t_ovh=np.empty(0),
+            bound_ratio=np.empty(0),
+            memory_bound=np.empty(0, dtype=bool),
+            total_bytes=np.empty(0), n_lsu=np.empty(0, dtype=np.int64),
+            groups={})
+        return SweepReport(points=points, estimate=est,
+                           resource=np.empty(0), backend=self.backend,
+                           n_candidates=n_candidates)
+
+    # -- streaming sweep ----------------------------------------------------
+
+    def _sweep_stream(self, space: Space, chunk_size: int, reducers,
+                      workers: int | None, executor: str = "threads",
+                      constraints: tuple = (),
+                      profile: bool = False) -> SweepReport:
+        """Chunked, reducer-folded evaluation of a grid space.
+
+        A thin consumer of :class:`SweepPlan`: in this process
+        (``threads``: the device fold when the plan and reducers allow it,
+        else the host pipeline) or across the process pool
+        (``processes``).  Peak memory is O(chunk + front + k); survivor
+        rows (front + top-k) are the only points materialized.
+        """
+        import copy
+        import os
+
+        from repro_torch.core import stream as _stream
+
+        plan = self.plan(space, chunk_size=chunk_size,
+                         constraints=constraints)
+        if reducers is None:
+            reducers = _stream.default_reducers()
+        else:
+            # Reducers accumulate state in place: each sweep folds into
+            # copies, so a second sweep never mixes into the first.
+            reducers = tuple(copy.deepcopy(r) for r in reducers)
+        if not any(isinstance(r, _stream.StatsReducer) for r in reducers):
+            reducers += (_stream.StatsReducer(),)
+
+        prof: dict | None = {} if profile else None
+        t0 = _perf_counter()
+        outcome = None
+        if executor == "processes":
+            from repro_torch.core import distributed as _dist
+
+            outcome = _dist.run_distributed(plan, reducers, workers=workers)
+            if prof is not None:
+                # per-stage walls live in the worker processes; only the
+                # end-to-end wall is observable here
+                prof["path"] = "distributed"
+        else:
+            threaded = workers is not None and workers > 1
+            if self.backend == "torch" and not plan.constraints \
+                    and not threaded:
+                from repro_torch.core import device_stream as _dev
+
+                outcome = _dev.try_outcome(plan, reducers, profile=prof)
+                if outcome is not None and prof is not None:
+                    prof["path"] = "device"
+            if outcome is None:
+                if prof is not None:
+                    # drop an overflowed device attempt's stages, keep
+                    # the fact that it overflowed
+                    overflowed = prof.pop("device_overflow", False)
+                    prof.clear()
+                    if overflowed:
+                        prof["device_overflow"] = True
+                    prof["path"] = "host-stream"
+                    outcome = _stream.run_stream(
+                        plan.n, plan.chunk_size,
+                        plan.evaluator(stage_times=prof), reducers,
+                        stage_times=prof)
+                else:
+                    w = workers
+                    if w is None and self.backend == "torch" \
+                            and self.device.type == "cpu":
+                        w = min(4, os.cpu_count() or 1)
+                    outcome = _stream.run_stream(
+                        plan.n, plan.chunk_size, plan.evaluator(), reducers,
+                        workers=w if self.backend == "torch" else None)
+        if prof is not None:
+            prof["total_s"] = _perf_counter() - t0
+        return _stream_report(
+            outcome, plan.tables(), backend=self.backend,
+            n_candidates=plan.n if plan.constraints else None,
+            profile=prof)
+
+    # -- optimizer-driven search -------------------------------------------
+
+    def optimize(self, space: "Space | Mapping[str, Any] | None" = None, *,
+                 objective="t_exe", constraints=(), seed: int = 0,
+                 max_evals: int | None = None, n_starts: int = 2,
+                 steps: int = 16, screen: int | None = None,
+                 chunk_size: int | None = None, **axes):
+        """Search a grid space for the best design *without* enumerating it.
+
+        ``objective`` is an estimate/resource column to minimize (default
+        ``"t_exe"``), or a pair such as ``("t_exe", "resource")`` to
+        approximate the 2-objective Pareto front.  ``constraints`` restricts
+        the search to the feasible region (same forms as ``sweep``);
+        ``max_evals`` bounds the scored points (default ``max(1024, n //
+        128)``, under 1% of any large grid).
+
+        A seeded feasible screen picks starting points; the integer axes
+        are relaxed to continuous and multi-start AdamW descends with
+        ``torch.autograd`` through the torch estimator on this session's
+        device (one lane per categorical combination, envelope caps as
+        smooth penalties); each continuous optimum is refined on its
+        discrete neighborhood and, in Pareto mode, a Pareto local search
+        walks the front's neighbors — all through the same evaluator a
+        full sweep uses, so every reported number is bit-comparable to the
+        exhaustive grid.  Returns a
+        :class:`repro_torch.search.OptimizeReport`.
+        """
+        from repro_torch.search.optimize import run_optimize
+
+        space = self._as_space(space, axes)
+        return run_optimize(
+            self, space, objective=objective, constraints=constraints,
+            seed=seed, max_evals=max_evals, n_starts=n_starts,
+            steps=steps, screen=screen, chunk_size=chunk_size)
 
     # -- validate -----------------------------------------------------------
 

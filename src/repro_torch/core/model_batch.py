@@ -21,7 +21,9 @@ Two rules keep the torch path bit-equal to the reference's NumPy core:
   do use ``index_add_``; there the result may differ from the host's in
   the last bits on CUDA.
 
-Results cross back to NumPy at the :class:`BatchEstimate` boundary, one
+:func:`estimate_columns` is the tensor core (tensors in, tensors out, on
+the device and through autograd); :func:`estimate_batch` wraps it and
+crosses back to NumPy at the :class:`BatchEstimate` boundary, one
 device-to-host copy for the kernel columns and one for the group columns.
 """
 from __future__ import annotations
@@ -314,6 +316,66 @@ def _to_host(cols: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
                 else host[i]) for i, k in enumerate(names)}
 
 
+#: The per-kernel columns :func:`estimate_columns` can compute, in order.
+KERNEL_COLUMNS = ("t_exe", "t_ideal", "t_ovh", "bound_ratio", "memory_bound",
+                  "total_bytes", "n_lsu")
+
+
+def estimate_columns(cols: dict[str, torch.Tensor], n: int, *,
+                     paired_kernel: bool = False,
+                     want: Sequence[str] = KERNEL_COLUMNS,
+                     ) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+    """The tensor core of :func:`estimate_batch`: Eq. 3 classification and
+    Eq. 1 execution time from group columns already on the device.
+
+    ``cols`` holds one tensor per :class:`GroupBatch` column (``kernel``,
+    ``lsu_type`` and ``burst_cnt`` int64, ``val_constant`` bool, the rest
+    float64, as :func:`_device_columns` makes them); ``n`` is the number of
+    kernels.  Returns ``(kernel columns, group columns)``, tensors on the
+    columns' device, with only the ``want`` kernel columns computed.  Nothing
+    leaves the device and nothing cuts autograd, so the device fold scores
+    chunks through it and the optimizer differentiates through it.
+    """
+    count = cols["count"]
+    if paired_kernel:
+        seg = lambda data: data[:n] + data[n:]  # noqa: E731
+        n_lsu = torch.cat([seg(count)] * 2)
+    else:
+        kernel = cols["kernel"]
+        seg = lambda data: torch.zeros(  # noqa: E731
+            n, dtype=torch.float64, device=kernel.device).index_add(
+                0, kernel, data.to(torch.float64))
+        n_lsu = seg(count)[kernel]
+    g = group_timing(
+        lsu_type=cols["lsu_type"], ls_width=cols["ls_width"],
+        ls_acc=cols["ls_acc"], ls_bytes=cols["ls_bytes"],
+        delta=cols["delta"], val_constant=cols["val_constant"], n_lsu=n_lsu,
+        f=cols["f"], dq=cols["dq"], bl=cols["bl"], f_mem=cols["f_mem"],
+        t_rcd=cols["t_rcd"], t_rp=cols["t_rp"], t_wr=cols["t_wr"],
+        burst_cnt=cols["burst_cnt"], max_th=cols["max_th"], xp=TORCH_XP)
+    delta = cols["delta"]
+    out: dict[str, torch.Tensor] = {}
+    for name in want:
+        if name == "t_exe":
+            out[name] = seg(count * g["t_total"])
+        elif name in ("t_ideal", "t_ovh"):
+            out[name] = seg(count * delta * g[name])
+        elif name in ("bound_ratio", "memory_bound"):
+            if "bound_ratio" not in out:
+                out["bound_ratio"] = seg(count * g["ratio_term"])
+            if name == "memory_bound":
+                out[name] = (out["bound_ratio"] >= 1.0) \
+                    | (seg(count * g["latency_bound"]) > 0)
+        elif name == "total_bytes":
+            out[name] = seg(count * g["total_bytes"])
+        elif name == "n_lsu":
+            out[name] = seg(count)
+        else:
+            raise KeyError(f"unknown kernel column {name!r}")
+    return {k: out[k] for k in want}, g
+    return out, g
+
+
 def estimate_batch(batch: GroupBatch, *, device=None,
                    paired_kernel: bool = False) -> BatchEstimate:
     """Eq. 3 classification + Eq. 1 execution time for every kernel at once.
@@ -325,39 +387,13 @@ def estimate_batch(batch: GroupBatch, *, device=None,
     scorer builds) and replaces every segment reduction with the split add
     ``data[:n] + data[n:]``: bit-equal to the reference's ``np.bincount``
     (two terms per segment, and ``0 + a == a`` exactly) and fixed in order
-    on every device.
+    on every device.  A wrapper of :func:`estimate_columns` that moves the
+    batch to the device and the result back to NumPy.
     """
     device = compat.resolve_device(device)
-    n = batch.n_kernels
-    t = _device_columns(batch, device)
-    count = t["count"]
-    if paired_kernel:
-        seg = lambda data: data[:n] + data[n:]  # noqa: E731
-        n_lsu = torch.cat([seg(count)] * 2)
-    else:
-        kernel = t["kernel"]
-        seg = lambda data: torch.zeros(  # noqa: E731
-            n, dtype=torch.float64, device=device).index_add_(
-                0, kernel, data.to(torch.float64))
-        n_lsu = seg(count)[kernel]
-    g = group_timing(
-        lsu_type=t["lsu_type"], ls_width=t["ls_width"], ls_acc=t["ls_acc"],
-        ls_bytes=t["ls_bytes"], delta=t["delta"],
-        val_constant=t["val_constant"], n_lsu=n_lsu, f=t["f"],
-        dq=t["dq"], bl=t["bl"], f_mem=t["f_mem"], t_rcd=t["t_rcd"],
-        t_rp=t["t_rp"], t_wr=t["t_wr"], burst_cnt=t["burst_cnt"],
-        max_th=t["max_th"], xp=TORCH_XP)
-    delta = t["delta"]
-    ratio = seg(count * g["ratio_term"])
-    kernels = _to_host({
-        "t_exe": seg(count * g["t_total"]),
-        "t_ideal": seg(count * delta * g["t_ideal"]),
-        "t_ovh": seg(count * delta * g["t_ovh"]),
-        "bound_ratio": ratio,
-        "memory_bound": (ratio >= 1.0)
-        | (seg(count * g["latency_bound"]) > 0),
-        "total_bytes": seg(count * g["total_bytes"]),
-        "n_lsu": seg(count),
-    })
+    kernels, g = estimate_columns(_device_columns(batch, device),
+                                  batch.n_kernels,
+                                  paired_kernel=paired_kernel)
+    kernels = _to_host(kernels)
     kernels["n_lsu"] = kernels["n_lsu"].astype(np.int64)
     return BatchEstimate(**kernels, groups=_to_host(g))

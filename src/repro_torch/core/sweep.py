@@ -10,8 +10,10 @@ Points are enumerated exactly as the reference enumerates them (mixed-radix
 ids, first axis slowest), every categorical axis is a ``(table, codes)``
 pair, and each point expands to the LSU groups ``apps.microbench`` would
 build, so point ``i`` here is point ``i`` of a reference sweep of the same
-space.  The streaming engine, constraints and the process executor wait for
-later slices.
+space.  The same scoring core (:func:`_score`) backs the bounded-memory
+streaming path (:mod:`repro_torch.core.stream`), and a random space
+rejection-samples against feasibility constraints
+(:mod:`repro_torch.search.constraints`).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import numbers
 from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core import model_batch as _mb
 from repro_torch.core.fpga import BspParams
@@ -253,13 +256,14 @@ def _apply_hardware_axis(points: dict[str, np.ndarray], n: int,
 
 
 def _resolve_hardware_codes(cats: dict[str, tuple[list, np.ndarray]], n: int,
-                            ) -> tuple[dict, np.ndarray]:
+                            ) -> tuple[dict, np.ndarray, np.ndarray]:
     """Rewrite the ``dram``/``bsp`` ``(table, codes)`` pairs so points with a
     hardware spec index that spec's views; returns ``(cats, host-factor
-    scale [n])``."""
+    scale [n], own [n])``, ``own`` marking the points that run on the
+    session's own hardware (spec ``None``)."""
     hw_table, hw_codes = cats["hardware"]
     if all(h is None for h in hw_table):
-        return cats, np.ones(n)
+        return cats, np.ones(n), np.ones(n, dtype=bool)
     drams, bsps, hf, is_none = _hardware_views(hw_table)
     own = is_none[np.asarray(hw_codes)]
     scale = np.where(own, 1.0, hf[hw_codes])
@@ -269,7 +273,7 @@ def _resolve_hardware_codes(cats: dict[str, tuple[list, np.ndarray]], n: int,
              np.where(own, d_codes, len(d_table) + np.asarray(hw_codes)))
     new_b = (list(b_table) + bsps,
              np.where(own, b_codes, len(b_table) + np.asarray(hw_codes)))
-    return {**cats, "dram": new_d, "bsp": new_b}, scale
+    return {**cats, "dram": new_d, "bsp": new_b}, scale, own
 
 
 def _normalize_inert_axes(points: dict[str, np.ndarray],
@@ -290,7 +294,7 @@ def _normalize_inert_axes(points: dict[str, np.ndarray],
 def _score(numeric: dict[str, np.ndarray],
            cats: dict[str, tuple[list, np.ndarray]], n: int,
            estimator: Estimator,
-           ) -> tuple[_mb.BatchEstimate, np.ndarray, dict, dict]:
+           ) -> tuple[_mb.BatchEstimate, np.ndarray, dict, dict, np.ndarray]:
     """Score ``n`` design points given numeric columns + coded categoricals.
 
     Each point expands to the LSU list ``apps.microbench`` would build, as
@@ -304,9 +308,10 @@ def _score(numeric: dict[str, np.ndarray],
       scalar ACK stores;
     * atomic: a group of ``n_ga`` atomic units (stride is always 1).
 
-    Returns ``(estimate, resource, resolved cats, normalized numeric)``.
+    Returns ``(estimate, resource, resolved cats, normalized numeric,
+    own-hardware mask)``.
     """
-    cats, hw_scale = _resolve_hardware_codes(cats, n)
+    cats, hw_scale, own = _resolve_hardware_codes(cats, n)
 
     type_table, type_idx = cats["lsu_type"]
     type_codes = np.asarray([_mb.TYPE_CODE[t] for t in type_table],
@@ -374,7 +379,52 @@ def _score(numeric: dict[str, np.ndarray],
                            weights=np.asarray(batch.count * batch.ls_width,
                                               dtype=np.float64),
                            minlength=n)
-    return est, resource, cats, numeric
+    return est, resource, cats, numeric, own
+
+
+def _group_columns(type_codes: torch.Tensor, num: dict[str, torch.Tensor],
+                   hw: dict[str, torch.Tensor],
+                   ) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+    """The two-group expansion of :func:`_score` in torch, for
+    :func:`model_batch.estimate_columns` with ``paired_kernel=True``.
+
+    ``type_codes`` are int64 type codes per point; ``num`` holds the
+    numeric axes per point — ``n_ga``, ``simd``, ``n_elems``,
+    ``elem_bytes``, ``delta`` as float64 and ``include_write``,
+    ``val_constant`` as bool; ``hw`` the point's DRAM/BSP fields
+    (``burst_cnt`` int64, the rest float64).  Returns ``(group columns,
+    normalized inert axes)``.  The arithmetic is float64 throughout:
+    ``n_elems / simd`` is exact where ``simd`` divides ``n_elems``, as the
+    sweep requires, so at integer values every column equals the host's,
+    and at relaxed values (the optimizer's descent) it is differentiable.
+    """
+    is_atomic = type_codes == _mb.ATOMIC
+    is_ack = type_codes == _mb.WRITE_ACK
+    latency = is_atomic | is_ack
+    n_ga, simd = num["n_ga"], num["simd"]
+    n_elems, elem_bytes = num["n_elems"], num["elem_bytes"]
+    norm = {"delta": torch.where(latency, 1.0, num["delta"]),
+            "include_write": num["include_write"] & ~is_atomic,
+            "val_constant": num["val_constant"] & is_atomic}
+    per_vec = n_elems / simd
+    g1_count = torch.where(latency, n_ga, n_ga + norm["include_write"])
+    g1_width = torch.where(is_atomic, elem_bytes, simd * elem_bytes)
+    g2_count = torch.where(is_ack & norm["include_write"], simd, 0.0)
+    g1_type = torch.where(is_ack, _mb.ALIGNED, type_codes)
+    pair = lambda a, b: torch.cat([a, b])  # noqa: E731
+    width = pair(g1_width, elem_bytes)
+    cols = {
+        "count": pair(g1_count, g2_count),
+        "lsu_type": pair(g1_type, torch.full_like(g1_type, _mb.WRITE_ACK)),
+        "ls_width": width, "ls_bytes": width,
+        "ls_acc": pair(torch.where(is_atomic, n_elems, per_vec), per_vec),
+        "delta": pair(norm["delta"], torch.ones_like(norm["delta"])),
+        "val_constant": pair(norm["val_constant"],
+                             torch.zeros_like(norm["val_constant"])),
+        "f": pair(simd, simd),
+        **{k: pair(v, v) for k, v in hw.items()},
+    }
+    return cols, norm
 
 
 def _score_scalar(points: dict, n: int,
@@ -449,7 +499,7 @@ def _build(points: dict[str, np.ndarray], n: int,
            estimator: Estimator) -> SweepResult:
     """Materialized scoring: every point's resolved config + estimate."""
     numeric = {k: points[k] for k in _NUMERIC}
-    est, resource, cats, numeric = _score(numeric, cats, n, estimator)
+    est, resource, cats, numeric, _ = _score(numeric, cats, n, estimator)
     return SweepResult(points=_materialize_points(numeric, cats),
                        estimate=est, resource=resource)
 
@@ -482,24 +532,24 @@ def _grid_points(axes: Mapping[str, Any],
                             dict[str, tuple[list, np.ndarray]]]:
     """Per-point axis arrays for the full Cartesian product of ``axes``.
 
-    Point ids decode by mixed-radix arithmetic in C order (first axis
-    slowest), the reference's enumeration; categorical axes come back as
-    ``(table, codes)`` only.
+    Point ids decode through :class:`repro_torch.core.stream.GridEnumerator`
+    (mixed radix, C order, first axis slowest), so point ``i`` here is point
+    ``i`` of the streaming path; categorical axes come back as ``(table,
+    codes)`` only.
     """
-    lists = _normalize_axes(axes)
-    sizes = [len(v) for v in lists.values()]
-    n = int(np.prod(sizes, dtype=np.int64)) if sizes else 0
-    ids = np.arange(n, dtype=np.int64)
+    from repro_torch.core.stream import GridEnumerator
+
+    enum = GridEnumerator(_normalize_axes(axes))
+    codes = enum.codes(np.arange(enum.n, dtype=np.int64))
     points: dict[str, np.ndarray] = {}
     cats: dict[str, tuple[list, np.ndarray]] = {}
-    stride = n
-    for (name, vals), size in zip(lists.items(), sizes):
-        stride = stride // size if size else 1
-        idx = (ids // max(stride, 1)) % max(size, 1)
+    for name, vals in enum.lists.items():
+        idx = codes[name]
         if name in _CATEGORICAL:
             cats[name] = (vals, idx)
         else:
             points[name] = np.asarray(vals)[idx]
+    n = enum.n
     return points, n, cats
 
 
@@ -512,6 +562,7 @@ def _is_numeric_range(v) -> bool:
 
 
 def _random_points(n: int, seed: int, axes: Mapping[str, Any],
+                   constraints: tuple = (),
                    ) -> tuple[dict[str, np.ndarray], int,
                               dict[str, tuple[list, np.ndarray]]]:
     """Per-point axis arrays for ``n`` uniformly sampled design points.
@@ -521,25 +572,75 @@ def _random_points(n: int, seed: int, axes: Mapping[str, Any],
     rounded down to a multiple of that point's own ``simd`` (floored at
     ``simd``).  Same draws, in the same order, as the reference for the
     same seed.
+
+    With ``constraints``, sampling is seeded rejection: draw a batch, keep
+    the feasible rows, repeat until ``n`` points or a bounded number of
+    draws — then raise instead of emitting infeasible points or spinning on
+    an empty feasible region.
     """
     rng = np.random.default_rng(seed)
     tuples = {k: v for k, v in axes.items()
               if k not in _CATEGORICAL and _is_numeric_range(v)}
     lists = _normalize_axes({k: v for k, v in axes.items() if k not in tuples})
-    points: dict[str, np.ndarray] = {}
-    cats: dict[str, tuple[list, np.ndarray]] = {}
-    for name in AXES:
-        if name in tuples:
-            lo, hi = tuples[name]
-            points[name] = rng.integers(int(lo), int(hi) + 1, size=n)
-        else:
-            vals = lists[name]
-            idx = rng.integers(0, len(vals), size=n)
-            if name in _CATEGORICAL:
-                cats[name] = (vals, idx)
+
+    def draw(m: int) -> tuple[dict[str, np.ndarray],
+                              dict[str, tuple[list, np.ndarray]]]:
+        points: dict[str, np.ndarray] = {}
+        cats: dict[str, tuple[list, np.ndarray]] = {}
+        for name in AXES:
+            if name in tuples:
+                lo, hi = tuples[name]
+                points[name] = rng.integers(int(lo), int(hi) + 1, size=m)
             else:
-                points[name] = np.asarray(vals)[idx]
-    simd = np.asarray(points["simd"], dtype=np.int64)
-    n_elems = np.asarray(points["n_elems"], dtype=np.int64)
-    points["n_elems"] = np.maximum((n_elems // simd) * simd, simd)
+                vals = lists[name]
+                idx = rng.integers(0, len(vals), size=m)
+                if name in _CATEGORICAL:
+                    cats[name] = (vals, idx)
+                else:
+                    points[name] = np.asarray(vals)[idx]
+        simd = np.asarray(points["simd"], dtype=np.int64)
+        n_elems = np.asarray(points["n_elems"], dtype=np.int64)
+        points["n_elems"] = np.maximum((n_elems // simd) * simd, simd)
+        return points, cats
+
+    if not constraints or n <= 0:
+        points, cats = draw(n)
+        return points, n, cats
+
+    from repro_torch.search.constraints import (
+        columns_from_parts,
+        feasibility_mask,
+        normalize_constraints,
+    )
+
+    constraints = normalize_constraints(constraints)
+    batch = max(int(n), 1024)
+    budget = 256 * int(n) + 10_000          # total draws before giving up
+    drawn = found = 0
+    kept_points: list[dict[str, np.ndarray]] = []
+    kept_codes: list[dict[str, np.ndarray]] = []
+    tables: dict[str, list] = {}
+    while found < n and drawn < budget:
+        m = min(batch, budget - drawn)
+        points, cats = draw(m)
+        drawn += m
+        mask = feasibility_mask(
+            constraints, columns_from_parts(points, cats, m))
+        if not mask.any():
+            continue
+        kept_points.append({k: v[mask] for k, v in points.items()})
+        kept_codes.append({k: idx[mask] for k, (_, idx) in cats.items()})
+        tables = {k: vals for k, (vals, _) in cats.items()}
+        found += int(mask.sum())
+    if found < n:
+        region = ("appears empty" if found == 0
+                  else f"yielded only {found} of {n} requested points")
+        raise ValueError(
+            f"constrained random sampling: the feasible region {region} "
+            f"after {drawn} seeded draws; relax the constraints or widen "
+            f"the axis ranges")
+    points = {k: np.concatenate([p[k] for p in kept_points])[:n]
+              for k in kept_points[0]}
+    cats = {k: (tables[k], np.concatenate([c[k] for c in kept_codes])[:n])
+            for k in kept_codes[0]}
     return points, n, cats

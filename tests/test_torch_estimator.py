@@ -14,6 +14,7 @@ import pytest
 
 import repro
 import repro_torch as rt
+from repro_torch.core import stream as rt_stream
 from repro.core import DDR4_1866, DDR4_2666
 
 REF_TYPES = [repro.LsuType.BC_ALIGNED, repro.LsuType.BC_NON_ALIGNED,
@@ -169,7 +170,16 @@ def test_report_protocol_and_unported_options():
     assert sess.sweep({"n_ga": [1, 2]}).n_points == 2
     with pytest.raises(TypeError):
         sess.sweep(rt.Space.grid(n_ga=[1]), n_ga=[2])
-    for kwargs in (dict(chunk_size=64), dict(reducers=[]), dict(workers=2),
-                   dict(executor="processes"), dict(constraints=[object()])):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sess.sweep(rt.Space.grid(n_ga=[1]), **kwargs)
+    # the five streaming options, once unported, now give the
+    # materialized result on a one-point grid
+    one = sess.sweep(rt.Space.grid(n_ga=[1]))
+    top1 = [rt_stream.TopKReducer(1)]
+    for kwargs in (dict(chunk_size=64), dict(reducers=top1), dict(workers=2),
+                   dict(executor="processes"),
+                   dict(constraints=[rt.ResourceEnvelope(lsu_ports=64)])):
+        got = sess.sweep(rt.Space.grid(n_ga=[1]), **kwargs)
+        assert got.n_points == 1, kwargs
+        assert got.rows() == one.rows(), kwargs
+        assert got.best() == one.best(), kwargs
+        assert got.summary()["t_exe_min_ms"] == \
+            one.summary()["t_exe_min_ms"], kwargs

@@ -34,7 +34,14 @@ def test_import_loads_neither_jax_nor_repro():
                "repro_torch.kernels.decode_attention.ops, "
                "repro_torch.kernels.flash_attention.ops, "
                "repro_torch.kernels.rglru.ops, "
-               "repro_torch.kernels.mlstm_chunk.ops\n"
+               "repro_torch.kernels.mlstm_chunk.ops, "
+               "repro_torch.core.stream, repro_torch.core.device_stream, "
+               "repro_torch.core.distributed, repro_torch.optim.adamw, "
+               "repro_torch.search.envelope, repro_torch.search.constraints, "
+               "repro_torch.search.optimize\n"
+               "rep = repro_torch.Session(device='cpu').sweep("
+               "n_ga=[1, 2, 4], chunk_size=2)\n"
+               "assert rep.is_streaming and rep.n_points == 3\n"
                "print(sorted(m for m in sys.modules if m.split('.')[0] "
                "in ('jax', 'jaxlib', 'repro')))")
     assert out.returncode == 0, out.stderr
