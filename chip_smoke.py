@@ -13,11 +13,19 @@ processes and constraints, each held bit-equal to the others; the
 reference's 1m optimizer contract; then ``Session.validate`` over the
 seven card-scale kernels — and times each kernel beside its bound, its
 plain version and, where one exists, the one PyTorch call that computes
-the same function.
+the same function.  Three phases without kernels follow the main path:
+``serve`` (the reference's ``serve_smoke`` traffic against
+``Session(device="cuda").serve()``, every served estimate bit-equal to a
+serial one), ``paper`` (Table IV through the scalar model and the card's
+torch backend, Table V and Fig. 5 with the port's DRAM simulator and
+baselines) and ``predict`` (``Session.predict``, ``Design.from_hlo`` and
+``Session.roofline`` on the committed HLO fixtures, held to the
+reference's results in ``tests/data/torch_hlo/``).
 
 Prints one JSON object per phase (env, build with each kernel function's
 counts of Hopper instructions in its SASS, parity, estimator, stream,
-optimize, validate, kernels); then the ``{"kernels": [...]}`` line, the card's
+optimize, validate, launches, serve, paper, predict); then the
+``{"kernels": [...]}`` line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
 code is non-zero and no result line is printed; so does a machine without
@@ -997,6 +1005,259 @@ def phase_validate(device) -> None:
           "calibration_factor": rep.calibration_factor, "rows": rows})
 
 
+#: The reference's ``serve_smoke`` traffic (benchmarks/serve_bench.py).
+SERVE_CLIENTS = 32
+SERVE_HOT_POOL = 64
+SERVE_HOT_PASSES = 4
+SERVE_COLD_PER_CLIENT = 48
+SERVE_HOT_P99_BUDGET = 5.0
+SERVE_THINK_S = (0.5e-3, 2e-3)
+
+
+def _serve_pool(n: int, tag: str):
+    """The reference bench's design pool: every LSU type, 1-4 global
+    accesses, SIMD 1-16, strides 1-7, 2^12-2^16 elements."""
+    import itertools
+
+    import repro_torch as rt
+
+    types = [rt.LsuType.BC_ALIGNED, rt.LsuType.BC_NON_ALIGNED,
+             rt.LsuType.BC_WRITE_ACK, rt.LsuType.ATOMIC_PIPELINED]
+    combos = itertools.cycle(
+        (t, g, s, d) for t in types for g in (1, 2, 3, 4)
+        for s in (1, 4, 16) for d in (1, 3, 7))
+    return [rt.Design.microbench(t, n_ga=g, simd=s, delta=d,
+                                 n_elems=1 << (12 + i % 5),
+                                 name=f"{tag}-{i}")
+            for i, (t, g, s, d) in zip(range(n), combos)]
+
+
+def _pcts_us(lat_s: list) -> dict:
+    """p50/p99/mean in microseconds (the reference bench's index rule)."""
+    lat = sorted(lat_s)
+    n = len(lat)
+    pct = lambda q: lat[min(n - 1, int(q * (n - 1) + 0.999999))]  # noqa: E731
+    return {"p50_us": pct(0.50) * 1e6, "p99_us": pct(0.99) * 1e6,
+            "mean_us": sum(lat) / n * 1e6}
+
+
+def _hammer(estimate, worklists, think_s=None):
+    """One client thread per worklist; per-request latencies, the results
+    in request order per client, and the wall time."""
+    import threading
+
+    import numpy as np
+
+    lats = [[] for _ in worklists]
+    outs = [[] for _ in worklists]
+    errors = []
+    start = threading.Barrier(len(worklists))
+
+    def client(i: int) -> None:
+        rng = np.random.default_rng(i)
+        start.wait()
+        try:
+            for d in worklists[i]:
+                t0 = time.perf_counter()
+                est = estimate(d)
+                lats[i].append(time.perf_counter() - t0)
+                outs[i].append(est)
+                if think_s is not None:
+                    time.sleep(rng.uniform(*think_s))
+        except BaseException as exc:  # noqa: BLE001 — fail in the main thread
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(worklists))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    check(not errors, f"serve: client errors {errors[:3]}")
+    return [x for per in lats for x in per], outs, wall
+
+
+def _same_estimate(a, b) -> bool:
+    return all(getattr(a, f) == getattr(b, f) for f in (
+        "t_exe", "t_ideal", "t_ovh", "bound_ratio", "memory_bound",
+        "total_bytes", "n_lsu"))
+
+
+def phase_serve(device) -> None:
+    """``serve_smoke`` on the card: the serial single-request baseline, 32
+    hot clients over a cached 64-design pool (4 passes, 0.5-2 ms think
+    time) and 32 cold clients of 48 distinct designs each with the cache
+    off.  Every served estimate must be bit-equal to a serial
+    ``estimate`` on the same card session, and hot p99 within 5x single."""
+    import repro_torch as rt
+
+    sess = rt.Session(device=device)
+    t_phase = time.perf_counter()
+    pool = _serve_pool(SERVE_HOT_POOL, "hot")
+    serial = {}
+    for d in pool:                                   # warm, and the oracle
+        serial[d.name] = sess.estimate(d)
+    lat = []
+    for d in pool * 2:
+        t0 = time.perf_counter()
+        sess.estimate(d)
+        lat.append(time.perf_counter() - t0)
+    single = {"scenario": "single", "clients": 1, "requests": len(lat),
+              **_pcts_us(lat), "qps": len(lat) / sum(lat)}
+
+    with sess.serve(max_batch=64, max_wait_ms=0.5) as srv:
+        for d in pool:                               # one miss per design
+            srv.estimate(d)
+        work = [[pool[(i * 7 + k) % len(pool)]
+                 for k in range(SERVE_HOT_PASSES * len(pool))]
+                for i in range(SERVE_CLIENTS)]
+        lat, outs, wall = _hammer(srv.estimate, work, think_s=SERVE_THINK_S)
+        st = srv.stats()
+    hot = {"scenario": "serve_hot", "clients": SERVE_CLIENTS,
+           "requests": len(lat), **_pcts_us(lat), "qps": len(lat) / wall,
+           "cache_hit_rate": st["cache_hit_rate"]}
+    hot["x_single"] = hot["p99_us"] / single["p50_us"]
+    mismatched = sum(not _same_estimate(e, serial[d.name])
+                     for w, o in zip(work, outs) for d, e in zip(w, o))
+    check(mismatched == 0, f"serve hot: {mismatched} served != serial")
+
+    cold_work = [_serve_pool(SERVE_COLD_PER_CLIENT, f"cold-{i}")
+                 for i in range(SERVE_CLIENTS)]
+    with sess.serve(max_batch=SERVE_CLIENTS, max_wait_ms=0.25,
+                    cache_size=0) as srv:
+        lat, outs, wall = _hammer(srv.estimate, cold_work)
+        st = srv.stats()
+    cold = {"scenario": "serve_cold", "clients": SERVE_CLIENTS,
+            "requests": len(lat), **_pcts_us(lat), "qps": len(lat) / wall,
+            "mean_batch": st["mean_batch"], "batches": st["batches"],
+            "max_batch_seen": st["max_batch_seen"]}
+    # the cold designs repeat the hot pool's first 48 numerically (only the
+    # names differ), so the serial oracle covers them by position
+    mismatched = sum(not _same_estimate(e, serial[pool[k].name])
+                     for o in outs for k, e in enumerate(o))
+    check(mismatched == 0, f"serve cold: {mismatched} served != serial")
+    check(hot["requests"] == SERVE_CLIENTS * SERVE_HOT_PASSES * len(pool)
+          and cold["requests"] == SERVE_CLIENTS * SERVE_COLD_PER_CLIENT,
+          "serve: request counts")
+    check(hot["x_single"] <= SERVE_HOT_P99_BUDGET,
+          f"serve: hot p99 {hot['p99_us']:.1f} us is "
+          f"{hot['x_single']:.2f}x single, budget {SERVE_HOT_P99_BUDGET}x")
+    check(cold["mean_batch"] > 1.0, "serve: the cold run did not batch")
+    emit({"phase": "serve", "rows": [single, hot, cold],
+          "served_equal_serial": True,
+          "seconds": time.perf_counter() - t_phase})
+
+
+def phase_paper(device) -> None:
+    """Table IV through the scalar model and the card's torch backend (to
+    rtol 1e-12), held to ``BENCH_smoke.json``'s recorded rows; Table V and
+    Fig. 5 with the port's simulator and baselines and the card session's
+    estimates, held to the same tables on the scalar backend."""
+    import repro_torch as rt
+    from repro_torch import paper_tables
+    from repro_torch.core import apps, model
+
+    t_phase = time.perf_counter()
+    card = rt.Session(dram=rt.DDR4_1866, device=device)
+    scalar = rt.Session(dram=rt.DDR4_1866, backend="scalar", device="cpu")
+    rows = apps.table4_rows()
+    worst = 0.0
+    for app, row in zip(apps.APPS.values(), rows):
+        lsus = app.lsus(row["n_elems"])
+        want = model._estimate(lsus, card.dram, card.bsp).t_exe
+        got = card.estimate(rt.Design(lsus=tuple(lsus), name=app.name)).t_exe
+        worst = max(worst, abs(got - want) / want)
+    check(worst <= 1e-12, f"paper: Table IV on the card off by {worst:.3g}")
+    recorded = json.loads((ROOT / "BENCH_smoke.json").read_text())
+    check(rows == recorded["details"]["table4_applications"],
+          "paper: Table IV rows differ from BENCH_smoke.json")
+    errs = [r["err_pct"] for r in rows]
+    max_err, mean_err = max(errs), sum(errs) / len(errs)
+    derived = next(r["derived"] for r in recorded["summary"]
+                   if r["name"] == "table4_applications")
+    check(derived.startswith(
+        f"max_err={max_err:.1f}% mean_err={mean_err:.1f}%"),
+        f"paper: Table IV errors {max_err}/{mean_err} vs {derived!r}")
+
+    t5 = paper_tables.table5_comparison(card)
+    check(t5 == paper_tables.table5_comparison(scalar),
+          "paper: Table V on the card differs from the scalar model's")
+    mean = {k: sum(r[k] for r in t5) / len(t5)
+            for k in ("err_ours_pct", "err_wang_pct", "err_hlscope_pct")}
+    check(2 * mean["err_ours_pct"] <= min(mean["err_wang_pct"],
+                                          mean["err_hlscope_pct"]),
+          f"paper: Table V claim (2x less error) fails: {mean}")
+    f5 = paper_tables.fig5_stride(card)
+    check(f5 == paper_tables.fig5_stride(scalar),
+          "paper: Fig. 5 on the card differs from the scalar model's")
+    knee = {r["delta"]: r["t_norm"] for r in f5 if r["lsu"] == "bca"}
+    check(knee[4] == 4.0, f"paper: Fig. 5 aligned delta 4 -> {knee[4]}")
+    emit({"phase": "paper", "table4_max_err_pct": max_err,
+          "table4_mean_err_pct": mean_err, "table4_card_rel_err": worst,
+          "table5_mean_err_pct": mean, "table5": t5, "fig5": f5,
+          "seconds": time.perf_counter() - t_phase})
+
+
+def phase_predict(device) -> None:
+    """``Session.predict``, ``Design.from_hlo`` and ``Session.roofline`` on
+    the committed HLO fixtures against the reference's results: the HLO
+    analysis is host Python and must be exact; the roofline's estimate
+    runs on the card (rtol 1e-12)."""
+    import repro_torch as rt
+    from repro_torch.core import hlo_counter, predictor, roofline
+
+    def same(a, b) -> bool:
+        return json.loads(json.dumps(a, sort_keys=True)) == \
+            json.loads(json.dumps(b, sort_keys=True))
+
+    t_phase = time.perf_counter()
+    sess = rt.Session(device=device)
+    data = ROOT / "tests" / "data" / "torch_hlo"
+    names = sorted(p.stem for p in data.glob("*.txt"))
+    check({"matmul", "elementwise", "gather", "scan", "psum"} <= set(names),
+          f"predict: fixtures missing ({names})")
+    rows, roof_err = [], 0.0
+    with sess.serve() as srv:
+        for name in names:
+            text = (data / f"{name}.txt").read_text()
+            rec = json.loads((data / f"{name}.json").read_text())
+            check(same(hlo_counter.record(hlo_counter.analyze(text)),
+                       rec["analyze_fused"]), f"predict {name}: analyze")
+            pred = sess.predict(text, rec["cost"])
+            check(same(predictor.record(pred), rec["predict_step"]),
+                  f"predict {name}: predict_step")
+            check(srv.predict(text, rec["cost"]) is
+                  srv.predict(text, rec["cost"]),
+                  f"predict {name}: Server.predict not memoized")
+            cell = roofline.build_cell(
+                arch=name, shape="fixture", mesh=f"{rec['chips']}",
+                chips=rec["chips"], hlo_text=text, cost=rec["cost"],
+                model_flops_global=pred.flops * rec["chips"])
+            check(same(cell.as_row(), rec["cell"]),
+                  f"predict {name}: build_cell")
+            design = rt.Design.from_hlo(text, name=name)
+            check(same([[l.lsu_type.value, l.ls_width, l.ls_acc, l.ls_bytes,
+                         l.delta, l.is_write, l.name] for l in design.lsus],
+                       rec["design"]["lsus"])
+                  and design.flops == rec["design"]["flops"],
+                  f"predict {name}: Design.from_hlo")
+            got = sess.roofline(design).rows()[0]
+            want = rec["roofline"]
+            for k, v in want.items():
+                if isinstance(v, float) and math.isfinite(v) and v:
+                    roof_err = max(roof_err, abs(got[k] - v) / abs(v))
+                else:
+                    check(got[k] == v, f"predict {name}: roofline {k}")
+            rows.append({"module": name, "bottleneck": pred.bottleneck,
+                         "t_step_ms": pred.t_step_overlapped * 1e3,
+                         "roofline_bottleneck": got["bottleneck"]})
+    check(roof_err <= 1e-12, f"predict: roofline off by {roof_err:.3g}")
+    emit({"phase": "predict", "rows": rows, "roofline_rel_err": roof_err,
+          "seconds": time.perf_counter() - t_phase})
+
+
 def time_ms(fn, device, iters=20, warmup=3) -> float:
     from repro_torch.core.validate import time_callable
 
@@ -1090,6 +1351,11 @@ def main() -> int:
     emit({"phase": "launches", "main_path": launches})
     for name, count in launches.items():
         check(count > 0, f"{name} was never launched on the main path")
+
+    # Serving, the paper's tables and the HLO predictor launch no kernel.
+    phase_serve(device)
+    phase_paper(device)
+    phase_predict(device)
 
     kernels = phase_kernels(device, card, launches, card_err)
     emit({"kernels": kernels})

@@ -16,6 +16,8 @@ measured kernels:
     >>> sess.sweep(rt.Space.grid(n_ga=list(range(1, 101))).stream())
     >>> sess.optimize(rt.Space.grid(n_ga=list(range(1, 101))))
     >>> sess.validate()                             # the seven-kernel table
+    >>> with sess.serve() as srv: srv.estimate(d)   # micro-batched + cached
+    >>> sess.predict(hlo_text)                      # compiled HLO -> step time
 
 ``Session(device="cpu")`` runs the same pipeline on the CPU, with the
 kernels' plain PyTorch versions in place of the CUDA kernels.
@@ -28,6 +30,11 @@ from repro_torch.api import (
     Design,
     Estimate,
     Report,
+    RequestTimeout,
+    RooflineReport,
+    Server,
+    ServerClosed,
+    ServerOverloaded,
     Session,
     Space,
     SweepPlan,
@@ -35,6 +42,7 @@ from repro_torch.api import (
     ValidateReport,
 )
 from repro_torch.core.fpga import BspParams, DramParams
+from repro_torch.core.hbm import AccessClass, TpuParams
 from repro_torch.core.lsu import Lsu, LsuType, make_global_access
 from repro_torch.hw import ClockDomain, DramOrganization, Hardware, MemorySystem
 from repro_torch.search import (
@@ -47,13 +55,24 @@ from repro_torch.search import (
 DDR4_1866 = hw.get("stratix10_ddr4_1866").dram_params()
 DDR4_2666 = hw.get("stratix10_ddr4_2666").dram_params()
 STRATIX10_BSP = hw.get("stratix10_ddr4_1866").bsp_params()
+DRAM_CONFIGS = {d.name: d for d in (DDR4_1866, DDR4_2666)}
+#: The TPU-model chip parameters (a datasheet input of the HLO predictor,
+#: not a measurement of the card the port runs on).
+TPU_V5E = hw.get("tpu_v5e").tpu_params()
+
+#: The API version of the reference package this port mirrors.
+__version__ = "0.9.0"
 
 __all__ = [
     "Design", "Session", "Space", "Estimate", "Report", "SweepPlan",
-    "SweepReport", "ValidateReport", "BACKENDS", "EXECUTORS",
-    "DEFAULT_CHUNK", "ResourceEnvelope", "Constraint", "within",
+    "SweepReport", "ValidateReport", "RooflineReport", "BACKENDS",
+    "EXECUTORS", "DEFAULT_CHUNK", "ResourceEnvelope", "Constraint", "within",
     "OptimizeReport",
+    "Server", "ServerClosed", "ServerOverloaded", "RequestTimeout",
     "hw", "Hardware", "MemorySystem", "DramOrganization", "ClockDomain",
     "Lsu", "LsuType", "make_global_access",
-    "DramParams", "BspParams", "DDR4_1866", "DDR4_2666", "STRATIX10_BSP",
+    "DramParams", "BspParams", "DDR4_1866", "DDR4_2666", "DRAM_CONFIGS",
+    "STRATIX10_BSP",
+    "TpuParams", "TPU_V5E", "AccessClass",
+    "__version__",
 ]

@@ -9,13 +9,16 @@ Port of ``repro.api`` for the paper's main loop:
 * :class:`Space` — a grid or random design space over the microbenchmark
   axes (``.stream()`` marks a grid for chunked streaming);
 * :class:`Session` — the evaluation context: hardware (DRAM + BSP, or one
-  :class:`repro_torch.hw.Hardware` spec), a calibration factor, a backend
-  (``scalar`` reference loop or the ``torch`` array core) and the
-  ``device`` the torch core and the kernels run on — the CUDA card unless
-  the caller passes ``device="cpu"``.  ``sweep`` materializes or streams
-  (with the device fold, constraints and a process executor), ``plan``
-  describes a streaming sweep as picklable data, ``optimize`` searches a
-  grid without enumerating it.
+  :class:`repro_torch.hw.Hardware` spec), the TPU-model parameters ``hw``
+  of the HLO predictor, a calibration factor, a backend (``scalar``
+  reference loop or the ``torch`` array core) and the ``device`` the torch
+  core and the kernels run on — the CUDA card unless the caller passes
+  ``device="cpu"``.  ``sweep`` materializes or streams (with the device
+  fold, constraints and a process executor), ``plan`` describes a
+  streaming sweep as picklable data, ``optimize`` searches a grid without
+  enumerating it, ``predict``/``roofline`` read compiled HLO text, and
+  ``serve`` turns the session into a concurrent query service
+  (:class:`repro_torch.core.serving.Server`).
 
     >>> from repro_torch import Design, Session, Space, LsuType
     >>> sess = Session()                     # DDR4-1866 on the CUDA card
@@ -24,6 +27,8 @@ Port of ``repro.api`` for the paper's main loop:
     >>> big = sess.sweep(Space.grid(n_ga=list(range(1, 101))),
     ...                  chunk_size=1 << 17, profile=True)
     >>> rep = sess.validate()                # the CUDA kernels, measured
+    >>> with sess.serve() as srv:            # micro-batched, LRU-cached
+    ...     srv.estimate(Design.microbench(LsuType.BC_ALIGNED, n_ga=4))
 """
 from __future__ import annotations
 
@@ -41,9 +46,10 @@ from repro_torch.core import model as _model
 from repro_torch.core import model_batch as _mb
 from repro_torch.core import sweep as _sweep
 from repro_torch.core.fpga import BspParams, DramParams
+from repro_torch.core.hbm import TpuParams
 from repro_torch.core.lsu import Lsu, LsuType, make_global_access
 from repro_torch.core.stream import SweepPlan
-from repro_torch.hw import DEFAULT_BOARD, Hardware
+from repro_torch.hw import DEFAULT_BOARD, DEFAULT_CHIP, Hardware
 from repro_torch.hw import get as _hw_get
 
 #: Session compute backends: the readable scalar loop and the torch core.
@@ -55,7 +61,8 @@ EXECUTORS = ("threads", "processes")
 
 __all__ = ["BACKENDS", "EXECUTORS", "DEFAULT_CHUNK", "Design", "Space",
            "Session", "Estimate", "Report", "SweepReport", "ValidateReport",
-           "SweepPlan"]
+           "RooflineReport", "SweepPlan", "Server", "ServerClosed",
+           "ServerOverloaded", "RequestTimeout"]
 
 _perf_counter = time.perf_counter
 
@@ -125,6 +132,22 @@ class Design:
             dict(bytes_by_class),
             access_bytes=access_bytes or _validate.ACCESS_BYTES)
         return cls(lsus=tuple(lsus), flops=flops, name=name)
+
+    @classmethod
+    def from_hlo(cls, hlo_text: str, *, access_bytes: int | None = None,
+                 name: str = "") -> "Design":
+        """Design read off compiled HLO text (``compiled.as_text()``).
+
+        The transplant of reading the HLS early report: the trip-count-aware
+        HLO counter classifies the executable's memory traffic, and each
+        access class becomes one LSU group.
+        """
+        from repro_torch.core import hlo_counter as _hc
+
+        hc = _hc.analyze(hlo_text)
+        return cls.from_classes(dict(hc.bytes_by_class),
+                                access_bytes=access_bytes,
+                                flops=float(hc.flops), name=name)
 
     def with_dram(self, dram: DramParams) -> "Design":
         return dataclasses.replace(self, dram=dram)
@@ -262,6 +285,7 @@ class Estimate:
     backend: str = "scalar"
     design: "Design | None" = None
     per_lsu: tuple = ()
+    cached: bool = False          # True when served from a Server's LRU
 
     @property
     def effective_bandwidth(self) -> float:
@@ -568,6 +592,46 @@ class ValidateReport(Report):
                 "max_err_pct": self.max_err_pct}
 
 
+@dataclasses.dataclass(frozen=True)
+class RooflineReport(Report):
+    """Roofline placement of one design: memory vs compute terms."""
+
+    design: Design
+    estimate: Estimate
+    t_memory: float               # the Eqs. 1-10 memory time [s]
+    t_compute: float              # flops / peak_flops (0 when flops unknown)
+    ridge_flops_per_byte: float   # the hw ridge point
+    arithmetic_intensity: float   # flops / useful bytes
+    peak_bw: float                # hw peak memory bandwidth [B/s]
+    kind = "roofline"
+
+    @property
+    def t_exe(self) -> float:
+        """Roofline time: the slower of the two resources."""
+        return max(self.t_memory, self.t_compute)
+
+    @property
+    def bottleneck(self) -> str:
+        return "memory" if self.t_memory >= self.t_compute else "compute"
+
+    @property
+    def memory_bound(self) -> bool:
+        return self.bottleneck == "memory"
+
+    def rows(self) -> list[dict]:
+        return [{
+            "design": self.design.name,
+            "t_memory_ms": self.t_memory * 1e3,
+            "t_compute_ms": self.t_compute * 1e3,
+            "bottleneck": self.bottleneck,
+            "arithmetic_intensity": self.arithmetic_intensity,
+            "ridge_flops_per_byte": self.ridge_flops_per_byte,
+            "eff_bw_gbs": self.estimate.effective_bandwidth / 1e9,
+            "peak_bw_gbs": self.peak_bw / 1e9,
+            "bound_ratio": self.estimate.bound_ratio,
+        }]
+
+
 # ---------------------------------------------------------------------------
 # Session: hardware + calibration + backend + device
 # ---------------------------------------------------------------------------
@@ -580,6 +644,9 @@ class Session:
       when set, ``dram``/``bsp`` and the calibration factor derive from it;
     * ``dram``/``bsp`` — the FPGA-model hardware (default: the registry's
       ``stratix10_ddr4_1866`` board), unless a :class:`Design` overrides it;
+    * ``hw`` — the TPU-model parameters that ``predict`` and ``roofline``
+      read (default: the registry's ``tpu_v5e`` chip; datasheet inputs of
+      the model, not measurements of the card the session runs on);
     * ``backend`` — ``scalar`` (readable reference loop) or ``torch`` (the
       float64 array core on ``device``);
     * ``calibration_factor`` — measured/modeled scale fitted by
@@ -590,6 +657,7 @@ class Session:
 
     dram: DramParams | None = None
     bsp: BspParams | None = None
+    hw: TpuParams | None = None
     backend: str = "torch"
     calibration_factor: float | None = None
     hardware: Hardware | None = None
@@ -602,6 +670,9 @@ class Session:
             object.__setattr__(self, "dram", (spec or board).dram_params())
         if self.bsp is None:
             object.__setattr__(self, "bsp", (spec or board).bsp_params())
+        if self.hw is None:
+            object.__setattr__(self, "hw", spec.tpu_params() if spec
+                               else _hw_get(DEFAULT_CHIP).tpu_params())
         if self.calibration_factor is None:
             object.__setattr__(self, "calibration_factor",
                                float(spec.host_factor) if spec else 1.0)
@@ -627,6 +698,7 @@ class Session:
         return dataclasses.replace(
             self, hardware=hardware,
             dram=hardware.dram_params(), bsp=hardware.bsp_params(),
+            hw=hardware.tpu_params(),
             calibration_factor=float(hardware.host_factor))
 
     def with_calibration(self, report: ValidateReport) -> "Session":
@@ -996,3 +1068,71 @@ class Session:
             dram=None if calibrate else self.dram, base=self.dram,
             fit_host_factor=calibrate)
         return ValidateReport(rep)
+
+    # -- HLO predictor and roofline ----------------------------------------
+
+    def roofline(self, design: Design) -> RooflineReport:
+        """Place one design on the roofline: the Eqs. 1-10 memory time (on
+        this session's backend and device) vs the compute floor
+        (``flops / hw.peak_flops``; 0 when flops are unknown)."""
+        est = self.estimate(design)
+        t_compute = design.flops / self.hw.peak_flops
+        ai = (design.flops / est.total_bytes if est.total_bytes
+              else math.inf if design.flops else 0.0)
+        dram, _ = self._hw_for(design)
+        return RooflineReport(
+            design=design, estimate=est,
+            t_memory=est.t_exe, t_compute=t_compute,
+            ridge_flops_per_byte=self.hw.ridge_flops_per_byte,
+            arithmetic_intensity=ai, peak_bw=dram.bw_mem)
+
+    def predict(self, hlo_text: str, cost: dict | None = None, *,
+                gather_row_bytes: float = 512.0):
+        """Step prediction from compiled HLO text
+        (:func:`repro_torch.core.predictor.predict_step` under this
+        session's ``hw``).  ``cost`` is ``compiled.cost_analysis()`` as
+        plain data, recorded for cross-checks only."""
+        from repro_torch.core import predictor as _pred
+
+        return _pred.predict_step(hlo_text, cost, self.hw,
+                                  gather_row_bytes=gather_row_bytes)
+
+    # -- serving ------------------------------------------------------------
+
+    def serve(self, *, max_batch: int = 64, max_wait_ms: float = 1.0,
+              cache_size: int = 4096, max_queue: int = 1024,
+              timeout_ms: float | None = None) -> "Server":
+        """This session as a long-lived concurrent query service.
+
+        Returns a :class:`Server` whose ``estimate``/``submit``/``predict``
+        calls are safe from any number of threads: a background batcher
+        collects up to ``max_batch`` concurrent requests (lingering at most
+        ``max_wait_ms`` for a partial batch), scores them in one
+        ``estimate_many`` pass on this session's device, and scatters the
+        results back to per-request futures, bit-equal to serial
+        ``estimate`` calls.  A content-hash LRU of ``cache_size`` results
+        sits in front (hits return immediately with ``Estimate.cached``
+        set); ``max_queue`` bounds the backlog (beyond it submissions
+        fast-fail with :class:`ServerOverloaded`); ``timeout_ms`` is the
+        default per-request deadline.  Close with ``server.close()`` or use
+        it as a context manager; ``server.stats()`` reports hits, misses
+        and p50/p99 latency.
+        """
+        from repro_torch.core.serving import Server
+
+        return Server(self, max_batch=max_batch, max_wait_ms=max_wait_ms,
+                      cache_size=cache_size, max_queue=max_queue,
+                      timeout_ms=timeout_ms)
+
+
+# ---------------------------------------------------------------------------
+# serving layer (implementation in repro_torch.core.serving; surface is
+# Session.serve — imported last because serving's type hints point back here)
+# ---------------------------------------------------------------------------
+
+from repro_torch.core.serving import (  # noqa: E402
+    RequestTimeout,
+    Server,
+    ServerClosed,
+    ServerOverloaded,
+)

@@ -1,12 +1,32 @@
 """Benchmark descriptors: the paper's SIV microbenchmarks (Listings 3-5) and
 the Table IV applications' LSU structure.  Port of ``repro.core.apps``
 (the descriptors behind ``Design.microbench`` and ``Design.from_app``).
+
+The paper publishes each application's LSU structure and its measured and
+estimated times, not its input size.  The model is linear in the input
+size, so :meth:`AppDescriptor.calibrated_elems` sets one element count per
+application against the paper's *estimated* time, and
+:func:`table4_rows` then reports the error against the *measured* time;
+``vectoradd_d2`` is calibrated on the ``vectoradd`` row (a held-out check
+of the stride term).
 """
 from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.core import model as _model
+from repro_torch.core.fpga import BspParams, DramParams
 from repro_torch.core.lsu import Lsu, LsuType
+
+
+def _defaults(dram: DramParams | None, bsp: BspParams | None,
+              ) -> tuple[DramParams, BspParams]:
+    """The given DRAM/BSP, each defaulting to the registry default board."""
+    from repro_torch.hw import DEFAULT_BOARD, get as _get
+
+    board = _get(DEFAULT_BOARD)
+    return (dram if dram is not None else board.dram_params(),
+            bsp if bsp is not None else board.bsp_params())
 
 
 def microbench(
@@ -111,6 +131,22 @@ class AppDescriptor:
         return out
 
 
+    def calibrated_elems(self, dram: DramParams | None = None,
+                         bsp: BspParams | None = None) -> int:
+        """Input size such that the model reproduces the paper's E.Time.
+
+        Calibrated against ``calibrate_to``'s row when set (the held-out
+        VectorAdd delta=2 case), else against this app's own E.Time.
+        """
+        dram, bsp = _defaults(dram, bsp)
+        ref = APPS[self.calibrate_to] if self.calibrate_to else self
+        probe = 1 << 20
+        t_probe = _model._estimate(ref.lsus(probe), dram, bsp).t_exe
+        scale = (ref.paper_est_ms * 1e-3) / t_probe
+        n = int(round(probe * scale / self.simd)) * self.simd
+        return max(self.simd, n)
+
+
 _T = LsuType
 APPS: dict[str, AppDescriptor] = {
     a.name: a
@@ -139,3 +175,28 @@ APPS: dict[str, AppDescriptor] = {
                       measured_ms=1.4, paper_est_ms=1.4, paper_err_pct=4.0),
     ]
 }
+
+
+def table4_rows(dram: DramParams | None = None,
+                bsp: BspParams | None = None) -> list[dict]:
+    """Reproduce Table IV: per-app estimate vs the paper's measured time."""
+    dram, bsp = _defaults(dram, bsp)
+    rows = []
+    for app in APPS.values():
+        n = app.calibrated_elems(dram, bsp)
+        est = _model._estimate(app.lsus(n), dram, bsp)
+        est_ms = est.t_exe * 1e3
+        err = abs(est_ms - app.measured_ms) / app.measured_ms * 100.0
+        rows.append({
+            "kernel": app.name,
+            "gmi": app.gmi.value,
+            "n_lsu": app.n_lsu,
+            "measured_ms": app.measured_ms,
+            "est_ms": round(est_ms, 2),
+            "paper_est_ms": app.paper_est_ms,
+            "err_pct": round(err, 2),
+            "paper_err_pct": app.paper_err_pct,
+            "memory_bound": est.memory_bound,
+            "n_elems": n,
+        })
+    return rows

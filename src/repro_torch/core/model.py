@@ -12,7 +12,10 @@ over all GMI LSUs ``i``, with ``T_ideal_i = ls_bytes_i * ls_acc_i / bw_mem``
 :func:`_estimate` runs each LSU through the same
 :func:`repro_torch.core.model_batch.group_timing` body as the batched path,
 on plain Python scalars: the ``scalar`` backend of ``Session``, and the
-source of :attr:`Estimate.per_lsu`.
+source of :attr:`Estimate.per_lsu`.  :func:`lsu_timing` and its helpers
+(``k_lsu``, ``burst_size_bytes``, ``t_row_seconds``) are the readable
+per-LSU statement of the same equations, which the DRAM simulator and the
+paper tables read; :func:`pipeline_time` is Fig. 3's compute bound.
 """
 from __future__ import annotations
 
@@ -22,7 +25,14 @@ from typing import Sequence
 
 from repro_torch.core import model_batch as _mb
 from repro_torch.core.fpga import BspParams, DramParams
-from repro_torch.core.lsu import Lsu
+from repro_torch.core.lsu import Lsu, LsuType
+
+
+def _default_bsp() -> BspParams:
+    """The registry default board's BSP view."""
+    from repro_torch.hw import DEFAULT_BOARD, get as _get
+
+    return _get(DEFAULT_BOARD).bsp_params()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +78,86 @@ class KernelEstimate:
         return self.total_bytes / self.t_exe if self.t_exe > 0 else math.inf
 
 
+def k_lsu(lsu: Lsu) -> float:
+    """Eq. 3 coalescing-efficiency factor per LSU type."""
+    if lsu.lsu_type in (LsuType.BC_ALIGNED, LsuType.BC_NON_ALIGNED, LsuType.BC_CACHE):
+        return float(lsu.delta)
+    # write-ACK (paper SIII-A3: "K_lsu equals 1") and atomic.
+    return 1.0
+
+
+def burst_size_bytes(lsu: Lsu, dram: DramParams, bsp: BspParams) -> float:
+    """Effective DRAM transaction size for this LSU [bytes]."""
+    max_txn = bsp.max_transaction_bytes(dram)  # Eq. 5: 2**burst_cnt * dq * bl
+    if lsu.lsu_type in (LsuType.BC_ALIGNED, LsuType.BC_CACHE, LsuType.BC_WRITE_ACK):
+        return float(max_txn)
+    if lsu.lsu_type is LsuType.BC_NON_ALIGNED:
+        # Eq. 7: the thread-count trigger caps the assembled request.
+        max_reqs = bsp.max_th * lsu.ls_width / (lsu.delta + 1)
+        # Eq. 8: whichever trigger fires first defines the effective burst.
+        if max_reqs <= max_txn:
+            return max_reqs / lsu.delta
+        return lsu.ls_width / lsu.delta
+    if lsu.lsu_type is LsuType.ATOMIC_PIPELINED:
+        return float(dram.min_burst_bytes)  # no burst grouping at all
+    raise ValueError(f"{lsu.lsu_type} does not issue DRAM bursts")
+
+
+def t_row_seconds(lsu: Lsu, dram: DramParams) -> float:
+    """Row-miss inter-command delay for this LSU type [s]."""
+    if lsu.lsu_type in (LsuType.BC_ALIGNED, LsuType.BC_NON_ALIGNED, LsuType.BC_CACHE):
+        return dram.t_row                                   # Eq. 6
+    if lsu.lsu_type is LsuType.BC_WRITE_ACK:
+        return dram.t_row + dram.t_wr                       # Eq. 9
+    if lsu.lsu_type is LsuType.ATOMIC_PIPELINED:
+        return 2.0 * dram.t_row + dram.t_wr                 # Eq. 10 (read+write)
+    raise ValueError(f"{lsu.lsu_type} has no DRAM row timing")
+
+
+def lsu_timing(
+    lsu: Lsu,
+    dram: DramParams,
+    bsp: BspParams,
+    *,
+    n_lsu: int,
+    f: int = 1,
+) -> LsuTiming:
+    """Timing terms for a single LSU (Eqs. 2, 4-10)."""
+    t_ideal = lsu.total_bytes / dram.bw_mem                 # Eq. 2
+    bsz = burst_size_bytes(lsu, dram, bsp)
+    n_bursts = lsu.total_bytes / bsz
+    t_row = t_row_seconds(lsu, dram)
+
+    if lsu.lsu_type is LsuType.ATOMIC_PIPELINED:
+        # Eq. 10: per-operation overhead, merged across f when val is constant.
+        per_op = t_row / f if lsu.val_constant else t_row
+        t_ovh = lsu.ls_acc * per_op
+        return LsuTiming(lsu=lsu, burst_size=bsz, n_bursts=float(lsu.ls_acc),
+                         t_ideal=t_ideal, t_ovh=t_ovh)
+
+    # Burst-coalesced family, Eq. 4: a single stream never thrashes rows.
+    if n_lsu < 2:
+        t_ovh = 0.0
+    else:
+        t_ovh = n_bursts * t_row
+    if lsu.lsu_type is LsuType.BC_WRITE_ACK:
+        # Wasted-burst transfer inflation (SIII-A3): each dq*bl burst carries
+        # only ls_bytes useful bytes.
+        waste = dram.min_burst_bytes - lsu.ls_bytes
+        if waste > 0:
+            t_ovh += lsu.ls_acc * waste / dram.bw_mem
+        if n_lsu < 2:
+            # the ACK round-trip itself is never hidden
+            t_ovh += n_bursts * t_row
+    return LsuTiming(lsu=lsu, burst_size=bsz, n_bursts=n_bursts,
+                     t_ideal=t_ideal, t_ovh=t_ovh)
+
+
+def memory_bound_ratio(lsus: Sequence[Lsu], dram: DramParams) -> float:
+    """LHS of Eq. 3."""
+    return sum(lsu.ls_width / (dram.min_burst_bytes * k_lsu(lsu)) for lsu in lsus)
+
+
 def _estimate(
     lsus: Sequence[Lsu],
     dram: DramParams,
@@ -76,10 +166,7 @@ def _estimate(
     f: int = 1,
 ) -> KernelEstimate:
     """Full model: Eq. 3 classification + Eq. 1 execution time."""
-    if bsp is None:
-        from repro_torch.hw import DEFAULT_BOARD, get as _get
-
-        bsp = _get(DEFAULT_BOARD).bsp_params()
+    bsp = bsp if bsp is not None else _default_bsp()
     glob = [l for l in lsus if l.lsu_type.is_global]
     if not glob:
         return KernelEstimate(t_exe=0.0, memory_bound=False, bound_ratio=0.0,
@@ -112,3 +199,18 @@ def _estimate(
         bound_ratio=float(ratio),
         per_lsu=tuple(timings),
     )
+
+
+def pipeline_time(
+    n_work_items: int,
+    *,
+    f: int = 1,
+    f_kernel: float = 300e6,
+    depth: int = 300,
+    ii: int = 1,
+) -> float:
+    """Simple kernel-pipeline bound (outside the paper's scope; used only to
+    reproduce Fig. 3's compute-bound points — the paper defers those to prior
+    models [6,7]):  (n_wi/f * II + depth) / f_kernel.
+    """
+    return (n_work_items / f * ii + depth) / f_kernel

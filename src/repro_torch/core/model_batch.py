@@ -15,11 +15,15 @@ Two rules keep the torch path bit-equal to the reference's NumPy core:
   float, gives float32 (the default dtype) where NumPy gives float64.  The
   promoted columns' products stay below 2**53, so every operation rounds
   exactly where NumPy's does.  The default dtype is never changed.
-* The sweep path sums each kernel's two groups with the split add
-  (``paired_kernel``), never with ``index_add_``, whose floating-point
-  order on CUDA is not fixed.  Heterogeneous batches (``estimate_many``)
-  do use ``index_add_``; there the result may differ from the host's in
-  the last bits on CUDA.
+* Every per-kernel segment sum adds in a fixed order: the reference's
+  ``np.bincount`` order, each kernel's groups left to right in batch order
+  starting from 0.0.  The sweep path's two groups per kernel take the
+  split add (``paired_kernel``); heterogeneous batches (``estimate_many``,
+  the server) scatter the groups into a zero-padded ``(kernels, slots)``
+  matrix and add its columns left to right (:func:`_fixed_order_segments`).
+  Neither uses ``index_add_``, whose floating-point order on CUDA is not
+  fixed, so a kernel's result does not depend on the device, the run or
+  the rest of its batch.
 
 :func:`estimate_columns` is the tensor core (tensors in, tensors out, on
 the device and through autograd); :func:`estimate_batch` wraps it and
@@ -316,6 +320,39 @@ def _to_host(cols: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
                 else host[i]) for i, k in enumerate(names)}
 
 
+def _fixed_order_segments(kernel: torch.Tensor, n: int):
+    """Per-kernel segment sum in ``np.bincount``'s order, fixed on every
+    device.
+
+    Group ``i`` goes to row ``kernel[i]`` of a zero-padded ``(n, slots)``
+    float64 matrix, at its rank among that kernel's groups in batch order;
+    the sum adds the columns left to right starting from 0.0 — per kernel,
+    ``((0 + w_1) + w_2) + ...``, exactly as ``np.bincount`` accumulates
+    (a padding ``+ 0.0`` changes nothing).  The scatter writes each slot
+    once, so nothing depends on thread order, and it stays differentiable.
+    Returns ``seg(data) -> [n]``.
+    """
+    m = kernel.shape[0]
+    dev = kernel.device
+    counts = torch.bincount(kernel, minlength=n)
+    slots = int(counts.max()) if m else 0
+    order = torch.argsort(kernel, stable=True)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.empty_like(kernel)
+    rank[order] = torch.arange(m, device=dev) - starts[kernel[order]]
+    flat = kernel * slots + rank
+
+    def seg(data: torch.Tensor) -> torch.Tensor:
+        mat = torch.zeros(n * slots, dtype=torch.float64, device=dev).scatter(
+            0, flat, data.to(torch.float64)).view(n, slots)
+        acc = torch.zeros(n, dtype=torch.float64, device=dev)
+        for j in range(slots):
+            acc = acc + mat[:, j]
+        return acc
+
+    return seg
+
+
 #: The per-kernel columns :func:`estimate_columns` can compute, in order.
 KERNEL_COLUMNS = ("t_exe", "t_ideal", "t_ovh", "bound_ratio", "memory_bound",
                   "total_bytes", "n_lsu")
@@ -342,9 +379,7 @@ def estimate_columns(cols: dict[str, torch.Tensor], n: int, *,
         n_lsu = torch.cat([seg(count)] * 2)
     else:
         kernel = cols["kernel"]
-        seg = lambda data: torch.zeros(  # noqa: E731
-            n, dtype=torch.float64, device=kernel.device).index_add(
-                0, kernel, data.to(torch.float64))
+        seg = _fixed_order_segments(kernel, n)
         n_lsu = seg(count)[kernel]
     g = group_timing(
         lsu_type=cols["lsu_type"], ls_width=cols["ls_width"],

@@ -553,6 +553,7 @@ def run_stream(
     reducers: Iterable[Reducer],
     *,
     workers: int | None = None,
+    chunk_order: Sequence[int] | None = None,
     stage_times: dict | None = None,
 ) -> StreamOutcome:
     """Drive ``eval_chunk`` over ``n`` points in fixed-shape chunks.
@@ -569,6 +570,9 @@ def run_stream(
     but top-k tie-breaking and stats argmins rely on ascending ids).
     The evaluator must then be thread-safe (the plan's is).
 
+    ``chunk_order`` permutes which chunk is evaluated when (a testing hook
+    for the reducers' order invariance); folding follows that order.
+
     ``stage_times`` (a mutable dict) accumulates the per-stage wall-time
     breakdown ``Session.sweep(profile=True)`` reports: ``score_s`` (chunk
     evaluation, the host<->device copies of the torch core included) and
@@ -580,6 +584,8 @@ def run_stream(
         raise ValueError("chunk_size must be >= 1")
     reducers = tuple(reducers)
     starts = list(range(0, n, chunk_size))
+    if chunk_order is not None:
+        starts = [starts[i] for i in chunk_order]
 
     def fold(cols: Mapping[str, np.ndarray], valid: int) -> None:
         # A constrained evaluator returns pre-compacted columns (feasible

@@ -56,6 +56,25 @@ class ResourceEnvelope:
         return {name: float(getattr(self, name)) for name in USAGE_COLUMNS
                 if getattr(self, name) is not None}
 
+    def admits(self, usage: Mapping[str, Any]) -> np.ndarray:
+        """Vectorized ``usage <= cap`` over every bounded column."""
+        caps = self.caps()
+        if not caps:
+            probe = next(iter(usage.values()), np.ones(0))
+            return np.ones(np.shape(np.asarray(probe)), dtype=bool)
+        mask: np.ndarray | None = None
+        for name, cap in caps.items():
+            ok = np.asarray(usage[name], dtype=np.float64) <= cap
+            mask = ok if mask is None else (mask & ok)
+        return mask
+
+    def constraint(self):
+        """This envelope as a
+        :class:`repro_torch.search.constraints.Constraint`."""
+        from repro_torch.search.constraints import EnvelopeConstraint
+
+        return EnvelopeConstraint(self)
+
     # -- serialization ------------------------------------------------------
 
     def to_dict(self) -> dict:

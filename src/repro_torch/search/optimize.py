@@ -257,6 +257,8 @@ class _Relaxed:
                    for k, v in dict(hwf, burst_cnt=burst).items()}
         self.caps = envelope_caps(constraints)
         self.kmax = {a: float(len(self.svals[a]) - 1) for a in relaxed}
+        self._lo = torch.zeros((), **f64)
+        self._hi = {a: torch.as_tensor(k, **f64) for a, k in self.kmax.items()}
 
     def start(self) -> dict[str, torch.Tensor]:
         """Each lane's seed as sorted-index coordinates."""
@@ -268,7 +270,11 @@ class _Relaxed:
         """``(per-lane objective, per-lane axis values)``."""
         v = dict(self.fixed)
         for a in self.relaxed:
-            u = torch.clamp(params[a], 0.0, self.kmax[a])
+            # jnp.clip as max-then-min: a coordinate sitting on a bound
+            # (every seed on an axis end) passes half its gradient, as in
+            # the reference; torch.clamp would pass all of it
+            u = torch.minimum(torch.maximum(params[a], self._lo),
+                              self._hi[a])
             v[a] = _interp(u, self.svals[a])
         num = {a: v[a] for a in ("n_ga", "simd", "n_elems", "elem_bytes",
                                  "delta")}
@@ -288,7 +294,8 @@ class _Relaxed:
 
     def loss(self, params: dict[str, torch.Tensor]) -> torch.Tensor:
         obj, v = self.values(params)
-        loss = torch.sum(torch.log(torch.clamp(obj, min=1e-300)))
+        loss = torch.sum(torch.log(torch.clamp(obj.to(torch.float64),
+                                               min=1e-300)))
         if self.caps:
             usage = usage_from_axes(
                 type_codes=self.tc, n_ga=v["n_ga"], simd=v["simd"],
@@ -339,13 +346,20 @@ def _descend(log: _EvalLog, seeds: np.ndarray, objective: str,
         leaves = {a: p.detach().requires_grad_(True)
                   for a, p in params.items()}
         loss = relax.loss(leaves)
-        grads = dict(zip(leaves, torch.autograd.grad(
-            loss, list(leaves.values()))))
+        losses.append(loss.detach())
+        if not loss.requires_grad:
+            # A constant objective (``memory_bound``): its gradient is zero
+            # everywhere, so no step can move a lane.
+            continue
+        # An objective that ignores an axis leaves that leaf unused; its
+        # gradient is zero, as ``jax.value_and_grad`` gives it.
+        grads = {a: torch.zeros_like(leaves[a]) if g is None else g
+                 for a, g in zip(leaves, torch.autograd.grad(
+                     loss, list(leaves.values()), allow_unused=True))}
         with torch.no_grad():
             params, state, _ = adamw_update(grads, state, leaves, cfg)
             params = {a: torch.clamp(p, 0.0, relax.kmax[a])
                       for a, p in params.items()}
-        losses.append(loss.detach())
     losses = torch.stack(losses).cpu().numpy()
     u_final = {a: params[a].cpu().numpy().astype(np.float64)
                for a in relaxed}

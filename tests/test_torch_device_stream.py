@@ -8,7 +8,14 @@ through the merge protocol, state for state (the exact sums through
 tests/test_device_stream.py), under seeded and Hypothesis partitions.
 Capacity overflow, forced with a small ``FRONT_CAP``/``N_PARTIALS``, must
 leave the reducers untouched and refold on the host.
+
+Through an ``enable_x64`` shim (the ``x64_shim`` fixture: jax 0.9 has no
+``jax.experimental.enable_x64``, which the reference imports by name) the
+reference's own device fold — its ``jax-jit`` ``device-fused`` path — runs
+too, and the port's device fold equals it: on the 864-point grid, under
+partitions, and on a streamed grid of 115,200 points.
 """
+import contextlib
 import math
 
 import hypothesis
@@ -289,3 +296,81 @@ def test_session_sweep_takes_device_path_and_profiles():
     assert {"transfer_s", "compile_s", "score_s", "enumerate_s",
             "reduce_s", "total_s"} <= set(prof)
     assert all(v >= 0 for k, v in prof.items() if k.endswith("_s"))
+
+
+# ---------------------------------------------------------------------------
+# the reference's device fold, through the enable_x64 shim
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def x64_shim(monkeypatch):
+    """Install ``jax.experimental.enable_x64`` (gone in jax 0.9) as a
+    context manager that flips ``jax_enable_x64`` through
+    ``jax.config.update``; the reference's device fold imports it by name."""
+    import jax
+    import jax.experimental
+
+    @contextlib.contextmanager
+    def enable_x64(new_val: bool = True):
+        old = jax.config.jax_enable_x64
+        jax.config.update("jax_enable_x64", new_val)
+        try:
+            yield
+        finally:
+            jax.config.update("jax_enable_x64", old)
+
+    monkeypatch.setattr(jax.experimental, "enable_x64", enable_x64,
+                        raising=False)
+
+
+def _ref_device_fold(chunk, bounds):
+    from repro.core import device_stream as ref_dev
+
+    plan = repro.Session(backend="jax-jit").plan(
+        repro.Space.grid(**REF_GRID), chunk_size=chunk)
+    drv = ref_dev.DeviceSweep.build(plan)
+    assert drv is not None and drv.supports(ref_stream.default_reducers(10))
+    return _protocol(drv.fold_range, ref_stream.default_reducers(10), bounds)
+
+
+class TestAgainstReferenceDeviceFold:
+    @pytest.mark.parametrize("chunk", [37, 100, 864, 4096])
+    def test_whole_grid(self, x64_shim, chunk):
+        assert _device_fold(chunk, [0, N]) == _ref_device_fold(chunk, [0, N])
+
+    def test_seeded_partitions(self, x64_shim):
+        rng = np.random.default_rng(11)
+        for chunk in (37, 100):
+            for _ in range(2):
+                bounds = _random_bounds(rng, chunk)
+                assert _device_fold(chunk, bounds) == \
+                    _ref_device_fold(chunk, bounds), bounds
+
+    def test_streamed_grid_equals_device_fused_sweep(self, x64_shim):
+        """115,200 points in 8,192-point chunks: the port's ``device`` path
+        and the reference's ``device-fused`` path report the same front,
+        top-k rows, survivors and every stats field."""
+        axes = dict(n_ga=list(range(1, 101)), simd=[1, 4, 16],
+                    n_elems=[1 << 12, 1 << 14, 1 << 16, 1 << 18],
+                    delta=[1, 2, 7], include_write=[False, True],
+                    val_constant=[False, True])
+        ref = repro.Session(backend="jax-jit").sweep(
+            repro.Space.grid(**dict(axes, lsu_type=REF_TYPES,
+                                    dram=[DDR4_1866, DDR4_2666])),
+            chunk_size=8192, profile=True)
+        got = rt.Session(device="cpu").sweep(
+            rt.Space.grid(**dict(axes, lsu_type=PORT_TYPES,
+                                 dram=[rt.DDR4_1866, rt.DDR4_2666])),
+            chunk_size=8192, profile=True)
+        assert ref.n_points == got.n_points == 115_200
+        assert ref.profile["path"] == "device-fused"
+        assert got.profile["path"] == "device"
+        np.testing.assert_array_equal(got.point_ids, ref.point_ids)
+        np.testing.assert_array_equal(got.front_idx, ref.front_idx)
+        np.testing.assert_array_equal(got.topk_idx, ref.topk_idx)
+        assert got.top_k(10) == ref.top_k(10)
+        assert got.stats == ref.stats
+        for col in ("t_exe", "t_ideal", "t_ovh", "bound_ratio",
+                    "total_bytes"):
+            np.testing.assert_array_equal(getattr(got.estimate, col),
+                                          getattr(ref.estimate, col), col)

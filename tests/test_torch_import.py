@@ -38,7 +38,11 @@ def test_import_loads_neither_jax_nor_repro():
                "repro_torch.core.stream, repro_torch.core.device_stream, "
                "repro_torch.core.distributed, repro_torch.optim.adamw, "
                "repro_torch.search.envelope, repro_torch.search.constraints, "
-               "repro_torch.search.optimize\n"
+               "repro_torch.search.optimize, repro_torch.core.serving, "
+               "repro_torch.core.hlo_counter, repro_torch.core.predictor, "
+               "repro_torch.core.roofline, repro_torch.core.dramsim, "
+               "repro_torch.core.baselines, repro_torch.core.cache, "
+               "repro_torch.paper_tables\n"
                "rep = repro_torch.Session(device='cpu').sweep("
                "n_ga=[1, 2, 4], chunk_size=2)\n"
                "assert rep.is_streaming and rep.n_points == 3\n"

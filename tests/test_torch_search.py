@@ -12,9 +12,20 @@ against the reference on the CPU.
   coordinates its per-lane values equal ``numpy-batch``'s ``t_exe``
   exactly (the loss, their log-sum, to 1e-12), and off the knots its
   autograd gradient agrees with central differences to 1e-6 relative.
+* Through an ``enable_x64`` shim (the reference imports
+  ``jax.experimental.enable_x64``, which jax 0.9 no longer has; the
+  ``x64_shim`` fixture installs a context manager under that name), the
+  reference's own descent runs, and the port's report equals it with the
+  descent on — evaluation count, optimum and front ids — for every entry
+  of ``OBJECTIVE_COLUMNS`` (five of which the port's autograd descent
+  used to crash on: an objective that ignores a relaxed axis, and
+  ``memory_bound``, which is constant), and on a space whose (t_exe,
+  resource) front has six distinct points, where the port's front also
+  reaches the exhaustive one.
 * ``adamw_update`` follows ``repro.optim.adamw`` over 20 steps to 1e-6
   relative, 1e-7 absolute near zero (float32 state on both sides).
 """
+import contextlib
 import json
 
 import numpy as np
@@ -380,3 +391,114 @@ def test_adamw_follows_reference():
         np.testing.assert_allclose(ts["m"][k].numpy(), np.asarray(rs["m"][k]),
                                    rtol=1e-6, atol=1e-7)
     assert int(ts["step"]) == int(rs["step"]) == 20
+
+
+# ---------------------------------------------------------------------------
+# the reference's descent, through the enable_x64 shim
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def x64_shim(monkeypatch):
+    """Install ``jax.experimental.enable_x64`` (gone in jax 0.9) as a
+    context manager that flips ``jax_enable_x64`` through
+    ``jax.config.update``; the reference's descent imports it by name."""
+    import jax
+    import jax.experimental
+
+    @contextlib.contextmanager
+    def enable_x64(new_val: bool = True):
+        old = jax.config.jax_enable_x64
+        jax.config.update("jax_enable_x64", new_val)
+        try:
+            yield
+        finally:
+            jax.config.update("jax_enable_x64", old)
+
+    monkeypatch.setattr(jax.experimental, "enable_x64", enable_x64,
+                        raising=False)
+
+
+def _without_losses(rep):
+    """The report summary with the descent's loss values taken out (held
+    to tolerances separately)."""
+    s = _report_fields(rep)
+    s["phases"] = [{k: v for k, v in p.items()
+                    if k not in ("loss_first", "loss_last")}
+                   for p in s["phases"]]
+    return s
+
+
+def _assert_report_equals_reference(got, ref):
+    assert _without_losses(got) == _without_losses(ref)
+    assert (got.n_evals, got.n_grid_evals, got.best_id) == \
+        (ref.n_evals, ref.n_grid_evals, ref.best_id)
+    np.testing.assert_array_equal(got.front_ids, ref.front_ids)
+    for k in O.OBJECTIVE_COLUMNS:
+        np.testing.assert_array_equal(got.front[k], ref.front[k], k)
+    phases = [t["phase"] for t in got.trajectory]
+    assert phases == [t["phase"] for t in ref.trajectory]
+    d = next(t for t in got.trajectory if t["phase"] == "descend")
+    rd = next(t for t in ref.trajectory if t["phase"] == "descend")
+    assert "skipped" not in d and "skipped" not in rd
+    assert (d["lanes"], d["steps"], d["relaxed_axes"]) == \
+        (rd["lanes"], rd["steps"], rd["relaxed_axes"])
+    assert d["loss_first"] == pytest.approx(rd["loss_first"], rel=1e-12)
+    # the steps run float32 AdamW state on both sides, one ulp apart here
+    # and there: the trajectories agree to ~1e-9 after 16 steps
+    assert d["loss_last"] == pytest.approx(rd["loss_last"], rel=1e-7)
+
+
+@pytest.mark.parametrize("objective",
+                         list(O.OBJECTIVE_COLUMNS) + [("t_exe", "resource")])
+def test_optimize_with_descent_equals_reference(x64_shim, objective):
+    kw = dict(objective=objective, max_evals=1500, seed=0)
+    got = CPU.optimize(PORT_BIG, **kw)
+    ref = repro.Session(backend="numpy-batch").optimize(REF_BIG, **kw)
+    _assert_report_equals_reference(got, ref)
+
+
+def test_optimize_constrained_with_descent_equals_reference(x64_shim):
+    kw = dict(max_evals=1500, seed=1, objective=("t_exe", "resource"))
+    got = CPU.optimize(PORT_BIG, constraints=[
+        rt.ResourceEnvelope(lsu_ports=4, interconnect_bytes=64)], **kw)
+    ref = repro.Session(backend="numpy-batch").optimize(
+        REF_BIG, constraints=[repro.search.ResourceEnvelope(
+            lsu_ports=4, interconnect_bytes=64)], **kw)
+    _assert_report_equals_reference(got, ref)
+
+
+#: A space whose (t_exe, resource) front has six distinct value points:
+#: n_elems fixed per point as a workload size, every design with >= 2 LSUs,
+#: and the non-aligned LSU's burst growing with its width (simd x
+#: elem_bytes) against the atomic and write-ACK classes' narrow ports.
+PARETO_AXES = dict(n_ga=[1, 2, 3, 4, 6, 8], simd=[1, 2, 4, 8, 16, 32],
+                   n_elems=[1 << 14, 1 << 16], elem_bytes=[1, 2, 4, 8],
+                   delta=[1, 2, 3, 4, 5, 6, 7, 8], include_write=[True],
+                   val_constant=[False, True])
+PARETO_REF_TYPES = [repro.LsuType.BC_NON_ALIGNED,
+                    repro.LsuType.ATOMIC_PIPELINED,
+                    repro.LsuType.BC_WRITE_ACK]
+
+
+@pytest.fixture(scope="module")
+def pareto_exhaustive():
+    full = repro.Session(backend="numpy-batch").sweep(
+        dict(PARETO_AXES, lsu_type=PARETO_REF_TYPES))
+    return {(float(full.t_exe[i]), float(full.resource[i]))
+            for i in full.pareto()}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pareto_front_parity(x64_shim, pareto_exhaustive, seed):
+    assert len(pareto_exhaustive) >= 4
+    kw = dict(objective=("t_exe", "resource"), seed=seed)
+    got = CPU.optimize(dict(PARETO_AXES, lsu_type=[
+        rt.LsuType(t.value) for t in PARETO_REF_TYPES]), **kw)
+    ref = repro.Session(backend="numpy-batch").optimize(
+        dict(PARETO_AXES, lsu_type=PARETO_REF_TYPES), **kw)
+    _assert_report_equals_reference(got, ref)
+    found = {(float(got.front["t_exe"][i]), float(got.front["resource"][i]))
+             for i in range(got.n_front)}
+    recall = len(found & pareto_exhaustive) / len(pareto_exhaustive)
+    assert recall >= 0.95
+    assert got.n_evals < got.n_total // 4

@@ -307,3 +307,97 @@ def test_estimate_columns_is_estimate_batch_core(paired):
                                  n, paired_kernel=paired, want=("t_exe",))
     (g,) = torch.autograd.grad(out["t_exe"].sum(), [width])
     assert torch.isfinite(g).all() and g.abs().sum() > 0
+
+
+def _canon_states(reducers) -> list:
+    """state_dicts with exact sums through ``math.fsum`` and front rows
+    sorted by id (the form the merge protocol keeps invariant)."""
+    import math
+
+    out = []
+    for r in reducers:
+        s = r.state_dict()
+        if type(r).__name__ == "StatsReducer":
+            s = dict(s, t_exe_sum=math.fsum(s["t_exe_sum"]),
+                     total_bytes_sum=math.fsum(s["total_bytes_sum"]))
+        elif type(r).__name__ == "ParetoReducer" and s["cols"] is not None:
+            order = np.argsort(np.asarray(s["cols"]["id"][1]))
+            s = dict(s, cols={c: [d, [v[i] for i in order]]
+                              for c, (d, v) in sorted(s["cols"].items())})
+        out.append(s)
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_run_stream_chunk_order_equals_reference(seed):
+    """``run_stream(chunk_order=)`` evaluates and folds the chunks in the
+    given order, as the reference's test hook does: the port and the
+    reference fold the same permutation to the same state, and the front,
+    top-k and stats equal the in-order fold's (the running mean and M2 to
+    1e-12)."""
+    chunk = 37
+    plan = CPU.plan(rt.Space.grid(**PORT_GRID), chunk_size=chunk)
+    ref_plan = repro.Session(backend="numpy-batch").plan(
+        repro.Space.grid(**REF_GRID), chunk_size=chunk)
+    n_chunks = -(-plan.n // chunk)
+    order = list(np.random.default_rng(seed).permutation(n_chunks))
+    seen = []
+    ev = plan.evaluator()
+
+    def logged(ids):
+        seen.append(int(ids[0]))
+        return ev(ids)
+
+    got = S.run_stream(plan.n, chunk, logged, S.default_reducers(10),
+                       chunk_order=order).reducers
+    assert seen == [i * chunk for i in order]
+    ref = ref_stream.run_stream(ref_plan.n, chunk, ref_plan.evaluator(),
+                                ref_stream.default_reducers(10),
+                                chunk_order=order).reducers
+    assert _canon_states(got) == _canon_states(ref)
+    in_order = _canon_states(S.run_stream(
+        plan.n, chunk, plan.evaluator(), S.default_reducers(10)).reducers)
+    got = _canon_states(got)
+    # the Chan moments follow the fold order in their last bits; every
+    # other field is order-invariant
+    for g, w in zip(got[-1:], in_order[-1:]):
+        for k in ("mean", "m2"):
+            assert g.pop(k) == pytest.approx(w.pop(k), rel=1e-12)
+    assert got == in_order
+
+
+def test_envelope_admits_and_constraint_equal_reference():
+    from repro_torch.search import constraints as C
+
+    env = rt.ResourceEnvelope(lsu_ports=6, interconnect_bytes=64)
+    ref_env = repro.search.ResourceEnvelope(lsu_ports=6,
+                                            interconnect_bytes=64)
+    lists = CPU.plan(rt.Space.grid(**PORT_GRID)).lists
+    enum = S.GridEnumerator(lists)
+    cols = C.columns_from_lists(lists, enum.codes(np.arange(enum.n)))
+    usage = {k: cols[k] for k in env.caps()}
+    got = env.admits(usage)
+    np.testing.assert_array_equal(got, ref_env.admits(usage))
+    assert 0 < got.sum() < enum.n
+    con = env.constraint()
+    assert isinstance(con, C.EnvelopeConstraint) and con.envelope is env
+    np.testing.assert_array_equal(con.mask(cols), got)
+    assert C.constraint_to_json(con) == \
+        ref_env.constraint().to_json_dict()
+    empty = rt.ResourceEnvelope()
+    np.testing.assert_array_equal(empty.admits({"n_ga": np.arange(5)}),
+                                  np.ones(5, dtype=bool))
+    assert empty.admits({}).shape == (0,)
+
+
+def test_top_level_constants_equal_reference():
+    assert rt.__version__ == repro.__version__
+    assert sorted(rt.DRAM_CONFIGS) == sorted(repro.DRAM_CONFIGS)
+    for name, d in rt.DRAM_CONFIGS.items():
+        assert d.__dict__ == repro.DRAM_CONFIGS[name].__dict__
+    assert rt.TPU_V5E.__dict__ == repro.TPU_V5E.__dict__
+    assert [c.value for c in rt.AccessClass] == \
+        [c.value for c in repro.AccessClass]
+    for name in ("DRAM_CONFIGS", "TPU_V5E", "TpuParams", "AccessClass",
+                 "RooflineReport", "__version__"):
+        assert name in rt.__all__ and name in repro.__all__
