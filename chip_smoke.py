@@ -3,18 +3,22 @@
 
 Run from the root of a checkout.  It builds the port's CUDA kernels from
 ``src/repro_torch/csrc``, holds each of the seven kernels against its plain
-PyTorch version on the card (at the reference's test shapes and at the
-main path's card shapes, where one deliberately broken plain version per
-kernel must fall outside the bound), drives the port's main path —
-estimate and sweep with ``Session(backend="torch")`` on the card and on
-the CPU; streaming sweeps of the reference's 1,024,000- and
-10,240,000-point grids through the device fold, the host fold, two worker
-processes and constraints, each held bit-equal to the others; the
-reference's 1m optimizer contract; then ``Session.validate`` over the
-seven card-scale kernels — and times each kernel beside its bound, its
-plain version and, where one exists, the one PyTorch call that computes
-the same function.  Three phases without kernels follow the main path:
-``serve`` (the reference's ``serve_smoke`` traffic against
+PyTorch version on the card (at the reference's test shapes, at the
+main path's card shapes and at the model zoo's other head sizes, where
+one deliberately broken plain version per case must fall outside the
+bound), drives the port's main path — estimate and sweep with
+``Session(backend="torch")`` on the card and on the CPU; streaming sweeps
+of the reference's 1,024,000- and 10,240,000-point grids through the
+device fold, the host fold, two worker processes and constraints, each
+held bit-equal to the others; the reference's 1m optimizer contract; then
+``Session.validate`` over the seven card-scale kernels — and then the
+model path: qwen2-7b at full width served through ``make_prefill_step``
+(flash attention), ``make_decode_step`` over 32,768 cached rows (decode
+attention) and ``BatchedServer``, each checked against the plain
+attention path.  It times each kernel beside its bound, its plain version
+and, where one exists, the one PyTorch call that computes the same
+function.  Three phases without kernels follow: ``serve`` (the
+reference's ``serve_smoke`` traffic against
 ``Session(device="cuda").serve()``, every served estimate bit-equal to a
 serial one), ``paper`` (Table IV through the scalar model and the card's
 torch backend, Table V and Fig. 5 with the port's DRAM simulator and
@@ -23,9 +27,9 @@ baselines) and ``predict`` (``Session.predict``, ``Design.from_hlo`` and
 reference's results in ``tests/data/torch_hlo/``).
 
 Prints one JSON object per phase (env, build with each kernel function's
-counts of Hopper instructions in its SASS, parity, estimator, stream,
-optimize, validate, launches, serve, paper, predict); then the
-``{"kernels": [...]}`` line, the card's
+counts of Hopper instructions in its SASS, parity, head_sizes, estimator,
+stream, optimize, validate, model, launches, serve, paper, predict);
+then the ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
 code is non-zero and no result line is printed; so does a machine without
@@ -81,6 +85,18 @@ PEAK_BF16_TENSOR_FLOPS = 989e12   # bf16 on the tensor cores, dense
 #:   2^-7 * spread, plus rtol 1e-2 for the two roundings of the output to
 #:   bf16 (each within 2^-8 of |want|).  The skipped-chunk fault must fall
 #:   outside it, and the parity row prints by what factor.
+#: * the model phase's logits (``logits_check``): the kernel path and the
+#:   plain path (``use_kernels=False``) differ only inside attention, but
+#:   both round every activation of 28 layers to bf16, and once they part
+#:   each rounding goes its own way, so no fixed bound follows from the
+#:   kernels' own.  The run measures the noise instead: the plain path run
+#:   again with f32 activations on the same weights (E).  By the triangle
+#:   inequality |kernel - plain| <= |kernel - E| + |plain - E|, and the
+#:   kernel path is no less accurate than the plain one but for one more
+#:   rounding inside attention (flash rounds P to bf16), at most half
+#:   again of the plain path's error; so |kernel - plain| <= 2.5 |plain -
+#:   E| in relative L2 over the real vocabulary.  Two bf16 paths with
+#:   independent rounding errors sit about sqrt(2) |plain - E| apart.
 TOL = {"membench": dict(rtol=1e-6, atol=0.0, of_max=0.0),
        "float32": dict(rtol=2e-5, atol=2e-5, of_max=0.0),
        "bfloat16": dict(rtol=2e-2, atol=2e-2, of_max=0.0),
@@ -89,7 +105,8 @@ TOL = {"membench": dict(rtol=1e-6, atol=0.0, of_max=0.0),
        "bfloat16_card": dict(rtol=0.0, atol=0.0, of_max=1e-2),
        "flash_card": dict(rtol=2e-2, atol=0.0, of_max=0.0, of_spread=2 ** -8),
        "rglru_card": dict(rtol=1e-5, atol=0.0, of_max=1e-5),
-       "mlstm_card": dict(rtol=1e-2, atol=0.0, of_max=0.0, of_spread=2 ** -7)}
+       "mlstm_card": dict(rtol=1e-2, atol=0.0, of_max=0.0, of_spread=2 ** -7),
+       "model_logits": dict(of_floor=2.5)}
 CARD_TOL = {"decode_attention": "bfloat16_card", "flash_attention": "flash_card",
             "rglru_scan": "rglru_card", "mlstm_chunk": "mlstm_card"}
 
@@ -295,6 +312,14 @@ def test_cases(device) -> list[dict]:
     # per row) and over two chunks of 16 query heads (G = 24)
     decodes += [(1, 100, 16, 8, 128, 77, torch.bfloat16, 32, 0.0),
                 (1, 64, 24, 1, 64, 50, torch.bfloat16, 32, 0.0)]
+    # the CUDA-core kernel at the zoo's other head sizes: D = 80 (10 or 20
+    # slices a row on 16 or 32 lanes; with a softcap) and D = 256 (two
+    # slices a lane in fp32; 16 heads over one kv head, two head chunks)
+    decodes += [(B, S, Hq, Hkv, D, L, dt, 32, cap)
+                for (B, S, Hq, Hkv, D, L, cap) in [(2, 96, 8, 2, 80, 70, 0.0),
+                                                   (1, 100, 4, 4, 80, 77, 20.0),
+                                                   (1, 64, 16, 1, 256, 50, 0.0)]
+                for dt in (torch.float32, torch.bfloat16)]
     out = []
     for g, block, dt in aligned:
         xs = tuple(randn((n,), i, device, dt) for i in range(g))
@@ -352,6 +377,11 @@ def test_cases(device) -> list[dict]:
     # with a softcap
     flashes += [(1, 70, 90, 4, 2, 128, False, None, 0.0, torch.bfloat16),
                 (1, 96, 96, 4, 2, 64, False, 32, 5.0, torch.bfloat16)]
+    # D = 80 (the tensor cores' 128-column instance; the CUDA cores'
+    # own): both kernels, and a window with a softcap on the tensor cores
+    flashes += [(1, 90, 90, 4, 2, 80, True, None, 0.0, dt)
+                for dt in (torch.float32, torch.bfloat16)]
+    flashes += [(2, 64, 64, 4, 4, 80, True, 32, 5.0, torch.bfloat16)]
     for B, Sq, Skv, Hq, Hkv, D, causal, window, cap, dt in flashes:
         q = randn((B, Sq, Hq, D), 4, device, dt)
         k = randn((B, Skv, Hkv, D), 5, device, dt)
@@ -447,7 +477,8 @@ def card_cases(device) -> list[dict]:
     attention over S = 4000 (ragged against the 128-key tile), plain and
     with Gemma 2's softcap of 50 and a window of 1024, and decode attention
     at kv_len = 32,000 (not a whole number of 16-row stages), plain and
-    with the softcap."""
+    with the softcap; last the zoo's other head sizes
+    (``head_size_cases``)."""
     import torch
 
     from repro_torch.core.validate import default_cases
@@ -495,6 +526,41 @@ def card_cases(device) -> list[dict]:
             lambda a=args, r=ref: r(*a), "bfloat16_card",
             DA.gqa_decode_traffic(*args[:3], 32000), args=args, ref=ref,
             timed=False, fault=True))
+    out += head_size_cases(device)
+    return out
+
+
+def head_size_cases(device) -> list[dict]:
+    """The head sizes of the zoo other than 128, at full width, each with
+    its fault check and timed beside its bound (``phase_head_sizes``):
+    stablelm-3b (32 query and 32 kv heads of 80) prefill, B 2 x S 2048
+    (the tensor-core kernel's 128-column instance), and decode at B 8
+    over 8,192 rows; recurrentgemma-9b's local-attention decode (16 query
+    heads over one kv head of 256) at B 8 over its 2,048-row ring."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops as DA
+    from repro_torch.kernels.flash_attention import ops as FA
+
+    qkv = tuple(randn((2, 2048, 32, 80), 81 + i, device, torch.bfloat16)
+                for i in range(3))
+    out = [_case("flash_attention", "stablelm-3b_prefill_" + _shapes(qkv),
+                 lambda a=qkv: FA.mha(*a), lambda a=qkv: FA.attention_ref(*a),
+                 "flash_card", FA.flash_attention_traffic(*qkv), args=qkv,
+                 ref=FA.attention_ref, timed=False, fault=True,
+                 head_size=True)]
+    for arch, B, S, Hq, Hkv, D, seed in (("stablelm-3b", 8, 8192, 32, 32, 80, 84),
+                                         ("recurrentgemma-9b_local", 8, 2048,
+                                          16, 1, 256, 87)):
+        args = (randn((B, 1, Hq, D), seed, device, torch.bfloat16),
+                randn((B, S, Hkv, D), seed + 1, device, torch.bfloat16),
+                randn((B, S, Hkv, D), seed + 2, device, torch.bfloat16),
+                torch.tensor(S, dtype=torch.int32, device=device))
+        out.append(_case(
+            "decode_attention", f"{arch}_decode_" + _shapes(args),
+            lambda a=args: DA.gqa_decode(*a), lambda a=args: DA.gqa_decode_ref(*a),
+            "bfloat16_card", DA.gqa_decode_traffic(*args[:3], S), args=args,
+            ref=DA.gqa_decode_ref, timed=False, fault=True, head_size=True))
     return out
 
 
@@ -783,10 +849,14 @@ def timed_runs(run, repeats: int = 3):
     return out, walls
 
 
-def device_busy_share(run) -> float | None:
-    """Device kernel time over wall time of one ``run()`` under
-    ``torch.profiler`` (None when the trace holds no device time)."""
+def device_profile(run, top: int = 0) -> dict:
+    """One ``run()`` under ``torch.profiler``: device kernel time over wall
+    time (``busy_share``, None when the trace holds no device time), and
+    the ``top`` kernels by device time (name, ms, calls).  Only the
+    device's own events count: an operator's self device time is that of
+    the kernels it launched, which the trace holds as well."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -796,10 +866,18 @@ def device_busy_share(run) -> float | None:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy_us = sum(getattr(e, "self_device_time_total",
-                          getattr(e, "self_cuda_time_total", 0))
-                  for e in prof.key_averages())
-    return busy_us * 1e-6 / wall if busy_us > 0 else None
+
+    def device_us(e) -> float:
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    busy_us = sum(device_us(e) for e in events)
+    events.sort(key=device_us, reverse=True)
+    return {"busy_share": busy_us * 1e-6 / wall if busy_us > 0 else None,
+            "wall_ms": wall * 1e3, "device_ms": busy_us * 1e-3,
+            "top": [(e.key[:80], device_us(e) * 1e-3, e.count)
+                    for e in events[:top]]}
 
 
 def phase_stream(device):
@@ -835,7 +913,8 @@ def phase_stream(device):
         dev_rep, dev_s = timed_runs(
             lambda: sess.sweep(space, chunk_size=chunk))
         peaks[name] = torch.cuda.max_memory_allocated() - base
-        busy = device_busy_share(lambda: sess.sweep(space, chunk_size=chunk))
+        busy = device_profile(
+            lambda: sess.sweep(space, chunk_size=chunk))["busy_share"]
         host_rep, host_s = _host_fold_report(sess, space, chunk)
         # the device fold forced op by op and forced into a CUDA graph
         forced_s = {}
@@ -1258,6 +1337,242 @@ def phase_predict(device) -> None:
           "seconds": time.perf_counter() - t_phase})
 
 
+#: The model phase: qwen2-7b at its published widths, all 28 layers, bf16
+#: activations over weights drawn from seed 0 on the card and cast once
+#: (``convert.to_serving``).  Prefill B 2 x S 4096; decode_32k with the
+#: batch cut from 128 to 8 (15.0 GB of KV cache) at its last position;
+#: the reference serve CLI's own traffic.
+MODEL_ARCH = "qwen2-7b"
+MODEL_PREFILL = (2, 4096)
+MODEL_DECODE = (8, 32768)
+MODEL_SERVE = dict(batch_slots=4, max_len=128, requests=8, max_new=16)
+
+
+def _rel_l2(got, want) -> float:
+    import torch
+
+    g, w = got.float(), want.float()
+    return float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w))
+
+
+def logits_check(kern, plain, exact, vocab: int, what: str) -> dict:
+    """The kernel path's logits against the plain path's (``TOL
+    ["model_logits"]``), over the real vocabulary: within ``of_floor``
+    times the plain path's own distance from ``exact``, the plain path run
+    with f32 activations on the same weights."""
+    import torch
+
+    k, p, e = (t[..., :vocab].float() for t in (kern, plain, exact))
+    check(k.shape == p.shape == e.shape and bool(torch.isfinite(k).all()),
+          f"{what}: logits not finite or misshapen")
+    floor = _rel_l2(p, e)
+    dist = _rel_l2(k, p)
+    bound = TOL["model_logits"]["of_floor"] * floor
+    row = {"rel_l2_kernel_vs_plain": dist, "rel_l2_plain_vs_f32": floor,
+           "rel_l2_kernel_vs_f32": _rel_l2(k, e), "bound": bound,
+           "greedy_agreement": float((k.argmax(-1) == p.argmax(-1))
+                                     .float().mean())}
+    check(0.0 < floor and dist <= bound,
+          f"{what}: kernel path logits {dist:.3g} from the plain path's, "
+          f"bound {bound:.3g}")
+    return row
+
+
+def _weight_bytes(model) -> int:
+    """Bytes of every parameter a step reads whole: all but the embedding
+    table, of which a step reads only its tokens' rows."""
+    return sum(p.numel() * p.element_size()
+               for name, p in model.named_parameters() if name != "embed")
+
+
+def _bound(nbytes: float, flops: float) -> dict:
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_BF16_TENSOR_FLOPS
+    return {"bytes": nbytes, "flops": flops,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_model(device, wrappers: dict) -> dict:
+    """The dense decoder served on the card through its entry points: (a)
+    ``make_prefill_step`` (K5 once a layer), (b) one ``make_decode_step``
+    at position 32,767 over seeded caches (K4 once a layer), (c)
+    ``BatchedServer`` with the reference CLI's traffic (K4 once a layer a
+    step, K5 never).  Each part is driven with every launch counter at
+    zero and read just after; the checks and timings that follow launch
+    more and are not counted.  Returns the counts by part."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as DA
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.launch import serve as SERVE
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.convert import to_serving
+
+    # the f32 reference run in full f32 (the defaults, stated)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    cfg = get_config(MODEL_ARCH)
+    plain_cfg = dataclasses.replace(cfg, use_kernels=False)
+    f32_cfg = dataclasses.replace(plain_cfg, dtype="float32")
+    n, V = cfg.n_layers, cfg.vocab_size
+    rng = np.random.default_rng(0)
+
+    def zero():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def counts(what: str, flash: int, decode: int) -> dict:
+        got = {name: fn.launches for name, fn in wrappers.items()}
+        want = dict.fromkeys(got, 0)
+        want.update(flash_attention=flash, decode_attention=decode)
+        check(got == want, f"model {what}: launches {got}, expected {want}")
+        return got
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = to_serving(TF.init_params(cfg, seed=0, device=device))
+    torch.cuda.synchronize()
+    init = {"seconds": time.perf_counter() - t0,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "serving_bytes": sum(p.numel() * p.element_size()
+                                 for p in model.parameters())}
+    launches = {}
+
+    # (a) prefill
+    B, S = MODEL_PREFILL
+    batch = {"tokens": torch.as_tensor(rng.integers(0, V, (B, S)),
+                                       dtype=torch.int32, device=device)}
+    prefill = make_prefill_step(cfg)
+    zero()
+    logits = prefill(model, batch)
+    torch.cuda.synchronize()
+    launches["prefill"] = counts("prefill", flash=n, decode=0)
+    check_a = logits_check(logits, make_prefill_step(plain_cfg)(model, batch),
+                           make_prefill_step(f32_cfg)(model, batch), V,
+                           "prefill")
+    with torch.no_grad():
+        x = L.apply_norm(model.layers[0].ln1,
+                         TF.embed_inputs(model, cfg, tokens=batch["tokens"]),
+                         cfg.norm)
+        q, k, v = ATT._qkv(model.layers[0].attn, cfg, x, ATT.rotary(
+            cfg, torch.arange(S, device=device)[None]))
+        err, of_bound, ok = compare(FA.mha(q, k, v), FA.attention_ref(q, k, v),
+                                    "flash_card",
+                                    FA.attention_ref(q, k, v.abs()).float())
+    check(ok, f"model prefill: layer 0 attention off by {err}")
+    check_a.update(layer0_max_abs_err=err, layer0_err_of_bound=of_bound)
+    dense = sum(m.w.numel() for m in model.layers.modules()
+                if isinstance(m, L.Dense))
+    flops = (2.0 * B * S * dense + n * 4.0 * B * cfg.n_heads * cfg.head_dim
+             * FA.live_pairs(S, S) + 2.0 * B * cfg.d_model * cfg.padded_vocab)
+    nbytes = (_weight_bytes(model) + B * S * cfg.d_model * 2
+              + B * cfg.padded_vocab * 2)
+    part_a = {"batch": B, "seq": S,
+              "ms": time_ms(lambda: prefill(model, batch), device, iters=3,
+                            warmup=1),
+              **_bound(nbytes, flops),
+              "profile": device_profile(lambda: prefill(model, batch), top=8),
+              **check_a}
+    part_a["tok_per_s"] = B * S / part_a["ms"] * 1e3
+    del logits, q, k, v, x
+
+    # (b) one decode step at depth
+    B, S = MODEL_DECODE
+    caches = TF.init_caches(cfg, B, S, device=device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    for cache in caches:
+        for t in cache.values():
+            t.normal_(generator=gen)
+    tok = torch.as_tensor(rng.integers(0, V, (B, 1)), dtype=torch.int32,
+                          device=device)
+    index = torch.tensor([S - 1], device=device)
+    step = make_decode_step(cfg)
+    zero()
+    _, logits, _ = step(model, tok, caches, index)
+    torch.cuda.synchronize()
+    launches["decode"] = counts("decode", flash=0, decode=n)
+    check_b = logits_check(
+        logits, make_decode_step(plain_cfg)(model, tok, caches, index)[1],
+        make_decode_step(f32_cfg)(model, tok, caches, index)[1], V, "decode")
+    with torch.no_grad():
+        x = L.apply_norm(model.layers[0].ln1,
+                         TF.embed_inputs(model, cfg, tokens=tok), cfg.norm)
+        q, _, _ = ATT._qkv(model.layers[0].attn, cfg, x,
+                           ATT.rotary(cfg, index.reshape(1, 1)))
+        c0 = caches[0]
+        err, of_bound, ok = compare(
+            DA.gqa_decode(q, c0["k"], c0["v"], index + 1),
+            DA.gqa_decode_ref(q, c0["k"], c0["v"], index + 1), "bfloat16_card")
+    check(ok, f"model decode: layer 0 attention off by {err}")
+    check_b.update(layer0_max_abs_err=err, layer0_err_of_bound=of_bound)
+    kv = 2.0 * n * B * S * cfg.n_kv_heads * cfg.head_dim * 2
+    nbytes = (_weight_bytes(model) + kv + B * cfg.d_model * 2
+              + B * cfg.padded_vocab * 2)
+    ms = time_ms(lambda: step(model, tok, caches, index), device, iters=10,
+                 warmup=2)
+    part_b = {"batch": B, "cache_rows": S, "ms_per_step": ms,
+              "tok_per_s": B / ms * 1e3, "kv_bytes": kv,
+              "weight_bytes": _weight_bytes(model),
+              **_bound(nbytes, 2.0 * B * dense),
+              "bound_ms_model_bytes": cfg.model_bytes(
+                  B, kind="decode", batch=B, seq_len=S) / PEAK_BYTES_PER_S * 1e3,
+              "profile": device_profile(
+                  lambda: step(model, tok, caches, index), top=8),
+              "peak_bytes": torch.cuda.max_memory_allocated(), **check_b}
+    part_b["bound_tok_per_s"] = B / part_b["bound_ms"] * 1e3
+    # the profiler slows the host, so its own wall time overstates the step;
+    # the device's share of the step as timed above
+    part_b["device_share_of_step"] = part_b["profile"]["device_ms"] / ms
+    del caches, logits, q, x, c0
+    torch.cuda.empty_cache()
+
+    # (c) the batched server, the reference CLI's traffic
+    sv = MODEL_SERVE
+    server = SERVE.BatchedServer(cfg, batch_slots=sv["batch_slots"],
+                                 max_len=sv["max_len"], params=model,
+                                 device=device)
+    reqs = SERVE.cli_requests(cfg, sv["requests"], sv["max_new"])
+    zero()
+    t0 = time.perf_counter()
+    server.run(reqs)
+    wall = time.perf_counter() - t0
+    m = server.metrics
+    steps = m["prefill_steps"] + m["decode_steps"]
+    launches["serve"] = counts("serve", flash=0, decode=n * steps)
+    check(all(len(r.generated) == sv["max_new"] and r.done
+              and all(0 <= t < V for t in r.generated) for r in reqs),
+          "model serve: a request lacks its tokens or has one outside the "
+          "vocabulary")
+    step_bound = _bound(_weight_bytes(model)
+                        + 2.0 * n * sv["batch_slots"] * sv["max_len"]
+                        * cfg.n_kv_heads * cfg.head_dim * 2, 0.0)
+    part_c = {**sv, "seconds": wall, **m,
+              "decode_tok_per_s": m["new_tokens"] / m["decode_s"],
+              "ms_per_step": (m["prefill_s"] + m["decode_s"]) / steps * 1e3,
+              "bound_ms_per_step": step_bound["bound_ms"],
+              "bound_decode_tok_per_s": sv["batch_slots"]
+              / step_bound["bound_ms"] * 1e3,
+              "first_tokens": [r.generated[:4] for r in reqs[:2]]}
+    emit({"phase": "model", "arch": cfg.name, "init": init,
+          "prefill": part_a, "decode": part_b, "serve": part_c,
+          "launches": launches, "tolerance": TOL["model_logits"],
+          "peak_bytes": torch.cuda.max_memory_allocated(),
+          "seconds": time.perf_counter() - t_phase})
+    del server, model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def time_ms(fn, device, iters=20, warmup=3) -> float:
     from repro_torch.core.validate import time_callable
 
@@ -1265,43 +1580,58 @@ def time_ms(fn, device, iters=20, warmup=3) -> float:
                          warmup=warmup) * 1e3
 
 
-def phase_kernels(device, card: list[dict], launches: dict,
-                  card_err: dict) -> list[dict]:
-    """Each kernel at the main path's shape: time beside its bound, its
-    plain version and, for the attention kernels,
-    ``scaled_dot_product_attention``.  The operations bound takes the peak
-    of the unit the inputs' dtype allows: the tensor cores for bfloat16,
-    the CUDA cores for float32."""
+def _timing(c: dict, device) -> dict:
+    """One card case's time beside its bound, its plain version and, for
+    the attention kernels, ``scaled_dot_product_attention`` (where the
+    case's masks are SDPA's: causal prefill, decode over every row).  The
+    operations bound takes the peak of the unit the inputs' dtype allows:
+    the tensor cores for bfloat16, the CUDA cores for float32."""
     import torch
     import torch.nn.functional as F
 
+    bf16 = next(_tensors(c["args"])).dtype == torch.bfloat16
+    t_bytes = c["traffic"]["total_bytes"] / PEAK_BYTES_PER_S
+    t_ops = c["traffic"]["flops"] / (PEAK_BF16_TENSOR_FLOPS if bf16
+                                     else PEAK_FP32_FLOPS)
+    library_ms = None
+    if c["name"] in ("decode_attention", "flash_attention"):
+        qt, kt, vt = (t.transpose(1, 2) for t in c["args"][:3])
+        causal = c["name"] == "flash_attention"
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), device)
+    return {"ms": time_ms(c["run"], device),
+            "plain_ms": time_ms(c["plain"], device, iters=3, warmup=1),
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms}
+
+
+def phase_kernels(device, card: list[dict], launches: dict,
+                  card_err: dict) -> list[dict]:
+    """Each kernel at the main path's shape (``_timing``); ``launches`` is
+    the kernel's count over every driven path, by path in
+    ``launches_by_path``."""
     table = kernel_table()
     out = []
     for c in card:
         if not c["timed"]:
             continue
         _, source, replaces = table[c["name"]]
-        bf16 = next(_tensors(c["args"])).dtype == torch.bfloat16
-        t_bytes = c["traffic"]["total_bytes"] / PEAK_BYTES_PER_S
-        t_ops = c["traffic"]["flops"] / (PEAK_BF16_TENSOR_FLOPS if bf16
-                                         else PEAK_FP32_FLOPS)
-        library_ms = None
-        if c["name"] in ("decode_attention", "flash_attention"):
-            qt, kt, vt = (t.transpose(1, 2) for t in c["args"][:3])
-            causal = c["name"] == "flash_attention"
-            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True), device)
+        by_path = {path: counts[c["name"]] for path, counts in launches.items()}
         out.append({
             "name": c["name"], "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[c["name"]],
-            "max_abs_err": card_err[c["name"]],
-            "ms": time_ms(c["run"], device),
-            "plain_ms": time_ms(c["plain"], device, iters=3, warmup=1),
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms,
-        })
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": card_err[c["name"]], **_timing(c, device)})
     return out
+
+
+def phase_head_sizes(device, card: list[dict]) -> None:
+    """The zoo's other head sizes (``head_size_cases``) timed as the
+    kernels line times the main path's shapes."""
+    rows = [{"kernel": c["name"], "case": c["label"], **_timing(c, device)}
+            for c in card if c.get("head_size")]
+    emit({"phase": "head_sizes", "rows": rows})
 
 
 def main() -> int:
@@ -1337,6 +1667,7 @@ def main() -> int:
 
     card = card_cases(device)
     card_err = phase_parity(device, card)
+    phase_head_sizes(device, card)
 
     # The main path: estimate -> sweep -> streaming sweeps -> optimize ->
     # validate, with every launch counter at zero just before it and read
@@ -1347,10 +1678,17 @@ def main() -> int:
     phase_estimator(device)
     phase_optimize(device, phase_stream(device))
     phase_validate(device)
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    emit({"phase": "launches", "main_path": launches})
-    for name, count in launches.items():
+    main_path = {name: fn.launches for name, fn in wrappers.items()}
+    for name, count in main_path.items():
         check(count > 0, f"{name} was never launched on the main path")
+
+    # The model path: the dense decoder's prefill, decode and server, each
+    # part with the counts at zero just before it and read just after.
+    by_part = phase_model(device, wrappers)
+    model_path = {name: sum(part[name] for part in by_part.values())
+                  for name in wrappers}
+    launches = {"main_path": main_path, "model_path": model_path}
+    emit({"phase": "launches", **launches, "model_path_by_part": by_part})
 
     # Serving, the paper's tables and the HLO predictor launch no kernel.
     phase_serve(device)

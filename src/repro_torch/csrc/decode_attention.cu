@@ -30,9 +30,12 @@
 //   runs Q·Kᵀ and P·V on the tensor cores (mma.sync m16n8k16, fp32
 //   accumulate; 16 query heads as M) from shared memory, and writes its
 //   split's partial for its head.  The softcap is a template flag.
-// * decode_split (float32, or D < 64): CUDA cores.  A lane owns one 16-byte
-//   slice of a cache row and keeps q and the accumulator for up to 8 heads in
-//   registers; the lanes of a row reduce their dot products with shuffles.
+// * decode_split (float32, or bfloat16 at D in {16, 32, 80, 256}): CUDA
+//   cores.  A lane owns one or two 16-byte slices of a cache row (RowLayout)
+//   and keeps q and the accumulator for up to 8 heads in registers; the
+//   lanes of a row, a power of two, reduce their dot products with shuffles.
+//   A head size that is no power of two (80) leaves the lanes past its last
+//   slice idle, so the cache is read as it lies, never padded.
 //
 // Scores are kept in log2 units (scaled by log2 e) so each exponential is one
 // exp2f.
@@ -140,27 +143,51 @@ __device__ __forceinline__ void write_partial(const float (&sm_acc)[kWarps][HG][
   }
 }
 
+// Smallest power of two >= n (n >= 1).
+constexpr int pow2_ceil(int n) { return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2); }
+
+// How decode_split lays a cache row of D channels of T over a warp.  A row
+// is NVEC 16-byte slices; a lane owns NV of them (slices li, li + LPR, ...
+// of its row, li its lane in the row), so that LPR, the lanes of a row, is
+// a power of two (the shuffle reductions need one) that the warp divides
+// into RPW rows.  Where NVEC is no power of two, the slices past NVEC are
+// absent: D = 80 in bf16 is 10 slices on 16 lanes, two rows a warp; in
+// fp32 20 slices on 32 lanes.  Wider rows take two slices a lane (fp32 at
+// D = 256: 64 slices), so that no lane holds more than 8 channels per head.
+template <typename T, int D>
+struct RowLayout {
+  static constexpr int VEC = 16 / sizeof(T);               // channels per slice
+  static constexpr int NVEC = D / VEC;                     // slices per row
+  static constexpr int NV = (NVEC + 31) / 32;              // slices per lane
+  static constexpr int LPR = pow2_ceil((NVEC + NV - 1) / NV);  // lanes per row
+  static constexpr int RPW = 32 / LPR;                     // rows per warp load
+  static constexpr int CPL = NV * VEC;                     // channels per lane
+  static constexpr int UNROLL = kUnroll / NV;              // warp loads per step
+  static_assert(D % VEC == 0 && LPR * NV >= NVEC && LPR <= 32, "row layout");
+};
+
 // q: (B, Hkv, G, D); k, v: (B, S, Hkv, D).  blockIdx.x = (b * Hkv + h) * n_gc
 // + head chunk, blockIdx.y = split; the CTA covers the cache rows of its
-// split (split_rows) below kv_len for heads [gc * kMaxG, gc * kMaxG + Gc).
+// split (split_rows) below kv_len for heads [gc * HG, gc * HG + Gc): HG = 1
+// for MHA (G = 1), else kMaxG, so that a lone head does not pay for eight.
 // Partials are indexed by ((b * Hkv + h) * n_split + split) * G + head.
-template <typename T, int D>
+template <typename T, int D, int HG>
 __global__ void __launch_bounds__(kThreads, 2)
     decode_split(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const int32_t* __restrict__ kv_len, float* __restrict__ m_part,
                  float* __restrict__ l_part, float* __restrict__ acc_part, int S, int Hkv,
                  int G, int n_gc, int n_stages, float scale, float softcap) {
-  constexpr int VEC = 16 / sizeof(T);    // channels per 16-byte load
-  constexpr int LPR = D / VEC;           // lanes per cache row
-  constexpr int RPW = 32 / LPR;          // rows one warp load covers
-  constexpr int STEP = RPW * kUnroll;    // rows per warp per step
-  __shared__ float sm_acc[kWarps][kMaxG][D];
-  __shared__ float sm_m[kWarps][kMaxG];
-  __shared__ float sm_l[kWarps][kMaxG];
+  using L = RowLayout<T, D>;
+  constexpr int VEC = L::VEC, NV = L::NV, LPR = L::LPR, RPW = L::RPW, CPL = L::CPL;
+  constexpr int UNR = L::UNROLL;
+  constexpr int STEP = RPW * UNR;        // rows per warp per step
+  __shared__ float sm_acc[kWarps][HG][D];
+  __shared__ float sm_m[kWarps][HG];
+  __shared__ float sm_l[kWarps][HG];
 
   const int bh = blockIdx.x / n_gc;
-  const int g0 = (blockIdx.x % n_gc) * kMaxG;
-  const int Gc = min(kMaxG, G - g0);
+  const int g0 = (blockIdx.x % n_gc) * HG;
+  const int Gc = min(HG, G - g0);
   const int split = blockIdx.y;
   const int b = bh / Hkv;
   const int h = bh % Hkv;
@@ -171,74 +198,87 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int sub = lane / LPR;            // which row of a warp load
-  const int c = (lane % LPR) * VEC;      // first channel of this lane
+  const int li = lane % LPR;             // this lane's place in its row
+  bool own[NV];                          // slice li + j * LPR exists
+#pragma unroll
+  for (int j = 0; j < NV; ++j) own[j] = li + j * LPR < L::NVEC;
 
-  float qr[kMaxG][VEC], acc[kMaxG][VEC], m[kMaxG], l[kMaxG];
+  float qr[HG][CPL], acc[HG][CPL], m[HG], l[HG];
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    float t[VEC];
-    if (g < Gc) {
-      unpack(*reinterpret_cast<const uint4*>(q + ((size_t)bh * G + g0 + g) * D + c), t, T());
-    } else {
+  for (int g = 0; g < HG; ++g) {
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) t[j] = 0.f;
-    }
+    for (int j = 0; j < NV; ++j) {
+      float t[VEC];
+      if (g < Gc && own[j]) {
+        unpack(*reinterpret_cast<const uint4*>(q + ((size_t)bh * G + g0 + g) * D +
+                                               (li + j * LPR) * VEC),
+               t, T());
+      } else {
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      qr[g][j] = t[j] * scale;
-      acc[g][j] = 0.f;
+        for (int e = 0; e < VEC; ++e) t[e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        qr[g][j * VEC + e] = t[e] * scale;
+        acc[g][j * VEC + e] = 0.f;
+      }
     }
     m[g] = kNegInf;
     l[g] = 0.f;
   }
 
   const size_t row_stride = (size_t)Hkv * D;
-  const T* kb = k + ((size_t)b * S * Hkv + h) * D + c;
-  const T* vb = v + ((size_t)b * S * Hkv + h) * D + c;
+  const T* kb = k + ((size_t)b * S * Hkv + h) * D + li * VEC;
+  const T* vb = v + ((size_t)b * S * Hkv + h) * D + li * VEC;
 
   for (int base = start + warp * STEP; base < end; base += kWarps * STEP) {
-    uint4 kr[kUnroll], vr[kUnroll];
-    bool live[kUnroll];
+    uint4 kr[UNR][NV], vr[UNR][NV];
+    bool live[UNR];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < UNR; ++u) {
       const int row = base + u * RPW + sub;
       live[u] = row < end;
-      if (live[u]) {
-        kr[u] = __ldcs(reinterpret_cast<const uint4*>(kb + row * row_stride));
-        vr[u] = __ldcs(reinterpret_cast<const uint4*>(vb + row * row_stride));
-      } else {
-        kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        if (live[u] && own[j]) {
+          const size_t off = row * row_stride + j * LPR * VEC;
+          kr[u][j] = __ldcs(reinterpret_cast<const uint4*>(kb + off));
+          vr[u][j] = __ldcs(reinterpret_cast<const uint4*>(vb + off));
+        } else {
+          kr[u][j] = vr[u][j] = make_uint4(0u, 0u, 0u, 0u);
+        }
       }
     }
     // Scores: partial dot products over this lane's channels, then summed
     // across the LPR lanes of the row.
-    float s[kUnroll][kMaxG];
+    float s[UNR][HG];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      float kf[VEC];
-      unpack(kr[u], kf, T());
+    for (int u = 0; u < UNR; ++u) {
+      float kf[CPL];
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
+      for (int j = 0; j < NV; ++j) unpack(kr[u][j], kf + j * VEC, T());
+#pragma unroll
+      for (int g = 0; g < HG; ++g) {
         float d = 0.f;
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) d += qr[g][j] * kf[j];
+        for (int e = 0; e < CPL; ++e) d += qr[g][e] * kf[e];
         s[u][g] = d;
       }
     }
 #pragma unroll
     for (int off = LPR / 2; off > 0; off /= 2) {
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
+      for (int u = 0; u < UNR; ++u) {
 #pragma unroll
-        for (int g = 0; g < kMaxG; ++g) s[u][g] += __shfl_xor_sync(kFull, s[u][g], off);
+        for (int g = 0; g < HG; ++g) s[u][g] += __shfl_xor_sync(kFull, s[u][g], off);
       }
     }
     // Online softmax over this step's rows: rescale once, then accumulate.
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
+    for (int g = 0; g < HG; ++g) {
       float mt = m[g];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
+      for (int u = 0; u < UNR; ++u) {
         float x = s[u][g];
         if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
         x *= kLog2e;
@@ -249,18 +289,19 @@ __global__ void __launch_bounds__(kThreads, 2)
       m[g] = mt;
       l[g] *= alpha;
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) acc[g][j] *= alpha;
+      for (int e = 0; e < CPL; ++e) acc[g][e] *= alpha;
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      float vf[VEC];
-      unpack(vr[u], vf, T());
+    for (int u = 0; u < UNR; ++u) {
+      float vf[CPL];
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
+      for (int j = 0; j < NV; ++j) unpack(vr[u][j], vf + j * VEC, T());
+#pragma unroll
+      for (int g = 0; g < HG; ++g) {
         const float p = live[u] ? exp2f(s[u][g] - m[g]) : 0.f;
         l[g] += p;
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) acc[g][j] += p * vf[j];
+        for (int e = 0; e < CPL; ++e) acc[g][e] += p * vf[e];
       }
     }
   }
@@ -269,7 +310,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
   for (int off = LPR; off < 32; off *= 2) {
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
+    for (int g = 0; g < HG; ++g) {
       const float mo = __shfl_xor_sync(kFull, m[g], off);
       const float lo = __shfl_xor_sync(kFull, l[g], off);
       const float mn = fmaxf(m[g], mo);
@@ -277,26 +318,31 @@ __global__ void __launch_bounds__(kThreads, 2)
       const float ao = exp2f(mo - mn);
       l[g] = l[g] * a + lo * ao;
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        const float x = __shfl_xor_sync(kFull, acc[g][j], off);
-        acc[g][j] = acc[g][j] * a + x * ao;
+      for (int e = 0; e < CPL; ++e) {
+        const float x = __shfl_xor_sync(kFull, acc[g][e], off);
+        acc[g][e] = acc[g][e] * a + x * ao;
       }
       m[g] = mn;
     }
   }
   if (sub == 0) {
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
+    for (int g = 0; g < HG; ++g) {
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) sm_acc[warp][g][c + j] = acc[g][j];
-      if (c == 0) {
+      for (int j = 0; j < NV; ++j) {
+        if (!own[j]) continue;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          sm_acc[warp][g][(li + j * LPR) * VEC + e] = acc[g][j * VEC + e];
+      }
+      if (li == 0) {
         sm_m[warp][g] = m[g];
         sm_l[warp][g] = l[g];
       }
     }
   }
   __syncthreads();
-  write_partial<kMaxG, D>(sm_acc, sm_m, sm_l, Gc,
+  write_partial<HG, D>(sm_acc, sm_m, sm_l, Gc,
                           ((size_t)bh * gridDim.y + split) * G + g0, m_part, l_part,
                           acc_part);
 }
@@ -516,7 +562,7 @@ __global__ void __launch_bounds__(32 * 9, 1)
 // One CTA per (b * Hkv + h, query head g), one thread per 4 channels: the
 // splits' partials of one head are merged with coalesced 16-byte reads.
 template <typename T>
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(64)
     decode_merge(const float* __restrict__ m_part, const float* __restrict__ l_part,
                  const float* __restrict__ acc_part, T* __restrict__ out, int n_part, int G,
                  int D) {
@@ -557,8 +603,9 @@ cudaError_t launch_split(const void* q, const void* k, const void* v, const int3
                          void* out, float* m_part, float* l_part, float* acc_part, int B,
                          int S, int Hkv, int G, int n_split, int n_stages, float scale,
                          float softcap, cudaStream_t s) {
-  const int n_gc = (G + kMaxG - 1) / kMaxG;
-  decode_split<T, D><<<dim3(B * Hkv * n_gc, n_split), kThreads, 0, s>>>(
+  const int n_gc = (G + kMaxG - 1) / kMaxG;  // G == 1 gives 1 with either HG
+  const auto kernel = G == 1 ? decode_split<T, D, 1> : decode_split<T, D, kMaxG>;
+  kernel<<<dim3(B * Hkv * n_gc, n_split), kThreads, 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), kv_len,
       m_part, l_part, acc_part, S, Hkv, G, n_gc, n_stages, scale, softcap);
   const cudaError_t err = cudaGetLastError();
@@ -604,8 +651,14 @@ cudaError_t dispatch_split(int D, const void* q, const void* k, const void* v,
     case 64:
       return launch_split<T, 64>(q, k, v, kv_len, out, m, l, acc, B, S, Hkv, G, n_split,
                                  n_stages, scale, softcap, s);
+    case 80:
+      return launch_split<T, 80>(q, k, v, kv_len, out, m, l, acc, B, S, Hkv, G, n_split,
+                                 n_stages, scale, softcap, s);
     case 128:
       return launch_split<T, 128>(q, k, v, kv_len, out, m, l, acc, B, S, Hkv, G, n_split,
+                                  n_stages, scale, softcap, s);
+    case 256:
+      return launch_split<T, 256>(q, k, v, kv_len, out, m, l, acc, B, S, Hkv, G, n_split,
                                   n_stages, scale, softcap, s);
     default:
       return cudaErrorInvalidValue;
@@ -626,7 +679,7 @@ cudaError_t dispatch_bulk(const void* q, const void* k, const void* v, const int
 
 }  // namespace
 
-// path: 0 = decode_split (float32 or bfloat16, D in {16, 32, 64, 128}), 1 =
+// path: 0 = decode_split (float32 or bfloat16, D in {16, 32, 64, 80, 128, 256}), 1 =
 // decode_bulk (bfloat16, D in {64, 128}; HC kv heads per CTA, a divisor of
 // Hkv, at most 8, and 16-byte aligned caches); dtype: 0 = float32, 1 =
 // bfloat16.  Scratch m_part and l_part hold B*Hkv*n_split*G floats,

@@ -19,10 +19,13 @@
 // group at once.  kv tiles that are wholly masked (past the causal diagonal,
 // outside the window, past Skv) are never loaded, as pl.when(live) skips
 // them on the TPU; CTAs are issued longest first.  Ragged Sq and Skv are
-// masked here; D is never padded.  Two kernels, chosen by dtype and head
-// size (the wrapper names the path, `kernel_path` in ops.py):
+// masked here, and no tensor is ever padded: a head size between the tile
+// widths (80, stablelm-3b's) runs the next instance (128), whose columns
+// past D the TMA fills with zeros in K and V, the Q loads leave zero and
+// the output stores skip.  Two kernels, chosen by dtype and head size (the
+// wrapper names the path, `kernel_path` in ops.py):
 //
-// * flash_wgmma (bfloat16, D in {64, 128, 256}, the model path), laid out as
+// * flash_wgmma (bfloat16, D in {64, 80, 128, 256}, the model path), laid out as
 //   FlashAttention-3: three warpgroups.  The producer warpgroup gives up its
 //   registers (setmaxnreg) and one thread issues TMA loads of K and V tiles
 //   (128 keys; 64 at D = 256) into a ring of 3 stages (2 at D = 256),
@@ -65,6 +68,7 @@ struct Params {
   const void* v;
   void* out;
   int Sq, Skv, Hkv, G;
+  int dq;                   // head size of q, k, v, out (<= the kernel's D)
   long long qsb, qsh, qss;  // q and out strides (batch, head, position)
   long long ksb, ksh, kss;  // k and v strides
   int causal, window;       // window <= 0: none
@@ -235,7 +239,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int r = 64 * w + e / (D / 8), c = e % (D / 8);
       const int R = R0 + r;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (R < n_rows)
+      if (R < n_rows && 8 * c < p.dq)
         val = *reinterpret_cast<const uint4*>(q + b * p.qsb +
                                               (long long)(h * p.G + R % p.G) * p.qsh +
                                               (long long)(R / p.G) * p.qss + c * 8);
@@ -381,7 +385,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int e = tid; e < 64 * D / 8; e += kWgThreads) {
       const int r = 64 * w + e / (D / 8), c = e % (D / 8);
       const int R = R0 + r;
-      if (R < n_rows)
+      if (R < n_rows && 8 * c < p.dq)
         *reinterpret_cast<uint4*>(out + b * p.qsb + (long long)(h * p.G + R % p.G) * p.qsh +
                                   (long long)(R / p.G) * p.qss + c * 8) =
             *reinterpret_cast<const uint4*>(Qs + swz(r, c, C::Q_BLOCK));
@@ -533,7 +537,8 @@ __global__ void __launch_bounds__(kSimtWarps * 32) flash_simt(const Params p) {
 
 // Tensor map of a (B, Hkv, Skv, D) bf16 view with element strides (sb, sh,
 // ss, 1): boxes of 64 channels (128 bytes, 128-byte swizzle) by `rows` keys;
-// keys past Skv read as zeros.
+// keys past Skv, and channels past D where the kernel's tile is wider, read
+// as zeros.
 bool kv_map(CUtensorMap* map, const void* base, int B, int Hkv, int Skv, int D, long long sb,
             long long sh, long long ss, int rows) {
   return sm90::tile_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, {D, Skv, Hkv, B},
@@ -544,8 +549,8 @@ template <int D, bool CAUSAL, bool WINDOW, bool CAP>
 cudaError_t launch_wgmma(const Params& p, int B, cudaStream_t s) {
   using C = WgCfg<D>;
   CUtensorMap tmk, tmv;
-  if (!kv_map(&tmk, p.k, B, p.Hkv, p.Skv, D, p.ksb, p.ksh, p.kss, C::BN) ||
-      !kv_map(&tmv, p.v, B, p.Hkv, p.Skv, D, p.ksb, p.ksh, p.kss, C::BN))
+  if (!kv_map(&tmk, p.k, B, p.Hkv, p.Skv, p.dq, p.ksb, p.ksh, p.kss, C::BN) ||
+      !kv_map(&tmv, p.v, B, p.Hkv, p.Skv, p.dq, p.ksb, p.ksh, p.kss, C::BN))
     return cudaErrorInvalidValue;
   const auto kernel = flash_wgmma<D, CAUSAL, WINDOW, CAP>;
   const cudaError_t err =
@@ -586,6 +591,7 @@ cudaError_t dispatch_simt(const Params& p, int D, int B, cudaStream_t s) {
     case 16: return launch_simt<T, 16>(p, B, s);
     case 32: return launch_simt<T, 32>(p, B, s);
     case 64: return launch_simt<T, 64>(p, B, s);
+    case 80: return launch_simt<T, 80>(p, B, s);
     case 128: return launch_simt<T, 128>(p, B, s);
     case 256: return launch_simt<T, 256>(p, B, s);
     default: return cudaErrorInvalidValue;
@@ -594,8 +600,8 @@ cudaError_t dispatch_simt(const Params& p, int D, int B, cudaStream_t s) {
 
 }  // namespace
 
-// path: 0 = flash_simt (float32 or bfloat16, D in {16, 32, 64, 128, 256}),
-// 1 = flash_wgmma (bfloat16, D in {64, 128, 256}); dtype: 0 = float32, 1 =
+// path: 0 = flash_simt (float32 or bfloat16, D in {16, 32, 64, 80, 128, 256}),
+// 1 = flash_wgmma (bfloat16, D in {64, 80, 128, 256}); dtype: 0 = float32, 1 =
 // bfloat16.  q and out: (B, Hq = Hkv * G, Sq, D) views with element strides
 // (qsb, qsh, qss, 1); k and v: (B, Hkv, Skv, D) views with strides (ksb, ksh,
 // kss, 1).  The wgmma path needs 16-byte aligned bases and strides.  window
@@ -607,12 +613,13 @@ extern "C" int flash_attention(int path, int dtype, int D, const void* q, const 
                                float scale, float softcap, void* stream) {
   if (B < 1 || Hkv < 1 || G < 1 || Sq < 1 || Skv < 1 || B * Hkv > 65535)
     return cudaErrorInvalidValue;
-  const Params p{q, k, v, out, Sq, Skv, Hkv, G, qsb, qsh, qss, ksb, ksh, kss,
+  const Params p{q, k, v, out, Sq, Skv, Hkv, G, D, qsb, qsh, qss, ksb, ksh, kss,
                  causal, window, scale, softcap};
   const auto s = static_cast<cudaStream_t>(stream);
   if (path == 1 && dtype == 1) {
     switch (D) {
       case 64: return dispatch_wgmma<64>(p, B, s);
+      case 80:  // the 128-column instance; columns 80..127 are zeros
       case 128: return dispatch_wgmma<128>(p, B, s);
       case 256: return dispatch_wgmma<256>(p, B, s);
       default: return cudaErrorInvalidValue;

@@ -22,7 +22,9 @@ import torch
 from repro_torch import compat
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+#: Head sizes the kernels take, each natively: the cache is never padded
+#: (80: stablelm-3b; 256: recurrentgemma-9b's local attention).
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 #: Head sizes the bfloat16 bulk-copy kernel takes; every other (dtype, D)
 #: runs on the CUDA cores.
 BULK_HEAD_DIMS = (64, 128)

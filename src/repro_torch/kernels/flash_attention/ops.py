@@ -12,6 +12,10 @@ raises); on CPU tensors it runs the plain PyTorch version
 accepts them so that callers keep the reference's signature, and otherwise
 ignores them: the card's tiles are fixed by the kernel (on the tensor cores
 128 query rows and 128 keys, 64 keys at D = 256).
+
+No tensor is padded: where the reference's ``mha`` pads D to 128 lanes,
+the tensor-core kernel at D = 80 (stablelm-3b's) runs its 128-column
+instance with the columns past 80 zero inside the kernel.
 """
 from __future__ import annotations
 
@@ -24,14 +28,14 @@ import torch
 from repro_torch import compat
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 NEG_INF = -1e30
 #: Query rows the plain version takes at a time, so that it never holds an
 #: (Sq, Skv) score matrix of every head (2·28·4096² fp32 is 3.8 GB).
 ROW_BLOCK = 512
 #: Head sizes the bfloat16 wgmma kernel takes; every other (dtype, D) runs on
 #: the CUDA cores.
-WGMMA_HEAD_DIMS = (64, 128, 256)
+WGMMA_HEAD_DIMS = (64, 80, 128, 256)
 _PATHS = {"simt": 0, "wgmma": 1}
 
 

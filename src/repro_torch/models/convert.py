@@ -1,0 +1,76 @@
+"""The weight carrier between the reference and the port.
+
+``from_reference`` turns the reference's parameter tree (``init_params``
+output, leaves as numpy arrays) into a state dict of
+:class:`~repro_torch.models.transformer.Transformer`: the reference stacks
+each block of the pattern over its repeats, ``groups["b{j}"]`` with leaf
+index ``g`` on the leading axis, which becomes layer ``g * len(pattern) +
+j``; the unscanned ``rest`` follows in order; ``embed``, ``head``, ``ln_f``
+and every bias are kept as they are.  The port's module names are the
+reference's dict keys, so a leaf's path is its name.
+
+``to_serving`` casts, once, exactly the tensors the reference casts at use
+(dense weights and biases, and the embedding) to the activation dtype, and
+leaves the norms in f32: every product sees the same inputs as the
+reference's, the weights take half the memory in bf16 (15.2 GB for
+qwen2-7b instead of 30.5), and no step re-casts them.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import compat
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import Transformer
+
+
+def _flatten(tree, prefix: str, out: dict, index: int | None = None) -> None:
+    for key, val in tree.items():
+        name = f"{prefix}.{key}" if prefix else key
+        if isinstance(val, dict):
+            _flatten(val, name, out, index)
+        else:
+            arr = np.asarray(val)
+            out[name] = torch.tensor(arr if index is None else arr[index])
+
+
+def from_reference(params: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """The reference's parameter tree (numpy leaves) as a state dict of the
+    port's ``Transformer`` (CPU tensors, the reference's dtypes)."""
+    sd: dict[str, torch.Tensor] = {}
+    top = {k: v for k, v in params.items() if k not in ("groups", "rest")}
+    _flatten(top, "", sd)
+    n_pattern = len(cfg.block_pattern)
+    for g in range(cfg.pattern_repeats):
+        for j in range(n_pattern):
+            _flatten(params["groups"][f"b{j}"], f"layers.{g * n_pattern + j}",
+                     sd, index=g)
+    first = cfg.pattern_repeats * n_pattern
+    for i, block in enumerate(params.get("rest", [])):
+        _flatten(block, f"layers.{first + i}", sd)
+    return sd
+
+
+def load(cfg: ModelConfig, state_dict: dict, *, device=None) -> Transformer:
+    """A ``Transformer`` holding ``state_dict`` on ``device`` (default: the
+    CUDA card; raises without one).  Every parameter must be given."""
+    dev = compat.resolve_device(device)
+    with torch.device("meta"):
+        model = Transformer(cfg)
+    model.load_state_dict({k: v.to(dev) for k, v in state_dict.items()},
+                          strict=True, assign=True)
+    return model
+
+
+def to_serving(model: Transformer) -> Transformer:
+    """Cast every dense weight and bias, and the embedding, to the
+    activation dtype in place, once; the norms stay f32."""
+    dt = model.cfg.activation_dtype
+    for mod in model.modules():
+        if isinstance(mod, L.Dense):
+            for p in mod.parameters(recurse=False):
+                p.data = p.data.to(dt)
+    model.embed.data = model.embed.data.to(dt)
+    return model

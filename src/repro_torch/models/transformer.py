@@ -1,0 +1,173 @@
+"""Model driver: the layer stack, prefill and decode.
+
+Port of ``repro.models.transformer`` with its entry points (``init_params``,
+``embed_inputs``, ``forward_hidden``, ``logits_fn``, ``loss_fn``,
+``init_caches``, ``decode_step``), each taking the parameters and the
+config as the reference's do.  The parameters are one ``nn.Module``,
+:class:`Transformer`, with one ``layers`` entry per layer in
+``cfg.block_kinds`` order where the reference stacks each pattern group on
+a leading axis and scans it (``convert.from_reference`` maps one onto the
+other).  Decode updates each layer's cache in place.
+
+This slice runs the dense decoder: ``attn`` and ``local`` blocks with the
+MLP.  The recurrent blocks, MoE and the audio/vision frontends are later
+slices of the port (ROADMAP, Queue 1, item 1) and raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch import compat
+from repro_torch.models import attention as ATT
+from repro_torch.models import layers as L
+from repro_torch.models import mlp as MLP
+from repro_torch.models.config import ModelConfig
+
+#: The ROADMAP item (Queue 1, item 1) that brings each part not yet ported.
+NOT_PORTED = {
+    "rglru": "recurrentgemma-9b (K6), the next model slice",
+    "mlstm": "xlstm-1.3b (K7), a later model slice",
+    "slstm": "xlstm-1.3b (K7), a later model slice",
+    "moe": "the MoE slice",
+    "frontend": "the audio/VLM slice",
+}
+
+
+def _not_ported(cfg: ModelConfig, what: str):
+    return NotImplementedError(
+        f"{cfg.name}: {what} is not ported yet; it comes with "
+        f"{NOT_PORTED[what]} (ROADMAP, Queue 1, item 1)")
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config this slice cannot run."""
+    for kind in cfg.block_kinds:
+        if kind not in ("attn", "local"):
+            raise _not_ported(cfg, kind)
+    if cfg.is_moe:
+        raise _not_ported(cfg, "moe")
+    if cfg.frontend:
+        raise _not_ported(cfg, "frontend")
+
+
+class Block(nn.Module):
+    """``attn``/``local`` block: pre-norm attention and MLP, residuals."""
+
+    def __init__(self, cfg: ModelConfig, gen=None, *, device=None):
+        super().__init__()
+        self.ln1 = L.Norm(cfg.d_model, cfg.norm, device=device)
+        self.attn = ATT.Attention(cfg, gen, device=device)
+        self.ln2 = L.Norm(cfg.d_model, cfg.norm, device=device)
+        self.mlp = MLP.MLP(cfg, gen, device=device)
+
+
+class Transformer(nn.Module):
+    """The parameters of a whole model: ``embed``, ``layers``, ``ln_f`` and
+    (untied) ``head``, drawn from ``gen`` in that order."""
+
+    def __init__(self, cfg: ModelConfig, gen=None, *, device=None):
+        super().__init__()
+        check_ported(cfg)
+        self.cfg = cfg
+        init = dict(dtype=getattr(torch, cfg.param_dtype), device=device)
+        self.embed = nn.Parameter(
+            L.embed_init(gen, cfg.padded_vocab, cfg.d_model, **init),
+            requires_grad=False)
+        self.layers = nn.ModuleList(Block(cfg, gen, device=device)
+                                    for _ in cfg.block_kinds)
+        self.ln_f = L.Norm(cfg.d_model, cfg.norm, device=device)
+        self.head = None if cfg.tie_embeddings else L.Dense(
+            L.dense_init(gen, cfg.d_model, cfg.padded_vocab, **init))
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Transformer:
+    """Random parameters drawn on ``device`` (default: the CUDA card; raises
+    without one) from a ``torch.Generator`` seeded with ``seed``."""
+    dev = compat.resolve_device(device)
+    return Transformer(cfg, torch.Generator(device=dev).manual_seed(seed),
+                       device=dev)
+
+
+def _block_forward(p: Block, cfg: ModelConfig, kind: str, x: torch.Tensor,
+                   rot) -> torch.Tensor:
+    h = ATT.forward(p.attn, cfg, L.apply_norm(p.ln1, x, cfg.norm),
+                    local=(kind == "local"), rot=rot)
+    x = x + h
+    return x + MLP.forward(p.mlp, cfg, L.apply_norm(p.ln2, x, cfg.norm))
+
+
+def embed_inputs(params: Transformer, cfg: ModelConfig, *,
+                 tokens: torch.Tensor | None = None,
+                 features: torch.Tensor | None = None) -> torch.Tensor:
+    """Token embeddings in the activation dtype (gathered, then cast: the
+    same values as the reference's cast-then-gather)."""
+    if features is not None:
+        raise _not_ported(cfg, "frontend")
+    return params.embed[tokens.long()].to(cfg.activation_dtype)
+
+
+def forward_hidden(params: Transformer, cfg: ModelConfig, x: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run the block stack.  Returns (hidden, total aux loss), the aux loss
+    zero without MoE."""
+    rot = ATT.rotary(cfg, torch.arange(x.shape[1], device=x.device)[None, :])
+    for kind, layer in zip(cfg.block_kinds, params.layers):
+        x = _block_forward(layer, cfg, kind, x, rot)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def logits_fn(params: Transformer, cfg: ModelConfig,
+              x: torch.Tensor) -> torch.Tensor:
+    """Final norm and head; the vocabulary's padding columns are -1e30."""
+    x = L.apply_norm(params.ln_f, x, cfg.norm)
+    if cfg.tie_embeddings:
+        logits = x @ params.embed.to(x.dtype).T
+    else:
+        logits = L.dense(params.head, x)
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, L.NEG_INF)
+    return logits
+
+
+def loss_fn(params: Transformer, cfg: ModelConfig, batch: dict
+            ) -> tuple[torch.Tensor, dict]:
+    """batch keys: tokens, labels, mask? (batch-major).  Forward only."""
+    x = embed_inputs(params, cfg, tokens=batch.get("tokens"),
+                     features=batch.get("features"))
+    x, aux = forward_hidden(params, cfg, x)
+    logits = logits_fn(params, cfg, x)
+    ce = L.cross_entropy(logits, batch["labels"], batch.get("mask"))
+    loss = ce + cfg.router_aux_weight * aux
+    return loss, {"ce": ce, "aux": aux}
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
+                device=None) -> list[dict]:
+    """One KV cache per layer (``attention.init_cache``), on ``device``
+    (default: the CUDA card; raises without one)."""
+    check_ported(cfg)
+    dev = compat.resolve_device(device)
+    return [ATT.init_cache(cfg, batch, max_len, local=(kind == "local"),
+                           device=dev)
+            for kind in cfg.block_kinds]
+
+
+def decode_step(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
+                caches: list[dict], index) -> tuple[torch.Tensor, list[dict]]:
+    """One decoding step for the whole stack at position ``index`` (an int
+    or a one-element tensor); tokens (B, 1).  Every layer's cache is
+    updated in place and returned."""
+    x = embed_inputs(params, cfg, tokens=tokens)
+    index = torch.as_tensor(index, device=x.device).reshape(1).long()
+    rot = ATT.rotary(cfg, index.reshape(1, 1))
+    for kind, layer, cache in zip(cfg.block_kinds, params.layers, caches):
+        h, _ = ATT.decode_step(layer.attn, cfg,
+                               L.apply_norm(layer.ln1, x, cfg.norm), cache,
+                               index, local=(kind == "local"), rot=rot)
+        x = x + h
+        x = x + MLP.forward(layer.mlp, cfg, L.apply_norm(layer.ln2, x, cfg.norm))
+    logits = logits_fn(params, cfg, x)
+    return logits[:, 0], caches

@@ -28,7 +28,7 @@ def test_flash_path(dtype, D):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", DA.HEAD_DIMS)
 def test_decode_path(dtype, D):
-    want = "bulk" if dtype == torch.bfloat16 and D >= 64 else "simt"
+    want = "bulk" if dtype == torch.bfloat16 and D in (64, 128) else "simt"
     assert DA.kernel_path(dtype, D) == want
 
 
@@ -180,3 +180,4 @@ def test_sass_counts_and_required_instructions(tmp_path, monkeypatch):
 ])
 def test_sass_short_names(mangled, short):
     assert _chip_smoke().short_name(mangled) == short
+

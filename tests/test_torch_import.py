@@ -42,7 +42,10 @@ def test_import_loads_neither_jax_nor_repro():
                "repro_torch.core.hlo_counter, repro_torch.core.predictor, "
                "repro_torch.core.roofline, repro_torch.core.dramsim, "
                "repro_torch.core.baselines, repro_torch.core.cache, "
-               "repro_torch.paper_tables\n"
+               "repro_torch.paper_tables, repro_torch.models, "
+               "repro_torch.models.transformer, repro_torch.models.convert, "
+               "repro_torch.configs, repro_torch.configs.shapes, "
+               "repro_torch.launch.steps, repro_torch.launch.serve\n"
                "rep = repro_torch.Session(device='cpu').sweep("
                "n_ga=[1, 2, 4], chunk_size=2)\n"
                "assert rep.is_streaming and rep.n_points == 3\n"

@@ -1,0 +1,57 @@
+#!/usr/bin/env python3
+"""The model path alone, on one H100: ``python3 tools/model_phase.py``.
+
+Builds the two attention kernels, holds them against their plain versions
+at the reference's test shapes and at the zoo's other head sizes (each
+with its fault check), times the head-size cases twice
+(``chip_smoke.phase_head_sizes``), then runs ``chip_smoke.phase_model``:
+qwen2-7b's prefill, one decode step over 32,768 cached rows and the
+batched server.  A quicker loop than the whole ``chip_smoke.py`` when only
+the model path changed; prints the same JSON lines.
+"""
+from __future__ import annotations
+
+import pathlib
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "src"))
+    import chip_smoke as cs
+    from repro_torch import compat
+
+    if not torch.cuda.is_available():
+        print("model_phase: needs the CUDA card", file=sys.stderr)
+        return 2
+    print(cs.nvidia_smi(), flush=True)
+    compat.build(["decode_attention", "flash_attention"])
+    dev = torch.device("cuda")
+    attention = ("decode_attention", "flash_attention")
+    card = cs.head_size_cases(dev)
+    for c in cs.test_cases(dev) + card:
+        if c["name"] not in attention:
+            continue
+        got = c["run"]()
+        torch.cuda.synchronize()
+        want = c["plain"]()
+        sp = cs.spread(c)
+        err, _, ok = cs.compare(got, want, c["tol"], sp)
+        cs.check(ok, f"parity {c['label']}: max_abs_err {err}")
+        if c.get("fault"):
+            what, bad = cs.perturbed(c["name"], c["args"], want, c["ref"])
+            cs.check(not cs.compare(bad, want, c["tol"], sp)[2],
+                     f"{c['label']}: the tolerance does not catch: {what}")
+    cs.device_profile(lambda: torch.ones(8, device=dev).sum())  # CUPTI up
+    cs.phase_head_sizes(dev, card)
+    cs.phase_head_sizes(dev, card)
+    cs.phase_model(dev, {name: spec[0] for name, spec in cs.kernel_table().items()})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
