@@ -12,10 +12,14 @@ of the reference's 1,024,000- and 10,240,000-point grids through the
 device fold, the host fold, two worker processes and constraints, each
 held bit-equal to the others; the reference's 1m optimizer contract; then
 ``Session.validate`` over the seven card-scale kernels — and then the
-model path: qwen2-7b at full width served through ``make_prefill_step``
-(flash attention), ``make_decode_step`` over 32,768 cached rows (decode
-attention) and ``BatchedServer``, each checked against the plain
-attention path.  It times each kernel beside its bound, its plain version
+model paths, each arch at full width served through ``make_prefill_step``,
+``make_decode_step`` at depth and ``BatchedServer``, each kernel checked
+on the inputs of its first call and the logits against the plain path's:
+qwen2-7b (flash attention on prefill, decode attention over 32,768
+cached rows), recurrentgemma-9b (the RG-LRU scan and windowed flash
+attention on prefill, decode attention over the 2,048-row rings at
+``decode_32k``'s batch of 128 and at ``long_500k``) and xlstm-1.3b (the
+mLSTM kernel on prefill; its decode runs no kernel).  It times each kernel beside its bound, its plain version
 and, where one exists, the one PyTorch call that computes the same
 function.  Three phases without kernels follow: ``serve`` (the
 reference's ``serve_smoke`` traffic against
@@ -28,7 +32,8 @@ reference's results in ``tests/data/torch_hlo/``).
 
 Prints one JSON object per phase (env, build with each kernel function's
 counts of Hopper instructions in its SASS, parity, head_sizes, estimator,
-stream, optimize, validate, model, launches, serve, paper, predict);
+stream, optimize, validate, model once per arch, launches, serve, paper,
+predict);
 then the ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -86,17 +91,22 @@ PEAK_BF16_TENSOR_FLOPS = 989e12   # bf16 on the tensor cores, dense
 #:   bf16 (each within 2^-8 of |want|).  The skipped-chunk fault must fall
 #:   outside it, and the parity row prints by what factor.
 #: * the model phase's logits (``logits_check``): the kernel path and the
-#:   plain path (``use_kernels=False``) differ only inside attention, but
-#:   both round every activation of 28 layers to bf16, and once they part
+#:   plain path (``use_kernels=False``) differ only inside the kernels, but
+#:   both round every activation of every layer to bf16, and once they part
 #:   each rounding goes its own way, so no fixed bound follows from the
 #:   kernels' own.  The run measures the noise instead: the plain path run
 #:   again with f32 activations on the same weights (E).  By the triangle
 #:   inequality |kernel - plain| <= |kernel - E| + |plain - E|, and the
-#:   kernel path is no less accurate than the plain one but for one more
-#:   rounding inside attention (flash rounds P to bf16), at most half
+#:   kernel path is no less accurate than the plain one but for the
+#:   kernels' own roundings (flash rounds P to bf16, the mLSTM three
+#:   operands; the RG-LRU scan is f32 on both paths), at most half
 #:   again of the plain path's error; so |kernel - plain| <= 2.5 |plain -
 #:   E| in relative L2 over the real vocabulary.  Two bf16 paths with
 #:   independent rounding errors sit about sqrt(2) |plain - E| apart.
+#:   On prefill the same bound holds at the last position after every
+#:   layer: where a random-weight model amplifies rounding until the
+#:   final logits of its bf16 and f32 runs are unrelated (xlstm-1.3b),
+#:   the early layers still bound the kernels.
 TOL = {"membench": dict(rtol=1e-6, atol=0.0, of_max=0.0),
        "float32": dict(rtol=2e-5, atol=2e-5, of_max=0.0),
        "bfloat16": dict(rtol=2e-2, atol=2e-2, of_max=0.0),
@@ -470,15 +480,12 @@ def card_cases(device) -> list[dict]:
     """The main path's own kernel calls: each case of
     ``default_cases(small=False)``, which ``Session.validate`` times, built
     on the card and paired with its plain version on the same arguments;
-    then one flash attention call that validate does not time, at
-    recurrentgemma-9b's local-attention width (16 query heads over one KV
-    head of 256, window 2048); then the edges of the Hopper kernels'
-    tiling at the qwen2-7b width, each with its fault check: flash
-    attention over S = 4000 (ragged against the 128-key tile), plain and
-    with Gemma 2's softcap of 50 and a window of 1024, and decode attention
-    at kv_len = 32,000 (not a whole number of 16-row stages), plain and
-    with the softcap; last the zoo's other head sizes
-    (``head_size_cases``)."""
+    then the edges of the Hopper kernels' tiling at the qwen2-7b width,
+    each with its fault check: flash attention over S = 4000 (ragged
+    against the 128-key tile), plain and with Gemma 2's softcap of 50 and a
+    window of 1024, and decode attention at kv_len = 32,000 (not a whole
+    number of 16-row stages), plain and with the softcap; last the zoo's
+    other head sizes (``head_size_cases``)."""
     import torch
 
     from repro_torch.core.validate import default_cases
@@ -493,16 +500,6 @@ def card_cases(device) -> list[dict]:
             lambda p=vc.plain, a=args: p(*a),
             CARD_TOL.get(vc.name, "membench"), traffic, args=args,
             ref=vc.plain, timed=True))
-    q, k, v = (randn((1, 4096, h, 256), 51 + i, device, torch.bfloat16)
-               for i, h in enumerate((16, 1, 1)))
-    local = functools.partial(FA.attention_ref, window=2048)
-    out.append(_case(
-        "flash_attention", "recurrentgemma-9b_local_window2048_"
-        + _shapes((q, k, v)), lambda: FA.mha(q, k, v, window=2048),
-        lambda: local(q, k, v), "flash_card",
-        FA.flash_attention_traffic(q, k, v, window=2048), args=(q, k, v),
-        ref=local, timed=False))
-    # (the closures above read q, k, v late: the cases below bind their own)
     for window, cap in ((None, 0.0), (1024, 50.0)):
         qkv = tuple(randn((1, 4000, h, 128), 61 + i, device, torch.bfloat16)
                     for i, h in enumerate((28, 4, 4)))
@@ -531,27 +528,41 @@ def card_cases(device) -> list[dict]:
 
 
 def head_size_cases(device) -> list[dict]:
-    """The head sizes of the zoo other than 128, at full width, each with
-    its fault check and timed beside its bound (``phase_head_sizes``):
+    """The head sizes of the zoo other than 128, at full width, each timed
+    beside its bound (``phase_head_sizes``): recurrentgemma-9b's local
+    attention on prefill (16 query heads over one kv head of 256, window
+    2048, B 1 x S 4096: the tensor-core kernel's D = 256 instances);
     stablelm-3b (32 query and 32 kv heads of 80) prefill, B 2 x S 2048
-    (the tensor-core kernel's 128-column instance), and decode at B 8
-    over 8,192 rows; recurrentgemma-9b's local-attention decode (16 query
-    heads over one kv head of 256) at B 8 over its 2,048-row ring."""
+    (the 128-column instance), and decode at B 8 over 8,192 rows;
+    recurrentgemma-9b's local-attention decode (16 query heads over one kv
+    head of 256) at B 8 and at B 128 over its 2,048-row ring.  All but the
+    first carry a fault check."""
     import torch
 
     from repro_torch.kernels.decode_attention import ops as DA
     from repro_torch.kernels.flash_attention import ops as FA
 
+    q, k, v = (randn((1, 4096, h, 256), 51 + i, device, torch.bfloat16)
+               for i, h in enumerate((16, 1, 1)))
+    local = functools.partial(FA.attention_ref, window=2048)
+    out = [_case(
+        "flash_attention", "recurrentgemma-9b_local_window2048_"
+        + _shapes((q, k, v)), lambda: FA.mha(q, k, v, window=2048),
+        lambda: local(q, k, v), "flash_card",
+        FA.flash_attention_traffic(q, k, v, window=2048), args=(q, k, v),
+        ref=local, timed=False, head_size=True, window=2048)]
     qkv = tuple(randn((2, 2048, 32, 80), 81 + i, device, torch.bfloat16)
                 for i in range(3))
-    out = [_case("flash_attention", "stablelm-3b_prefill_" + _shapes(qkv),
+    out += [_case("flash_attention", "stablelm-3b_prefill_" + _shapes(qkv),
                  lambda a=qkv: FA.mha(*a), lambda a=qkv: FA.attention_ref(*a),
                  "flash_card", FA.flash_attention_traffic(*qkv), args=qkv,
                  ref=FA.attention_ref, timed=False, fault=True,
                  head_size=True)]
     for arch, B, S, Hq, Hkv, D, seed in (("stablelm-3b", 8, 8192, 32, 32, 80, 84),
                                          ("recurrentgemma-9b_local", 8, 2048,
-                                          16, 1, 256, 87)):
+                                          16, 1, 256, 87),
+                                         ("recurrentgemma-9b_local", 128, 2048,
+                                          16, 1, 256, 90)):
         args = (randn((B, 1, Hq, D), seed, device, torch.bfloat16),
                 randn((B, S, Hkv, D), seed + 1, device, torch.bfloat16),
                 randn((B, S, Hkv, D), seed + 2, device, torch.bfloat16),
@@ -852,32 +863,36 @@ def timed_runs(run, repeats: int = 3):
 def device_profile(run, top: int = 0) -> dict:
     """One ``run()`` under ``torch.profiler``: device kernel time over wall
     time (``busy_share``, None when the trace holds no device time), and
-    the ``top`` kernels by device time (name, ms, calls).  Only the
-    device's own events count: an operator's self device time is that of
-    the kernels it launched, which the trace holds as well."""
+    the ``top`` kernels by device time (name, ms, calls).  The trace
+    records the device's own events only (host operators would slow the
+    host the share is taken against, and their self device time repeats
+    their kernels'), and its raw events are summed as they come: building
+    the profiler's event tables takes ~0.1 ms an event, minutes for the
+    ~10^5 launches of an eager sLSTM loop."""
+    import collections
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    def device_us(e) -> float:
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and device_us(e) > 0]
-    busy_us = sum(device_us(e) for e in events)
-    events.sort(key=device_us, reverse=True)
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            row = by_name[e.name()]
+            row[0] += e.duration_ns() * 1e-3
+            row[1] += 1
+    busy_us = sum(us for us, _ in by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
     return {"busy_share": busy_us * 1e-6 / wall if busy_us > 0 else None,
             "wall_ms": wall * 1e3, "device_ms": busy_us * 1e-3,
-            "top": [(e.key[:80], device_us(e) * 1e-3, e.count)
-                    for e in events[:top]]}
+            "top": [(name[:80], us * 1e-3, n) for name, (us, n) in ranked[:top]]}
 
 
 def phase_stream(device):
@@ -1337,15 +1352,28 @@ def phase_predict(device) -> None:
           "seconds": time.perf_counter() - t_phase})
 
 
-#: The model phase: qwen2-7b at its published widths, all 28 layers, bf16
-#: activations over weights drawn from seed 0 on the card and cast once
-#: (``convert.to_serving``).  Prefill B 2 x S 4096; decode_32k with the
-#: batch cut from 128 to 8 (15.0 GB of KV cache) at its last position;
-#: the reference serve CLI's own traffic.
-MODEL_ARCH = "qwen2-7b"
-MODEL_PREFILL = (2, 4096)
-MODEL_DECODE = (8, 32768)
+#: The model phase: each arch of the zoo that the port serves, at its
+#: published widths with all its layers, bf16 activations over weights
+#: drawn from seed 0 on the card and cast once (``convert.to_serving``).
+#: Prefill is ``prefill_32k`` cut in batch 32 -> 2 and sequence 32,768 ->
+#: 4,096 (2,048 for xlstm-1.3b); decode is ``decode_32k``'s one step at its last position over
+#: states drawn from a seed, at batch 128 where the states fit (the rings
+#: and RG-LRU states of recurrentgemma-9b: 3.4 GB), cut to 8 for qwen2-7b
+#: (15.0 GB of KV cache) and to 32 for xlstm-1.3b (22.5 GB of mLSTM state);
+#: ``long_500k`` runs uncut where the arch is sub-quadratic and has a
+#: ring; the server takes the reference serve CLI's own traffic.
+MODEL_RUNS = {
+    "qwen2-7b": dict(prefill=(2, 4096), decode=(8, 32768)),
+    "recurrentgemma-9b": dict(prefill=(2, 4096), decode=(128, 32768),
+                              long=(1, 524288)),
+    # prefill cut to S 2,048: the six sLSTM layers are an eager loop over
+    # time (~0.9 s a layer at 4,096 steps), run seven times by the phase
+    "xlstm-1.3b": dict(prefill=(2, 2048), decode=(32, 32768)),
+}
 MODEL_SERVE = dict(batch_slots=4, max_len=128, requests=8, max_new=16)
+#: How the decode states are drawn (``_fill_states``).
+STATE_DRAW = ("torch.Generator(seed 1): every state tensor N(0, 1) (K/V "
+              "rows, h, conv, C, c, m), the normalizers n |N(0, 1)|")
 
 
 def _rel_l2(got, want) -> float:
@@ -1385,34 +1413,184 @@ def _weight_bytes(model) -> int:
                for name, p in model.named_parameters() if name != "embed")
 
 
-def _bound(nbytes: float, flops: float) -> dict:
+def _product_params(model) -> tuple[int, int]:
+    """(weights the layers multiply in bf16 on the tensor cores, weights
+    they multiply in f32): every dense weight and the mLSTM's per-head
+    maps; the sLSTM's input projection is f32 (``to_serving`` keeps it)."""
+    bf16 = f32 = 0
+    for name, p in model.layers.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if name.endswith("cell.w.w"):
+            f32 += p.numel()
+        elif leaf == "w" or leaf in ("wq", "wk", "wv"):
+            bf16 += p.numel()
+    return bf16, f32
+
+
+def _bound(nbytes: float, flops: float, f32_flops: float = 0.0) -> dict:
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = flops / PEAK_BF16_TENSOR_FLOPS
-    return {"bytes": nbytes, "flops": flops,
+    t_ops = flops / PEAK_BF16_TENSOR_FLOPS + f32_flops / PEAK_FP32_FLOPS
+    return {"bytes": nbytes, "flops": flops + f32_flops,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def phase_model(device, wrappers: dict) -> dict:
-    """The dense decoder served on the card through its entry points: (a)
-    ``make_prefill_step`` (K5 once a layer), (b) one ``make_decode_step``
-    at position 32,767 over seeded caches (K4 once a layer), (c)
-    ``BatchedServer`` with the reference CLI's traffic (K4 once a layer a
-    step, K5 never).  Each part is driven with every launch counter at
-    zero and read just after; the checks and timings that follow launch
-    more and are not counted.  Returns the counts by part."""
+def _state_bytes(cfg, caches, index: int) -> float:
+    """Bytes one decode step at ``index`` must move through the states: the
+    live rows of every KV cache or ring read once (and the new row
+    written), every recurrent state read and written once."""
+    total = 0.0
+    for kind, cache in zip(cfg.block_kinds, caches):
+        if kind in ("attn", "local"):
+            k = cache["k"]
+            live = min(index + 1, k.shape[1])
+            total += 2 * (live + 1) * k[:, 0].numel() * k.element_size()
+        else:
+            total += 2 * sum(t.numel() * t.element_size()
+                             for t in cache.values())
+    return total
+
+
+def _fill_states(caches, seed: int = 1) -> None:
+    """Every decode state drawn from a seed (``STATE_DRAW``)."""
+    import torch
+
+    gen = torch.Generator(device=caches[0][next(iter(caches[0]))].device)
+    gen.manual_seed(seed)
+    for cache in caches:
+        for name, t in cache.items():
+            t.normal_(generator=gen)
+            if name == "n":
+                t.abs_()
+
+
+def _snapshot(caches) -> list[dict]:
+    return [{k: t.clone() for k, t in c.items()} for c in caches]
+
+
+def _restore(caches, snap) -> None:
+    for c, s in zip(caches, snap):
+        for k, t in c.items():
+            t.copy_(s[k])
+
+
+class first_calls:
+    """Within the block, record the arguments of the first call of each
+    model-path kernel entry (``ATT.mha``, ``ATT.gqa_decode``,
+    ``REC.rglru_scan``, ``ML.chunked_mlstm``) and of ``XL.slstm_forward``
+    as the model makes it; the calls go through unchanged and are counted
+    by the wrappers as ever."""
+
+    def __init__(self):
+        from repro_torch.kernels.mlstm_chunk import ops as ML
+        from repro_torch.models import attention as ATT
+        from repro_torch.models import recurrent as REC
+        from repro_torch.models import xlstm as XL
+
+        self.sites = {"mha": ATT, "gqa_decode": ATT, "rglru_scan": REC,
+                      "chunked_mlstm": ML, "slstm_forward": XL}
+        self.calls: dict = {}
+
+    def __enter__(self):
+        self.saved = {name: getattr(mod, name)
+                      for name, mod in self.sites.items()}
+        for name, mod in self.sites.items():
+            def wrapper(*args, _name=name, **kwargs):
+                self.calls.setdefault(_name, (args, kwargs))
+                return self.saved[_name](*args, **kwargs)
+            setattr(mod, name, wrapper)
+        return self.calls
+
+    def __exit__(self, *exc):
+        for name, mod in self.sites.items():
+            setattr(mod, name, self.saved[name])
+
+
+class last_rows:
+    """Within the block, record every layer's output at the last position
+    (``TF._block_forward``), f32: where the paths of ``logits_check``
+    part along the stack."""
+
+    def __init__(self):
+        from repro_torch.models import transformer as TF
+
+        self.TF, self.rows = TF, []
+
+    def __enter__(self):
+        self.saved = self.TF._block_forward
+
+        def wrapper(*args, **kwargs):
+            out = self.saved(*args, **kwargs)
+            self.rows.append(out[:, -1].float())
+            return out
+        self.TF._block_forward = wrapper
+        return self.rows
+
+    def __exit__(self, *exc):
+        self.TF._block_forward = self.saved
+
+
+def _layer_checks(calls: dict) -> dict:
+    """Each model-path kernel on the inputs of its first call in the
+    counted run, against its plain version within its card tolerance."""
+    from repro_torch.kernels.decode_attention import ops as DA
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.mlstm_chunk import ops as ML
+    from repro_torch.kernels.rglru import ops as RG
+
+    out = {}
+    for name, (args, kw) in calls.items():
+        if name == "mha":
+            ref = functools.partial(FA.attention_ref,
+                                    causal=kw.get("causal", True),
+                                    window=kw.get("window"),
+                                    softcap=kw.get("softcap", 0.0))
+            q, k, v = args
+            row = compare(FA.mha(*args, **kw), ref(q, k, v), "flash_card",
+                          ref(q, k, v.abs()).float())
+        elif name == "gqa_decode":
+            row = compare(DA.gqa_decode(*args, **kw),
+                          DA.gqa_decode_ref(*args, **kw), "bfloat16_card")
+        elif name == "rglru_scan":
+            row = compare(RG.scan(*args), RG.rglru_scan_ref(*args),
+                          "rglru_card")
+        elif name == "chunked_mlstm":
+            row = compare(ML.chunked_mlstm(*args, **kw),
+                          ML.chunked_mlstm_ref(*args, **kw), "mlstm_card",
+                          ML.chunked_mlstm_spread(*args, **kw))
+        else:
+            continue
+        err, of_bound, ok = row
+        check(ok, f"model: the first {name} call off by {err}")
+        out[name] = {"shapes": _shapes(args), "max_abs_err": err,
+                     "err_of_bound": of_bound}
+    return out
+
+
+def phase_model(device, wrappers: dict, arch: str) -> dict:
+    """One arch of the zoo served on the card through its entry points:
+    (a) ``make_prefill_step`` (K5 once an attention layer, K6 once an
+    RG-LRU layer, K7 once an mLSTM layer), (b) one ``make_decode_step`` at
+    position 32,767 over states drawn from a seed (K4 once an attention
+    layer; the recurrent layers run no kernel), (b') the same at position
+    524,287 where the arch runs ``long_500k``, (c) ``BatchedServer`` with
+    the reference CLI's traffic (K4 once an attention layer a step).  Each
+    part is driven with every launch counter at zero and read just after;
+    each kernel is then held to its plain version on the inputs of its
+    first call (``first_calls``), and the logits to the plain path's and
+    an f32 run's (``logits_check``), with every state restored between
+    the three.  The checks and timings launch more and are not counted.
+    Returns the counts by part."""
     import dataclasses
 
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attention import ops as DA
     from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.mlstm_chunk import ops as ML
     from repro_torch.launch import serve as SERVE
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
-    from repro_torch.models import attention as ATT
-    from repro_torch.models import layers as L
     from repro_torch.models import transformer as TF
     from repro_torch.models.convert import to_serving
 
@@ -1420,24 +1598,29 @@ def phase_model(device, wrappers: dict) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_phase = time.perf_counter()
-    cfg = get_config(MODEL_ARCH)
+    runs = MODEL_RUNS[arch]
+    cfg = get_config(arch)
     plain_cfg = dataclasses.replace(cfg, use_kernels=False)
     f32_cfg = dataclasses.replace(plain_cfg, dtype="float32")
-    n, V = cfg.n_layers, cfg.vocab_size
+    V = cfg.vocab_size
+    kinds = cfg.block_kinds
+    n_attn = sum(k in ("attn", "local") for k in kinds)
     rng = np.random.default_rng(0)
 
     def zero():
         for fn in wrappers.values():
             fn.launches = 0
 
-    def counts(what: str, flash: int, decode: int) -> dict:
+    def counts(what: str, **want_nonzero) -> dict:
         got = {name: fn.launches for name, fn in wrappers.items()}
         want = dict.fromkeys(got, 0)
-        want.update(flash_attention=flash, decode_attention=decode)
-        check(got == want, f"model {what}: launches {got}, expected {want}")
+        want.update({k: v for k, v in want_nonzero.items() if v})
+        check(got == want, f"model {arch} {what}: launches {got}, "
+              f"expected {want}")
         return got
 
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = to_serving(TF.init_params(cfg, seed=0, device=device))
@@ -1447,97 +1630,140 @@ def phase_model(device, wrappers: dict) -> dict:
             "serving_bytes": sum(p.numel() * p.element_size()
                                  for p in model.parameters())}
     launches = {}
+    bf16_params, f32_params = _product_params(model)
 
     # (a) prefill
-    B, S = MODEL_PREFILL
+    t_part = time.perf_counter()
+    B, S = runs["prefill"]
+    torch.cuda.reset_peak_memory_stats()
     batch = {"tokens": torch.as_tensor(rng.integers(0, V, (B, S)),
                                        dtype=torch.int32, device=device)}
     prefill = make_prefill_step(cfg)
     zero()
-    logits = prefill(model, batch)
-    torch.cuda.synchronize()
-    launches["prefill"] = counts("prefill", flash=n, decode=0)
-    check_a = logits_check(logits, make_prefill_step(plain_cfg)(model, batch),
-                           make_prefill_step(f32_cfg)(model, batch), V,
-                           "prefill")
-    with torch.no_grad():
-        x = L.apply_norm(model.layers[0].ln1,
-                         TF.embed_inputs(model, cfg, tokens=batch["tokens"]),
-                         cfg.norm)
-        q, k, v = ATT._qkv(model.layers[0].attn, cfg, x, ATT.rotary(
-            cfg, torch.arange(S, device=device)[None]))
-        err, of_bound, ok = compare(FA.mha(q, k, v), FA.attention_ref(q, k, v),
-                                    "flash_card",
-                                    FA.attention_ref(q, k, v.abs()).float())
-    check(ok, f"model prefill: layer 0 attention off by {err}")
-    check_a.update(layer0_max_abs_err=err, layer0_err_of_bound=of_bound)
-    dense = sum(m.w.numel() for m in model.layers.modules()
-                if isinstance(m, L.Dense))
-    flops = (2.0 * B * S * dense + n * 4.0 * B * cfg.n_heads * cfg.head_dim
-             * FA.live_pairs(S, S) + 2.0 * B * cfg.d_model * cfg.padded_vocab)
+    with first_calls() as calls:
+        logits = prefill(model, batch)
+        torch.cuda.synchronize()
+    launches["prefill"] = counts(
+        "prefill", flash_attention=n_attn,
+        rglru_scan=kinds.count("rglru"), mlstm_chunk=kinds.count("mlstm"))
+    part_a = {"batch": B, "seq": S, "layers": _layer_checks(calls)}
+    rows = {}
+    for name, c in (("kernel", cfg), ("plain", plain_cfg), ("f32", f32_cfg)):
+        with last_rows() as rows[name]:
+            out = make_prefill_step(c)(model, batch)
+        if name != "kernel":
+            part_a[f"{name}_logits"] = out
+    part_a.update(logits_check(logits, part_a.pop("plain_logits"),
+                               part_a.pop("f32_logits"), V, f"{arch} prefill"))
+    # rel-L2 at the last position after each layer: kernel path vs plain
+    # path, and plain path vs its f32 run (the noise floor)
+    part_a["by_layer"] = [
+        [_rel_l2(k, p), _rel_l2(p, e)]
+        for k, p, e in zip(rows["kernel"], rows["plain"], rows["f32"])]
+    worst = max(k / f if f else (math.inf if k else 0.0)
+                for k, f in part_a["by_layer"])
+    check(len(part_a["by_layer"]) == cfg.n_layers
+          and worst <= TOL["model_logits"]["of_floor"],
+          f"{arch} prefill: a layer's output on the kernel path is "
+          f"{worst:.3g} times the plain path's distance from f32")
+    part_a["by_layer_worst_of_floor"] = worst
+    part_a["by_layer"] = [[round(k, 5), round(f, 5)]
+                          for k, f in part_a["by_layer"]]
+    del rows
+    flops = 2.0 * B * S * bf16_params
+    for kind in kinds:
+        if kind in ("attn", "local"):
+            flops += 4.0 * B * cfg.n_heads * cfg.head_dim * FA.live_pairs(
+                S, S, window=cfg.local_window if kind == "local" else None)
+    if "chunked_mlstm" in calls:
+        args, kw = calls["chunked_mlstm"]
+        flops += kinds.count("mlstm") * ML.mlstm_chunk_traffic(*args,
+                                                               **kw)["flops"]
+    flops += 2.0 * B * cfg.d_model * cfg.padded_vocab
     nbytes = (_weight_bytes(model) + B * S * cfg.d_model * 2
               + B * cfg.padded_vocab * 2)
-    part_a = {"batch": B, "seq": S,
-              "ms": time_ms(lambda: prefill(model, batch), device, iters=3,
-                            warmup=1),
-              **_bound(nbytes, flops),
-              "profile": device_profile(lambda: prefill(model, batch), top=8),
-              **check_a}
+    part_a.update(_bound(nbytes, flops, 2.0 * B * S * f32_params))
+    part_a["ms"] = time_ms(lambda: prefill(model, batch), device, iters=2,
+                           warmup=1)
     part_a["tok_per_s"] = B * S / part_a["ms"] * 1e3
-    del logits, q, k, v, x
+    part_a["profile"] = device_profile(lambda: prefill(model, batch), top=8)
+    if "slstm_forward" in calls:
+        from repro_torch.models import xlstm as XL
 
-    # (b) one decode step at depth
-    B, S = MODEL_DECODE
-    caches = TF.init_caches(cfg, B, S, device=device)
-    gen = torch.Generator(device=device).manual_seed(1)
-    for cache in caches:
-        for t in cache.values():
-            t.normal_(generator=gen)
-    tok = torch.as_tensor(rng.integers(0, V, (B, 1)), dtype=torch.int32,
-                          device=device)
-    index = torch.tensor([S - 1], device=device)
-    step = make_decode_step(cfg)
-    zero()
-    _, logits, _ = step(model, tok, caches, index)
-    torch.cuda.synchronize()
-    launches["decode"] = counts("decode", flash=0, decode=n)
-    check_b = logits_check(
-        logits, make_decode_step(plain_cfg)(model, tok, caches, index)[1],
-        make_decode_step(f32_cfg)(model, tok, caches, index)[1], V, "decode")
-    with torch.no_grad():
-        x = L.apply_norm(model.layers[0].ln1,
-                         TF.embed_inputs(model, cfg, tokens=tok), cfg.norm)
-        q, _, _ = ATT._qkv(model.layers[0].attn, cfg, x,
-                           ATT.rotary(cfg, index.reshape(1, 1)))
-        c0 = caches[0]
-        err, of_bound, ok = compare(
-            DA.gqa_decode(q, c0["k"], c0["v"], index + 1),
-            DA.gqa_decode_ref(q, c0["k"], c0["v"], index + 1), "bfloat16_card")
-    check(ok, f"model decode: layer 0 attention off by {err}")
-    check_b.update(layer0_max_abs_err=err, layer0_err_of_bound=of_bound)
-    kv = 2.0 * n * B * S * cfg.n_kv_heads * cfg.head_dim * 2
-    nbytes = (_weight_bytes(model) + kv + B * cfg.d_model * 2
-              + B * cfg.padded_vocab * 2)
-    ms = time_ms(lambda: step(model, tok, caches, index), device, iters=10,
-                 warmup=2)
-    part_b = {"batch": B, "cache_rows": S, "ms_per_step": ms,
-              "tok_per_s": B / ms * 1e3, "kv_bytes": kv,
-              "weight_bytes": _weight_bytes(model),
-              **_bound(nbytes, 2.0 * B * dense),
-              "bound_ms_model_bytes": cfg.model_bytes(
-                  B, kind="decode", batch=B, seq_len=S) / PEAK_BYTES_PER_S * 1e3,
-              "profile": device_profile(
-                  lambda: step(model, tok, caches, index), top=8),
-              "peak_bytes": torch.cuda.max_memory_allocated(), **check_b}
-    part_b["bound_tok_per_s"] = B / part_b["bound_ms"] * 1e3
-    # the profiler slows the host, so its own wall time overstates the step;
-    # the device's share of the step as timed above
-    part_b["device_share_of_step"] = part_b["profile"]["device_ms"] / ms
-    del caches, logits, q, x, c0
+        args, kw = calls["slstm_forward"]
+        one = time_ms(lambda: XL.slstm_forward(*args, **kw), device, iters=1,
+                      warmup=1)
+        part_a["slstm_loops_ms"] = one * kinds.count("slstm")
+        part_a["slstm_layers"] = kinds.count("slstm")
+    part_a["peak_bytes"] = torch.cuda.max_memory_allocated()
+    part_a["seconds"] = time.perf_counter() - t_part
+    del logits, calls, batch
     torch.cuda.empty_cache()
+
+    # (b) one decode step at depth, and (b') at the long shape
+    def decode_part(what: str, B: int, S: int) -> dict:
+        t_part = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        caches = TF.init_caches(cfg, B, S, device=device)
+        _fill_states(caches)
+        snap = _snapshot(caches)
+        tok = torch.as_tensor(rng.integers(0, V, (B, 1)), dtype=torch.int32,
+                              device=device)
+        index = torch.tensor([S - 1], device=device)
+        step = make_decode_step(cfg)
+        zero()
+        with first_calls() as calls:
+            _, logits, _ = step(model, tok, caches, index)
+            torch.cuda.synchronize()
+        launches[what] = counts(what, decode_attention=n_attn)
+        part = {"batch": B, "index": S - 1, "layers": _layer_checks(calls)}
+        runs_ = {}
+        for name, c in (("plain", plain_cfg), ("f32", f32_cfg)):
+            _restore(caches, snap)
+            runs_[name] = make_decode_step(c)(model, tok, caches, index)[1]
+        if n_attn:
+            part.update(logits_check(logits, runs_["plain"], runs_["f32"], V,
+                                     f"{arch} {what}"))
+        else:
+            # no kernel runs: use_kernels must change nothing
+            check(torch.equal(logits, runs_["plain"]),
+                  f"{arch} {what}: the plain path's logits differ from the "
+                  "kernel path's though no kernel ran")
+            part["kernel_equals_plain"] = True
+            part["rel_l2_plain_vs_f32"] = _rel_l2(runs_["plain"][..., :V],
+                                                  runs_["f32"][..., :V])
+        _restore(caches, snap)
+        del snap, runs_
+        torch.cuda.empty_cache()
+        states = _state_bytes(cfg, caches, S - 1)
+        part.update(_bound(_weight_bytes(model) + states
+                           + B * cfg.d_model * 2 + B * cfg.padded_vocab * 2,
+                           2.0 * B * bf16_params, 2.0 * B * f32_params))
+        part.update(state_bytes=states, weight_bytes=_weight_bytes(model),
+                    states_drawn=STATE_DRAW)
+        ms = time_ms(lambda: step(model, tok, caches, index), device,
+                     iters=5, warmup=2)
+        part.update(ms_per_step=ms, tok_per_s=B / ms * 1e3,
+                    bound_tok_per_s=B / part["bound_ms"] * 1e3,
+                    profile=device_profile(
+                        lambda: step(model, tok, caches, index), top=8),
+                    peak_bytes=torch.cuda.max_memory_allocated())
+        # the profiler slows the host, so its own wall time overstates the
+        # step; the device's share of the step as timed above
+        part["device_share_of_step"] = part["profile"]["device_ms"] / ms
+        part["seconds"] = time.perf_counter() - t_part
+        del caches, logits, calls
+        torch.cuda.empty_cache()
+        return part
+
+    parts = {"prefill": part_a,
+             "decode": decode_part("decode", *runs["decode"])}
+    if "long" in runs:
+        parts["long"] = decode_part("long", *runs["long"])
 
     # (c) the batched server, the reference CLI's traffic
     sv = MODEL_SERVE
+    torch.cuda.reset_peak_memory_stats()
     server = SERVE.BatchedServer(cfg, batch_slots=sv["batch_slots"],
                                  max_len=sv["max_len"], params=model,
                                  device=device)
@@ -1548,25 +1774,24 @@ def phase_model(device, wrappers: dict) -> dict:
     wall = time.perf_counter() - t0
     m = server.metrics
     steps = m["prefill_steps"] + m["decode_steps"]
-    launches["serve"] = counts("serve", flash=0, decode=n * steps)
+    launches["serve"] = counts("serve", decode_attention=n_attn * steps)
     check(all(len(r.generated) == sv["max_new"] and r.done
               and all(0 <= t < V for t in r.generated) for r in reqs),
-          "model serve: a request lacks its tokens or has one outside the "
-          "vocabulary")
-    step_bound = _bound(_weight_bytes(model)
-                        + 2.0 * n * sv["batch_slots"] * sv["max_len"]
-                        * cfg.n_kv_heads * cfg.head_dim * 2, 0.0)
-    part_c = {**sv, "seconds": wall, **m,
-              "decode_tok_per_s": m["new_tokens"] / m["decode_s"],
-              "ms_per_step": (m["prefill_s"] + m["decode_s"]) / steps * 1e3,
-              "bound_ms_per_step": step_bound["bound_ms"],
-              "bound_decode_tok_per_s": sv["batch_slots"]
-              / step_bound["bound_ms"] * 1e3,
-              "first_tokens": [r.generated[:4] for r in reqs[:2]]}
-    emit({"phase": "model", "arch": cfg.name, "init": init,
-          "prefill": part_a, "decode": part_b, "serve": part_c,
+          f"model {arch} serve: a request lacks its tokens or has one "
+          "outside the vocabulary")
+    step_bound = _bound(_weight_bytes(model) + _state_bytes(
+        cfg, server.caches, sv["max_len"] - 1), 0.0)
+    parts["serve"] = {
+        **sv, "seconds": wall, **m,
+        "decode_tok_per_s": m["new_tokens"] / m["decode_s"],
+        "ms_per_step": (m["prefill_s"] + m["decode_s"]) / steps * 1e3,
+        "bound_ms_per_step": step_bound["bound_ms"],
+        "bound_decode_tok_per_s": sv["batch_slots"]
+        / step_bound["bound_ms"] * 1e3,
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "first_tokens": [r.generated[:4] for r in reqs[:2]]}
+    emit({"phase": "model", "arch": cfg.name, "init": init, **parts,
           "launches": launches, "tolerance": TOL["model_logits"],
-          "peak_bytes": torch.cuda.max_memory_allocated(),
           "seconds": time.perf_counter() - t_phase})
     del server, model
     torch.cuda.empty_cache()
@@ -1582,8 +1807,9 @@ def time_ms(fn, device, iters=20, warmup=3) -> float:
 
 def _timing(c: dict, device) -> dict:
     """One card case's time beside its bound, its plain version and, for
-    the attention kernels, ``scaled_dot_product_attention`` (where the
-    case's masks are SDPA's: causal prefill, decode over every row).  The
+    the attention kernels, ``scaled_dot_product_attention`` (causal
+    prefill, with the window's band as a boolean mask where the case has
+    one; decode over every row).  The
     operations bound takes the peak of the unit the inputs' dtype allows:
     the tensor cores for bfloat16, the CUDA cores for float32."""
     import torch
@@ -1597,8 +1823,16 @@ def _timing(c: dict, device) -> dict:
     if c["name"] in ("decode_attention", "flash_attention"):
         qt, kt, vt = (t.transpose(1, 2) for t in c["args"][:3])
         causal = c["name"] == "flash_attention"
+        mask = None
+        if c.get("window"):
+            # SDPA has no window: the causal band as a boolean mask
+            i = torch.arange(qt.shape[2], device=device)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                                 - c["window"])
+            causal = False
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=True), device)
+            qt, kt, vt, attn_mask=mask, is_causal=causal, enable_gqa=True),
+            device)
     return {"ms": time_ms(c["run"], device),
             "plain_ms": time_ms(c["plain"], device, iters=3, warmup=1),
             "bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -1682,12 +1916,15 @@ def main() -> int:
     for name, count in main_path.items():
         check(count > 0, f"{name} was never launched on the main path")
 
-    # The model path: the dense decoder's prefill, decode and server, each
-    # part with the counts at zero just before it and read just after.
-    by_part = phase_model(device, wrappers)
-    model_path = {name: sum(part[name] for part in by_part.values())
-                  for name in wrappers}
-    launches = {"main_path": main_path, "model_path": model_path}
+    # The model paths: each arch's prefill, decode and server, each part
+    # with the counts at zero just before it and read just after.
+    launches = {"main_path": main_path}
+    by_part = {}
+    for arch in MODEL_RUNS:
+        by_part[arch] = phase_model(device, wrappers, arch)
+        launches[f"model_path/{arch}"] = {
+            name: sum(part[name] for part in by_part[arch].values())
+            for name in wrappers}
     emit({"phase": "launches", **launches, "model_path_by_part": by_part})
 
     # Serving, the paper's tables and the HLO predictor launch no kernel.

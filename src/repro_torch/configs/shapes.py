@@ -22,7 +22,6 @@ import dataclasses
 
 import torch
 
-from repro_torch.models import attention as ATT
 from repro_torch.models import transformer as TF
 from repro_torch.models.config import ModelConfig
 
@@ -102,7 +101,7 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
         return {"batch": token_batch(with_labels=False)}
     # decode / long_decode
     TF.check_ported(cfg)
-    caches = [ATT.init_cache(cfg, B, S, local=(kind == "local"), device="meta")
+    caches = [TF.block_cache(cfg, kind, B, S, device="meta")
               for kind in cfg.block_kinds]
     return {"tokens": _meta((B, 1), i32), "caches": caches,
             "index": _meta((), i32)}

@@ -38,6 +38,14 @@ BULK_SMEM = 200 * 1024
 #: CTAs each path keeps resident on an SM, for whole waves: the bulk kernel
 #: fills an SM's shared memory; the CUDA-core kernel aims at 8.
 _CTAS_PER_SM = {"bulk": 1, "simt": 8}
+#: Fewest stages a split takes where the cache has enough of them: a
+#: split writes fp32 partials of about one stage's bytes (G x D floats
+#: against 2 x 16 rows x D bf16 at G = 16), so short splits move more
+#: partials than cache.  Chosen by timing ``tools/decode_split_floor.py``
+#: on the H100 (PERF.md): recurrentgemma-9b's 2,048-row ring at B 8 and
+#: B 128 is fastest at 16 (0.044 and 0.336 ms against 0.050 and 0.450
+#: with whole waves alone), qwen2-7b's decode keeps its 33 splits.
+MIN_SPLIT_STAGES = 16
 
 
 def kernel_path(dtype: torch.dtype, D: int) -> str:
@@ -79,10 +87,13 @@ def _plan(S: int, ctas: int, sms: int, per_sm: int = 1) -> tuple[int, int]:
     """(n_split, n_stages): S in ``n_stages`` stages of ``STAGE_ROWS`` rows,
     dealt to ``n_split`` splits of whole stages (:func:`split_rows`).  With
     ``ctas`` CTAs per split, ``n_split`` is the least count that fills whole
-    waves of ``sms * per_sm`` CTAs, or every stage where S has fewer."""
+    waves of ``sms * per_sm`` CTAs, or, where S is too short for splits of
+    ``MIN_SPLIT_STAGES`` stages each, as many such splits as S holds (at
+    least one)."""
     n_stages = -(-S // STAGE_ROWS)
     slots = sms * per_sm
-    return min(slots // math.gcd(slots, ctas), n_stages), n_stages
+    return (min(slots // math.gcd(slots, ctas),
+                max(1, n_stages // MIN_SPLIT_STAGES)), n_stages)
 
 
 def split_rows(n_split: int, n_stages: int, S: int) -> list[tuple[int, int]]:

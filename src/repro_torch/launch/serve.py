@@ -5,10 +5,14 @@ finished sequences free their slot, which is refilled at once while the
 rest of the batch keeps decoding.  A newcomer's prompt is fed one token a
 step through the shared decode step (prefill by decode), with one shared
 position index for the batch, as in the reference; steps that emit no
-token are timed apart from the decode clock (``metrics``).
+token are timed apart from the decode clock (``metrics``).  A refilled
+slot keeps the recurrent state its last request left (the reference's
+semantics: nothing resets it), which the attention caches hide behind
+the position index and the RG-LRU, mLSTM and sLSTM states do not.
 
     python -m repro_torch.launch.serve --arch qwen2-7b          # the card
-    python -m repro_torch.launch.serve --arch qwen2-7b --local --device cpu
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b
+    python -m repro_torch.launch.serve --arch xlstm-1.3b --local --device cpu
 """
 from __future__ import annotations
 

@@ -10,10 +10,13 @@ and every bias are kept as they are.  The port's module names are the
 reference's dict keys, so a leaf's path is its name.
 
 ``to_serving`` casts, once, exactly the tensors the reference casts at use
-(dense weights and biases, and the embedding) to the activation dtype, and
-leaves the norms in f32: every product sees the same inputs as the
-reference's, the weights take half the memory in bf16 (15.2 GB for
-qwen2-7b instead of 30.5), and no step re-casts them.
+to the activation dtype: dense weights and biases, the embedding, and the
+tensors a module names in ``serving_cast`` (the temporal convs, the
+mLSTM's per-head maps).  It leaves f32 what the reference uses in f32:
+the norms, the RG-LRU's gates and ``lam``, and the sLSTM's input
+projection, bias and recurrent weights.  Every product sees the same
+inputs as the reference's, the weights take half the memory in bf16 (15.2
+GB for qwen2-7b instead of 30.5), and no step re-casts them.
 """
 from __future__ import annotations
 
@@ -65,12 +68,14 @@ def load(cfg: ModelConfig, state_dict: dict, *, device=None) -> Transformer:
 
 
 def to_serving(model: Transformer) -> Transformer:
-    """Cast every dense weight and bias, and the embedding, to the
-    activation dtype in place, once; the norms stay f32."""
+    """Cast what the reference casts at use (the module note) to the
+    activation dtype in place, once; the rest stays f32."""
     dt = model.cfg.activation_dtype
     for mod in model.modules():
-        if isinstance(mod, L.Dense):
-            for p in mod.parameters(recurse=False):
-                p.data = p.data.to(dt)
+        params = (list(mod.parameters(recurse=False))
+                  if isinstance(mod, L.Dense) else
+                  [getattr(mod, name) for name in getattr(mod, "serving_cast", ())])
+        for p in params:
+            p.data = p.data.to(dt)
     model.embed.data = model.embed.data.to(dt)
     return model

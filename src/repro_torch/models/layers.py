@@ -253,6 +253,35 @@ def dense_attention(q, k, v, *, causal: bool = True, window: int | None = None,
 
 
 # ---------------------------------------------------------------------------
+# the affine scan (the reference's associative_scan)
+# ---------------------------------------------------------------------------
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """even[0], odd[0], even[1], ... along axis 1 (even may be one longer)."""
+    n = odd.shape[1]
+    both = torch.stack([even[:, :n], odd], 2).flatten(1, 2)
+    return torch.cat([both, even[:, n:]], 1) if even.shape[1] > n else both
+
+
+def associative_scan(a: torch.Tensor, b: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The inclusive scan along axis 1 of the affine pairs (a_t, b_t) under
+    (a1, b1), (a2, b2) -> (a1 a2, a2 b1 + b2): (prod a, h) with h_t = a_t
+    h_{t-1} + b_t.  The recursion of ``jax.lax.associative_scan`` (pairs
+    combined, the half scanned, the evens filled in): about 2 log2 S
+    elementwise passes, no loop over S."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    oa, ob = associative_scan(a[:, 1::2] * a[:, 0:-1:2],
+                              a[:, 1::2] * b[:, 0:-1:2] + b[:, 1::2])
+    m = a[:, 2::2].shape[1]
+    ea = torch.cat([a[:, :1], oa[:, :m] * a[:, 2::2]], 1)
+    eb = torch.cat([b[:, :1], a[:, 2::2] * ob[:, :m] + b[:, 2::2]], 1)
+    return _interleave(ea, oa), _interleave(eb, ob)
+
+
+# ---------------------------------------------------------------------------
 # losses
 # ---------------------------------------------------------------------------
 

@@ -7,12 +7,12 @@ config as the reference's do.  The parameters are one ``nn.Module``,
 :class:`Transformer`, with one ``layers`` entry per layer in
 ``cfg.block_kinds`` order where the reference stacks each pattern group on
 a leading axis and scans it (``convert.from_reference`` maps one onto the
-other).  Decode updates each layer's cache in place.
+other).  Decode updates each layer's cache or recurrent state in place.
 
-This slice runs the dense decoder: ``attn`` and ``local`` blocks with the
-MLP.  The recurrent blocks, MoE and the audio/vision frontends are later
-slices of the port (ROADMAP, Queue 1, item 1) and raise
-``NotImplementedError``.
+Every block kind runs: ``attn``/``local`` (attention and the MLP),
+``rglru`` (the RG-LRU block and the MLP), ``mlstm`` and ``slstm`` (with its
+plain gelu FFN).  MoE and the audio/vision frontends are later slices of
+the port (ROADMAP, Queue 1, item 1) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,13 +23,12 @@ from repro_torch import compat
 from repro_torch.models import attention as ATT
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as MLP
+from repro_torch.models import recurrent as REC
+from repro_torch.models import xlstm as XL
 from repro_torch.models.config import ModelConfig
 
 #: The ROADMAP item (Queue 1, item 1) that brings each part not yet ported.
 NOT_PORTED = {
-    "rglru": "recurrentgemma-9b (K6), the next model slice",
-    "mlstm": "xlstm-1.3b (K7), a later model slice",
-    "slstm": "xlstm-1.3b (K7), a later model slice",
     "moe": "the MoE slice",
     "frontend": "the audio/VLM slice",
 }
@@ -43,24 +42,53 @@ def _not_ported(cfg: ModelConfig, what: str):
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config this slice cannot run."""
-    for kind in cfg.block_kinds:
-        if kind not in ("attn", "local"):
-            raise _not_ported(cfg, kind)
     if cfg.is_moe:
         raise _not_ported(cfg, "moe")
     if cfg.frontend:
         raise _not_ported(cfg, "frontend")
 
 
-class Block(nn.Module):
-    """``attn``/``local`` block: pre-norm attention and MLP, residuals."""
+class FFN(nn.Module):
+    """The sLSTM block's plain two-layer gelu FFN: ``wi``, ``wo``."""
 
-    def __init__(self, cfg: ModelConfig, gen=None, *, device=None):
+    def __init__(self, cfg: ModelConfig, d_ff: int, gen=None, *, device=None):
         super().__init__()
-        self.ln1 = L.Norm(cfg.d_model, cfg.norm, device=device)
-        self.attn = ATT.Attention(cfg, gen, device=device)
-        self.ln2 = L.Norm(cfg.d_model, cfg.norm, device=device)
-        self.mlp = MLP.MLP(cfg, gen, device=device)
+        init = dict(dtype=getattr(torch, cfg.param_dtype), device=device)
+        self.wi = L.Dense(L.dense_init(gen, cfg.d_model, d_ff, **init))
+        self.wo = L.Dense(L.dense_init(gen, d_ff, cfg.d_model, **init))
+
+
+def _ffn(p: FFN, x: torch.Tensor) -> torch.Tensor:
+    return L.dense(p.wo, L.activate(L.dense(p.wi, x), "gelu"))
+
+
+class Block(nn.Module):
+    """One layer of kind ``kind``, with the reference's parameter names:
+    ``attn``/``local``: ``ln1``, ``attn``, ``ln2``, ``mlp``; ``rglru``:
+    ``ln1``, ``rec``, ``ln2``, ``mlp``; ``mlstm``: ``ln1``, ``cell``;
+    ``slstm``: ``ln1``, ``cell``, ``ln2``, ``ffn``."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, gen=None, *, device=None):
+        super().__init__()
+        dev = dict(device=device)
+        self.ln1 = L.Norm(cfg.d_model, cfg.norm, **dev)
+        if kind in ("attn", "local"):
+            self.attn = ATT.Attention(cfg, gen, **dev)
+        elif kind == "rglru":
+            self.rec = REC.Recurrent(cfg, gen, **dev)
+        elif kind == "mlstm":
+            self.cell = XL.MLSTM(cfg, gen, **dev)
+            return
+        elif kind == "slstm":
+            self.cell = XL.SLSTM(cfg, gen, **dev)
+            self.ln2 = L.Norm(cfg.d_model, cfg.norm, **dev)
+            self.ffn = FFN(cfg, int(cfg.d_model * cfg.slstm_proj_factor), gen,
+                           **dev)
+            return
+        else:
+            raise ValueError(kind)
+        self.ln2 = L.Norm(cfg.d_model, cfg.norm, **dev)
+        self.mlp = MLP.MLP(cfg, gen, **dev)
 
 
 class Transformer(nn.Module):
@@ -75,8 +103,8 @@ class Transformer(nn.Module):
         self.embed = nn.Parameter(
             L.embed_init(gen, cfg.padded_vocab, cfg.d_model, **init),
             requires_grad=False)
-        self.layers = nn.ModuleList(Block(cfg, gen, device=device)
-                                    for _ in cfg.block_kinds)
+        self.layers = nn.ModuleList(Block(cfg, kind, gen, device=device)
+                                    for kind in cfg.block_kinds)
         self.ln_f = L.Norm(cfg.d_model, cfg.norm, device=device)
         self.head = None if cfg.tie_embeddings else L.Dense(
             L.dense_init(gen, cfg.d_model, cfg.padded_vocab, **init))
@@ -92,10 +120,51 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Transformer:
 
 def _block_forward(p: Block, cfg: ModelConfig, kind: str, x: torch.Tensor,
                    rot) -> torch.Tensor:
-    h = ATT.forward(p.attn, cfg, L.apply_norm(p.ln1, x, cfg.norm),
-                    local=(kind == "local"), rot=rot)
-    x = x + h
+    """One full-sequence layer; ``rot``: the RoPE tables of attention."""
+    h = L.apply_norm(p.ln1, x, cfg.norm)
+    if kind in ("attn", "local"):
+        x = x + ATT.forward(p.attn, cfg, h, local=(kind == "local"), rot=rot)
+    elif kind == "rglru":
+        x = x + REC.forward(p.rec, cfg, h)
+    elif kind == "mlstm":
+        return x + XL.mlstm_forward(p.cell, cfg, h)
+    else:
+        x = x + XL.slstm_forward(p.cell, cfg, h)
+        return x + _ffn(p.ffn, L.apply_norm(p.ln2, x, cfg.norm))
     return x + MLP.forward(p.mlp, cfg, L.apply_norm(p.ln2, x, cfg.norm))
+
+
+def _block_decode(p: Block, cfg: ModelConfig, kind: str, x: torch.Tensor,
+                  cache: dict, index: torch.Tensor, rot) -> torch.Tensor:
+    """One layer of a decode step; ``cache`` is updated in place."""
+    h = L.apply_norm(p.ln1, x, cfg.norm)
+    if kind in ("attn", "local"):
+        x = x + ATT.decode_step(p.attn, cfg, h, cache, index,
+                                local=(kind == "local"), rot=rot)[0]
+    elif kind == "rglru":
+        x = x + REC.decode_step(p.rec, cfg, h, cache)[0]
+    elif kind == "mlstm":
+        return x + XL.mlstm_decode_step(p.cell, cfg, h, cache)[0]
+    else:
+        x = x + XL.slstm_decode_step(p.cell, cfg, h, cache)[0]
+        return x + _ffn(p.ffn, L.apply_norm(p.ln2, x, cfg.norm))
+    return x + MLP.forward(p.mlp, cfg, L.apply_norm(p.ln2, x, cfg.norm))
+
+
+def block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, *,
+                device=None) -> dict:
+    """One layer's decode state: a KV cache (``attn``; a ring of
+    ``local_window`` rows for ``local``), or the recurrent state."""
+    if kind in ("attn", "local"):
+        return ATT.init_cache(cfg, batch, max_len, local=(kind == "local"),
+                              device=device)
+    if kind == "rglru":
+        return REC.init_state(cfg, batch, device=device)
+    if kind == "mlstm":
+        return XL.mlstm_init_state(cfg, batch, device=device)
+    if kind == "slstm":
+        return XL.slstm_init_state(cfg, batch, device=device)
+    raise ValueError(kind)
 
 
 def embed_inputs(params: Transformer, cfg: ModelConfig, *,
@@ -108,11 +177,16 @@ def embed_inputs(params: Transformer, cfg: ModelConfig, *,
     return params.embed[tokens.long()].to(cfg.activation_dtype)
 
 
+def _rotary(cfg: ModelConfig, positions: torch.Tensor):
+    """RoPE tables once a step, for a config with attention blocks."""
+    return ATT.rotary(cfg, positions) if cfg.has_attention else None
+
+
 def forward_hidden(params: Transformer, cfg: ModelConfig, x: torch.Tensor
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the block stack.  Returns (hidden, total aux loss), the aux loss
     zero without MoE."""
-    rot = ATT.rotary(cfg, torch.arange(x.shape[1], device=x.device)[None, :])
+    rot = _rotary(cfg, torch.arange(x.shape[1], device=x.device)[None, :])
     for kind, layer in zip(cfg.block_kinds, params.layers):
         x = _block_forward(layer, cfg, kind, x, rot)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -146,28 +220,23 @@ def loss_fn(params: Transformer, cfg: ModelConfig, batch: dict
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
                 device=None) -> list[dict]:
-    """One KV cache per layer (``attention.init_cache``), on ``device``
-    (default: the CUDA card; raises without one)."""
+    """One decode state per layer (``block_cache``), on ``device`` (default:
+    the CUDA card; raises without one)."""
     check_ported(cfg)
     dev = compat.resolve_device(device)
-    return [ATT.init_cache(cfg, batch, max_len, local=(kind == "local"),
-                           device=dev)
+    return [block_cache(cfg, kind, batch, max_len, device=dev)
             for kind in cfg.block_kinds]
 
 
 def decode_step(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
                 caches: list[dict], index) -> tuple[torch.Tensor, list[dict]]:
     """One decoding step for the whole stack at position ``index`` (an int
-    or a one-element tensor); tokens (B, 1).  Every layer's cache is
-    updated in place and returned."""
+    or a one-element tensor); tokens (B, 1).  Every layer's cache or state
+    is updated in place and returned."""
     x = embed_inputs(params, cfg, tokens=tokens)
     index = torch.as_tensor(index, device=x.device).reshape(1).long()
-    rot = ATT.rotary(cfg, index.reshape(1, 1))
+    rot = _rotary(cfg, index.reshape(1, 1))
     for kind, layer, cache in zip(cfg.block_kinds, params.layers, caches):
-        h, _ = ATT.decode_step(layer.attn, cfg,
-                               L.apply_norm(layer.ln1, x, cfg.norm), cache,
-                               index, local=(kind == "local"), rot=rot)
-        x = x + h
-        x = x + MLP.forward(layer.mlp, cfg, L.apply_norm(layer.ln2, x, cfg.norm))
+        x = _block_decode(layer, cfg, kind, x, cache, index, rot)
     logits = logits_fn(params, cfg, x)
     return logits[:, 0], caches

@@ -5,6 +5,7 @@ an H100's 132 SMs), how many kv heads a bulk-copy CTA covers, and the
 build phase's count of Hopper instructions in a kernel's SASS.  The kernels
 themselves run only on the card (``chip_smoke.py``)."""
 import importlib.util
+import math
 import pathlib
 
 import pytest
@@ -57,18 +58,34 @@ def test_decode_plan_covers_the_cache_in_whole_stages(S, ctas, per_sm):
 
 @pytest.mark.parametrize("S,ctas,per_sm", PLANS)
 def test_decode_plan_fills_whole_waves(S, ctas, per_sm):
+    """Whole waves where S is long enough; else as many splits of at
+    least ``MIN_SPLIT_STAGES`` stages as S holds."""
     n_split, n_stages = DA._plan(S, ctas, H100_SMS, per_sm)
     slots = H100_SMS * per_sm
-    if n_split < n_stages:
+    whole = slots // math.gcd(slots, ctas)
+    if n_split == whole:
         assert (ctas * n_split) % slots == 0
-    else:  # fewer stages than a whole wave needs: every stage its own split
-        assert n_split == n_stages
+    else:
+        assert n_split == max(1, n_stages // DA.MIN_SPLIT_STAGES) < whole
+    assert n_split == 1 or n_stages // n_split >= DA.MIN_SPLIT_STAGES
 
 
 def test_decode_plan_at_qwen2_7b_decode():
     """B = 8 CTAs per split: 33 splits give 264 CTAs, two full waves."""
     assert DA._plan(32768, 8, H100_SMS) == (33, 2048)
     assert DA.heads_per_cta(4, 128) == 4
+
+
+@pytest.mark.parametrize("B", [8, 128])
+def test_decode_plan_at_recurrentgemma_ring(B):
+    """recurrentgemma-9b's 2,048-row ring (128 stages) on the CUDA-core
+    kernel (D = 256, 16 query heads: two head chunks a kv head): splits of
+    at least ``MIN_SPLIT_STAGES`` stages, where whole waves would deal
+    66 (B 8) or 33 (B 128) splits of 2-4 stages."""
+    ctas = B * 1 * 2
+    n_split, n_stages = DA._plan(2048, ctas, H100_SMS, 8)
+    assert n_stages == 128
+    assert n_split == min({8: 66, 128: 33}[B], 128 // DA.MIN_SPLIT_STAGES)
 
 
 @pytest.mark.parametrize("Hkv,D,want", [(4, 128, 4), (8, 128, 4), (1, 64, 1),

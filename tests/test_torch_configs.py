@@ -142,3 +142,62 @@ def test_input_specs_match_reference(arch, shape):
         assert tuple(cache["k"].shape) == tuple(stacked[1:])
         assert cache["v"].shape == cache["k"].shape
         assert cache["k"].device.type == "meta"
+
+
+RECURRENT = ["recurrentgemma-9b", "xlstm-1.3b"]
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_state_dict_loads_strictly(arch):
+    """Stacked 3-D leaves (the mLSTM's per-head maps) and the unscanned
+    ``rest`` layers land on their layers."""
+    rcfg = ref_reduced(REF_ARCHS[arch], layers_scale=2)
+    params = REF_TF.init_params(jax.random.PRNGKey(0), rcfg)
+    model = load(reduced_config(ARCHS[arch], layers_scale=2),
+                 from_reference(params, rcfg), device="cpu")
+    n = len(rcfg.block_pattern)
+    if arch == "xlstm-1.3b":
+        got = model.layers[n + 1].cell.wq
+        want = params["groups"]["b1"]["cell"]["wq"][1]
+        assert got.dim() == 3 and model.layers[n + 1].cell.down.w.dim() == 3
+    else:
+        got = model.layers[-1].rec.lam
+        want = params["rest"][1]["rec"]["lam"]
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_full_width_parameters_match_reference_tree(arch):
+    with torch.device("meta"):
+        model = Transformer(ARCHS[arch])
+    ref = jax.eval_shape(lambda: REF_TF.init_params(jax.random.PRNGKey(0),
+                                                    REF_ARCHS[arch]))
+    assert sum(p.numel() for p in model.parameters()) == _tree_size(ref)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+@pytest.mark.parametrize("shape", ["decode_32k", "long_500k"])
+def test_recurrent_input_specs_match_reference(arch, shape):
+    """Decode inputs hold each layer's state on the meta device in
+    ``init_caches``' layout, shaped and typed as the reference's abstract
+    caches (layer g * len(pattern) + j is the stacked group's b{j} at
+    index g, then ``rest``): the rings of ``local_window`` rows, the
+    RG-LRU's h and conv, the mLSTM's C and n, the sLSTM's c, n, h, m and
+    conv (bf16, the full config's activation dtype)."""
+    cfg, spec = ARCHS[arch], SHAPES[shape]
+    got = input_specs(cfg, spec)["caches"]
+    want = ref_input_specs(REF_ARCHS[arch], REF_SHAPES[shape])["caches"]
+    n = len(cfg.block_pattern)
+    assert len(got) == cfg.n_layers
+    for i, state in enumerate(got):
+        g, j = divmod(i, n)
+        ref = (jax.tree.map(lambda a: (a.shape[1:], a.dtype),
+                            want["groups"][f"b{j}"])
+               if g < cfg.pattern_repeats else
+               jax.tree.map(lambda a: (a.shape, a.dtype),
+                            want["rest"][i - n * cfg.pattern_repeats]))
+        assert set(state) == set(ref)
+        for key, t in state.items():
+            assert t.device.type == "meta" and t.shape[0] == spec.global_batch
+            assert (tuple(t.shape), str(t.dtype).split(".")[-1]) == \
+                (tuple(ref[key][0]), str(ref[key][1]))

@@ -44,6 +44,7 @@ def test_import_loads_neither_jax_nor_repro():
                "repro_torch.core.baselines, repro_torch.core.cache, "
                "repro_torch.paper_tables, repro_torch.models, "
                "repro_torch.models.transformer, repro_torch.models.convert, "
+               "repro_torch.models.recurrent, repro_torch.models.xlstm, "
                "repro_torch.configs, repro_torch.configs.shapes, "
                "repro_torch.launch.steps, repro_torch.launch.serve\n"
                "rep = repro_torch.Session(device='cpu').sweep("

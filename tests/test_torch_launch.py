@@ -1,9 +1,12 @@
 """The port's serving layer (``repro_torch.launch``) against the
 reference's on the CPU: the reference CLI's traffic (4 slots, max_len 128,
 8 requests of 8-token prompts from numpy's seed 0, 16 new tokens each)
-through both ``BatchedServer``s on the reduced qwen2-7b in f32 with the
-same converted weights gives the same tokens, and the prefill/decode
-clock split holds as in the reference's own test."""
+through both ``BatchedServer``s on the reduced qwen2-7b, recurrentgemma-9b
+and xlstm-1.3b in f32 with the same converted weights gives the same
+tokens, and the prefill/decode clock split holds as in the reference's own
+test.  Neither server resets a slot's recurrent state when it refills the
+slot, so the second wave of four requests starts from the first wave's
+state in both."""
 import dataclasses
 import time
 
@@ -28,9 +31,9 @@ def _f32(cfg):
     return dataclasses.replace(cfg, dtype="float32")
 
 
-def test_served_tokens_equal_the_reference_servers():
-    rcfg = _f32(ref_reduced(REF_ARCHS["qwen2-7b"]))
-    cfg = _f32(reduced_config(ARCHS["qwen2-7b"]))
+def _served_tokens_equal(arch):
+    rcfg = _f32(ref_reduced(REF_ARCHS[arch]))
+    cfg = _f32(reduced_config(ARCHS[arch]))
     params = REF_TF.init_params(jax.random.PRNGKey(0), rcfg)
     ref = REF_SERVE.BatchedServer(rcfg, make_host_mesh(), batch_slots=4,
                                   max_len=128, params=params)
@@ -46,6 +49,15 @@ def test_served_tokens_equal_the_reference_servers():
     assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated)
     for key in ("prefill_steps", "decode_steps", "new_tokens"):
         assert port.metrics[key] == ref.metrics[key], key
+
+
+def test_served_tokens_equal_the_reference_servers():
+    _served_tokens_equal("qwen2-7b")
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-1.3b"])
+def test_recurrent_served_tokens_equal_the_reference_servers(arch):
+    _served_tokens_equal(arch)
 
 
 def test_prefill_step_logits_match_the_forward():

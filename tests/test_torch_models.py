@@ -44,7 +44,10 @@ F32_TOL, BF16_TOL, DECODE_TOL = 2e-5, 2e-2, 1e-4
 
 
 def _perturb(params, seed=1):
-    """Every bias and norm parameter redrawn from a numpy seed."""
+    """Every bias and norm parameter redrawn from a numpy seed, and the
+    recurrent blocks' zero-initialized gates (the RG-LRU's ``gate_r`` and
+    ``gate_i``, the sLSTM's ``r``): with zero gates r = i = 1/2 whatever
+    the input, and a port that ignored the input there would pass."""
     rng = np.random.default_rng(seed)
 
     def leaf(path, x):
@@ -54,6 +57,8 @@ def _perturb(params, seed=1):
             return (0.1 * rng.standard_normal(x.shape)).astype(x.dtype)
         if name == "scale":
             return (1.0 + 0.1 * rng.standard_normal(x.shape)).astype(x.dtype)
+        if name in ("gate_r", "gate_i", "r"):
+            return (0.5 * rng.standard_normal(x.shape)).astype(x.dtype)
         return x
     return jax.tree_util.tree_map_with_path(leaf, params)
 
@@ -196,18 +201,45 @@ def test_loss_matches_reference(arch):
     np.testing.assert_allclose(float(got_m["ce"]), float(want_m["ce"]), rtol=1e-5)
 
 
+#: Parameters the reference uses in f32 whatever the activation dtype: the
+#: norms, the RG-LRU's gates and Lambda, the sLSTM's input projection
+#: (``u.astype(f32) @ w.astype(f32) + b``) and its recurrent weights.
+KEPT_F32 = ("scale", "bias", "gate_r", "gate_i", "lam", "cell.w.w", "cell.b",
+            "cell.r")
+
+
+def _to_serving_casts_what_the_reference_casts_at_use(arch):
+    cfg = reduced_config(ARCHS[arch], layers_scale=2)
+    model = to_serving(TF.init_params(cfg, device="cpu"))
+    dtypes = {n: p.dtype for n, p in model.named_parameters()}
+    kept = {n for n in dtypes if n.endswith(KEPT_F32)}
+    assert kept and {dtypes[n] for n in kept} == {torch.float32}
+    assert {dtypes[n] for n in set(dtypes) - kept} == {torch.bfloat16}
+    cast = {n.split(".", 2)[-1] for n in set(dtypes) - kept}
+    want = {"qwen2-7b": {"attn.wq.w", "attn.wq.b", "mlp.wi.w", "mlp.wo.w"},
+            "recurrentgemma-9b": {"rec.wx.w", "rec.wgate.w", "rec.conv",
+                                  "rec.wo.w", "attn.wk.w", "mlp.wg.w"},
+            "xlstm-1.3b": {"cell.up.w", "cell.up_gate.w", "cell.wif.w",
+                           "cell.wq", "cell.wk", "cell.wv", "cell.down.w",
+                           "cell.conv", "ffn.wi.w", "ffn.wo.w"}}[arch]
+    assert want <= cast, want - cast
+    kept_want = {"qwen2-7b": {"ln1.scale", "ln2.scale"},
+                 "recurrentgemma-9b": {"rec.gate_r", "rec.gate_i", "rec.lam"},
+                 "xlstm-1.3b": {"cell.w.w", "cell.b", "cell.r",
+                                "cell.ln_heads.scale", "ln1.bias"}}[arch]
+    assert kept_want <= {n.split(".", 2)[-1] for n in kept}
+
+
 def test_to_serving_casts_what_the_reference_casts_at_use():
-    model = _port_model("qwen2-7b", "bfloat16")
-    dense = {n: p.dtype for n, p in model.named_parameters()
-             if n.split(".")[-1] in ("w", "b") or n == "embed"}
-    norms = {n: p.dtype for n, p in model.named_parameters()
-             if n.split(".")[-1] in ("scale", "bias")}
-    assert dense and set(dense.values()) == {torch.bfloat16}
-    assert norms and set(norms.values()) == {torch.float32}
+    _to_serving_casts_what_the_reference_casts_at_use("qwen2-7b")
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-1.3b",
-                                  "qwen3-moe-235b-a22b", "hubert-xlarge"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-1.3b"])
+def test_to_serving_keeps_f32_what_the_reference_uses_in_f32(arch):
+    _to_serving_casts_what_the_reference_casts_at_use(arch)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "hubert-xlarge"])
 def test_later_slices_raise(arch):
     cfg = reduced_config(ARCHS[arch])
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""The model path alone, on one H100: ``python3 tools/model_phase.py``.
+"""The model path alone, on one H100: ``python3 tools/model_phase.py
+[arch ...]`` (default: every arch of ``chip_smoke.MODEL_RUNS``).
 
-Builds the two attention kernels, holds them against their plain versions
-at the reference's test shapes and at the zoo's other head sizes (each
-with its fault check), times the head-size cases twice
-(``chip_smoke.phase_head_sizes``), then runs ``chip_smoke.phase_model``:
-qwen2-7b's prefill, one decode step over 32,768 cached rows and the
-batched server.  A quicker loop than the whole ``chip_smoke.py`` when only
-the model path changed; prints the same JSON lines.
+Builds the four model-path kernels (decode and flash attention, the
+RG-LRU scan, the mLSTM), holds the two attention kernels against their
+plain versions at the reference's test shapes and at the zoo's other head
+sizes (each with its fault check), times the head-size cases
+(``chip_smoke.phase_head_sizes``), then runs ``chip_smoke.phase_model``
+for each arch: prefill, one decode step at depth (and at the long shape
+where the arch runs it) and the batched server.  A quicker loop than the
+whole ``chip_smoke.py`` when only the model path changed; prints the same
+JSON lines.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
 
     sys.path.insert(0, str(ROOT))
@@ -28,8 +31,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("model_phase: needs the CUDA card", file=sys.stderr)
         return 2
+    archs = argv or list(cs.MODEL_RUNS)
     print(cs.nvidia_smi(), flush=True)
-    compat.build(["decode_attention", "flash_attention"])
+    compat.build(["decode_attention", "flash_attention", "rglru",
+                  "mlstm_chunk"])
     dev = torch.device("cuda")
     attention = ("decode_attention", "flash_attention")
     card = cs.head_size_cases(dev)
@@ -48,10 +53,12 @@ def main() -> int:
                      f"{c['label']}: the tolerance does not catch: {what}")
     cs.device_profile(lambda: torch.ones(8, device=dev).sum())  # CUPTI up
     cs.phase_head_sizes(dev, card)
-    cs.phase_head_sizes(dev, card)
-    cs.phase_model(dev, {name: spec[0] for name, spec in cs.kernel_table().items()})
+    del card
+    wrappers = {name: spec[0] for name, spec in cs.kernel_table().items()}
+    for arch in archs:
+        cs.phase_model(dev, wrappers, arch)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
