@@ -18,8 +18,14 @@ on the inputs of its first call and the logits against the plain path's:
 qwen2-7b (flash attention on prefill, decode attention over 32,768
 cached rows), recurrentgemma-9b (the RG-LRU scan and windowed flash
 attention on prefill, decode attention over the 2,048-row rings at
-``decode_32k``'s batch of 128 and at ``long_500k``) and xlstm-1.3b (the
-mLSTM kernel on prefill; its decode runs no kernel).  It times each kernel beside its bound, its plain version
+``decode_32k``'s batch of 128 and at ``long_500k``), xlstm-1.3b (the
+mLSTM kernel on prefill; its decode runs no kernel), qwen3-moe-235b-a22b
+as one chip's share of its expert-parallel deployment (8 of 128 experts,
+47 of 94 layers; flash attention on prefill, decode attention over
+32,768 rows, the MoE routing recorded), hubert-xlarge (non-causal flash
+attention on its feature rows; an encoder, prefill only) and
+internvl2-2b (flash attention over patch rows and text, decode attention
+at B 16).  It times each kernel beside its bound, its plain version
 and, where one exists, the one PyTorch call that computes the same
 function.  Three phases without kernels follow: ``serve`` (the
 reference's ``serve_smoke`` traffic against
@@ -528,15 +534,18 @@ def card_cases(device) -> list[dict]:
 
 
 def head_size_cases(device) -> list[dict]:
-    """The head sizes of the zoo other than 128, at full width, each timed
-    beside its bound (``phase_head_sizes``): recurrentgemma-9b's local
-    attention on prefill (16 query heads over one kv head of 256, window
-    2048, B 1 x S 4096: the tensor-core kernel's D = 256 instances);
-    stablelm-3b (32 query and 32 kv heads of 80) prefill, B 2 x S 2048
-    (the 128-column instance), and decode at B 8 over 8,192 rows;
-    recurrentgemma-9b's local-attention decode (16 query heads over one kv
-    head of 256) at B 8 and at B 128 over its 2,048-row ring.  All but the
-    first carry a fault check."""
+    """The zoo's other head sizes and head groups, at full width, each
+    timed beside its bound (``phase_head_sizes``): recurrentgemma-9b's
+    local attention on prefill (16 query heads over one kv head of 256,
+    window 2048, B 1 x S 4096: the tensor-core kernel's D = 256
+    instances); stablelm-3b (32 query and 32 kv heads of 80) prefill, B 2
+    x S 2048 (the 128-column instance), and decode at B 8 over 8,192 rows;
+    qwen3-moe-235b-a22b's prefill (64 query heads over 4 kv heads of 128,
+    B 2 x S 4096, causal) and hubert-xlarge's (16 heads of 80, B 2 x S
+    4096, not causal); recurrentgemma-9b's local-attention decode (16
+    query heads over one kv head of 256) at B 8 and at B 128 over its
+    2,048-row ring; qwen3-moe-235b-a22b's decode at B 8 over 32,768 rows.
+    All but the first carry a fault check."""
     import torch
 
     from repro_torch.kernels.decode_attention import ops as DA
@@ -558,11 +567,32 @@ def head_size_cases(device) -> list[dict]:
                  "flash_card", FA.flash_attention_traffic(*qkv), args=qkv,
                  ref=FA.attention_ref, timed=False, fault=True,
                  head_size=True)]
+    # qwen3-moe-235b-a22b's prefill (64 query heads over 4 kv heads of 128,
+    # causal) and hubert-xlarge's (16 heads of 80, not causal: the fault
+    # drops the last keys of every row)
+    for arch, Hq, Hkv, D, causal, seed in (("qwen3-moe-235b-a22b", 64, 4, 128,
+                                            True, 101),
+                                           ("hubert-xlarge", 16, 16, 80, False,
+                                            104)):
+        qkv = tuple(randn((2, 4096, h, D), seed + i, device, torch.bfloat16)
+                    for i, h in enumerate((Hq, Hkv, Hkv)))
+        ref = functools.partial(FA.attention_ref, causal=causal)
+        out.append(_case(
+            "flash_attention", f"{arch}_prefill_" + _shapes(qkv),
+            lambda a=qkv, c=causal: FA.mha(*a, causal=c),
+            lambda a=qkv, r=ref: r(*a), "flash_card",
+            FA.flash_attention_traffic(*qkv, causal=causal), args=qkv, ref=ref,
+            timed=False, fault=True, head_size=True, causal=causal))
+    # decode: stablelm-3b, recurrentgemma-9b's ring at B 8 and 128, and
+    # qwen3-moe-235b-a22b (a group of 16 query heads a kv head: one whole
+    # tensor-core tile, kMmaG = 16)
     for arch, B, S, Hq, Hkv, D, seed in (("stablelm-3b", 8, 8192, 32, 32, 80, 84),
                                          ("recurrentgemma-9b_local", 8, 2048,
                                           16, 1, 256, 87),
                                          ("recurrentgemma-9b_local", 128, 2048,
-                                          16, 1, 256, 90)):
+                                          16, 1, 256, 90),
+                                         ("qwen3-moe-235b-a22b", 8, 32768,
+                                          64, 4, 128, 107)):
         args = (randn((B, 1, Hq, D), seed, device, torch.bfloat16),
                 randn((B, S, Hkv, D), seed + 1, device, torch.bfloat16),
                 randn((B, S, Hkv, D), seed + 2, device, torch.bfloat16),
@@ -589,6 +619,11 @@ def perturbed(name: str, args, want, plain):
         q, kc, vc, kv_len = args
         return (f"last {DROPPED_ROWS} cache rows dropped",
                 plain(q, kc, vc, kv_len - DROPPED_ROWS))
+    if name == "flash_attention" and not getattr(
+            plain, "keywords", {}).get("causal", True):
+        q, k, v = args
+        return (f"last {DROPPED_ROWS} keys of every row dropped",
+                plain(q, k[:, :-DROPPED_ROWS], v[:, :-DROPPED_ROWS]))
     if name == "flash_attention":
         h = args[0].shape[1] // 2
         bad = plain(*args, q_offset=-DROPPED_ROWS)
@@ -1353,15 +1388,29 @@ def phase_predict(device) -> None:
 
 
 #: The model phase: each arch of the zoo that the port serves, at its
-#: published widths with all its layers, bf16 activations over weights
-#: drawn from seed 0 on the card and cast once (``convert.to_serving``).
+#: published widths, bf16 activations over weights drawn from seed 0 on
+#: the card and cast once (``convert.to_serving``), with all its layers
+#: unless a stated deployment shares them out (``layers``, ``experts``).
 #: Prefill is ``prefill_32k`` cut in batch 32 -> 2 and sequence 32,768 ->
-#: 4,096 (2,048 for xlstm-1.3b); decode is ``decode_32k``'s one step at its last position over
-#: states drawn from a seed, at batch 128 where the states fit (the rings
-#: and RG-LRU states of recurrentgemma-9b: 3.4 GB), cut to 8 for qwen2-7b
-#: (15.0 GB of KV cache) and to 32 for xlstm-1.3b (22.5 GB of mLSTM state);
-#: ``long_500k`` runs uncut where the arch is sub-quadratic and has a
-#: ring; the server takes the reference serve CLI's own traffic.
+#: 4,096 (2,048 for xlstm-1.3b); hubert-xlarge's rows are 4,096 feature
+#: rows of a numpy seed, internvl2-2b's 256 patch rows of a numpy seed and
+#: 3,840 text tokens.  Decode is ``decode_32k``'s one step at its last
+#: position over states drawn from a seed, at batch 128 where the states
+#: fit (the rings and RG-LRU states of recurrentgemma-9b: 3.4 GB), cut to
+#: 8 for qwen2-7b (15.0 GB of KV cache) and qwen3-moe-235b-a22b (25.2 GB;
+#: 8 is also the global batch of 128 over the reference mesh's 16-wide
+#: ``data`` axis), to 16 for internvl2-2b (51.5 GB) and to 32 for
+#: xlstm-1.3b (22.5 GB of mLSTM state); an encoder (hubert-xlarge) has no
+#: decode and no server (``cell_status``).  ``long_500k`` runs uncut
+#: where the arch is sub-quadratic and has a ring; the server takes the
+#: reference serve CLI's own traffic.
+#:
+#: qwen3-moe-235b-a22b (235 B parameters) runs as one chip's share of the
+#: reference's expert-parallel plan (``launch/sharding.py``: its 128
+#: experts over the 16-wide ``model`` axis, 8 a chip), its 94 layers read
+#: as two pipeline stages of 47: experts 0-7 of each of 47 layers, the
+#: router at its 128 outputs and 8 experts a token, attention whole (more
+#: than a chip's share) and the whole vocabulary.
 MODEL_RUNS = {
     "qwen2-7b": dict(prefill=(2, 4096), decode=(8, 32768)),
     "recurrentgemma-9b": dict(prefill=(2, 4096), decode=(128, 32768),
@@ -1369,6 +1418,10 @@ MODEL_RUNS = {
     # prefill cut to S 2,048: the six sLSTM layers are an eager loop over
     # time (~0.9 s a layer at 4,096 steps), run seven times by the phase
     "xlstm-1.3b": dict(prefill=(2, 2048), decode=(32, 32768)),
+    "qwen3-moe-235b-a22b": dict(prefill=(2, 4096), decode=(8, 32768),
+                                layers=47, experts=(0, 8)),
+    "hubert-xlarge": dict(prefill=(2, 4096)),
+    "internvl2-2b": dict(prefill=(2, 4096), decode=(16, 32768)),
 }
 MODEL_SERVE = dict(batch_slots=4, max_len=128, requests=8, max_new=16)
 #: How the decode states are drawn (``_fill_states``).
@@ -1413,14 +1466,27 @@ def _weight_bytes(model) -> int:
                for name, p in model.named_parameters() if name != "embed")
 
 
+def _expert_bytes(model) -> tuple[int, int]:
+    """(bytes of one held expert's wi, wg and wo in one layer, of every held
+    expert in every layer); (0, 0) without MoE."""
+    mods = [layer.moe for layer in model.layers if hasattr(layer, "moe")]
+    if not mods:
+        return 0, 0
+    total = sum(getattr(m, k).numel() * getattr(m, k).element_size()
+                for m in mods for k in ("wi", "wg", "wo"))
+    return total // (len(mods) * mods[0].wi.shape[0]), total
+
+
 def _product_params(model) -> tuple[int, int]:
-    """(weights the layers multiply in bf16 on the tensor cores, weights
-    they multiply in f32): every dense weight and the mLSTM's per-head
-    maps; the sLSTM's input projection is f32 (``to_serving`` keeps it)."""
+    """(weights the layers multiply in bf16 on the tensor cores for every
+    token, weights they multiply in f32): every dense weight and the
+    mLSTM's per-head maps; the sLSTM's input projection and the MoE router
+    are f32 (``to_serving`` keeps them).  The MoE experts multiply only
+    the rows routed to them (``_moe_rows``)."""
     bf16 = f32 = 0
     for name, p in model.layers.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if name.endswith("cell.w.w"):
+        if name.endswith(("cell.w.w", "moe.router.w")):
             f32 += p.numel()
         elif leaf == "w" or leaf in ("wq", "wk", "wv"):
             bf16 += p.numel()
@@ -1464,14 +1530,23 @@ def _fill_states(caches, seed: int = 1) -> None:
                 t.abs_()
 
 
-def _snapshot(caches) -> list[dict]:
-    return [{k: t.clone() for k, t in c.items()} for c in caches]
+def _snapshot(cfg, caches, index: int) -> list[dict]:
+    """What a decode step at ``index`` writes: of a KV cache or ring the
+    row at its slot (``index`` modulo its length), of a recurrent state
+    the whole tensor.  (slot or None, copy) by state name."""
+    snap = []
+    for kind, cache in zip(cfg.block_kinds, caches):
+        slot = (index % cache["k"].shape[1]
+                if kind in ("attn", "local") else None)
+        snap.append({name: (slot, (t if slot is None else t[:, slot]).clone())
+                     for name, t in cache.items()})
+    return snap
 
 
 def _restore(caches, snap) -> None:
-    for c, s in zip(caches, snap):
-        for k, t in c.items():
-            t.copy_(s[k])
+    for cache, saved in zip(caches, snap):
+        for name, (slot, t) in saved.items():
+            (cache[name] if slot is None else cache[name][:, slot]).copy_(t)
 
 
 class first_calls:
@@ -1509,25 +1584,118 @@ class first_calls:
 class last_rows:
     """Within the block, record every layer's output at the last position
     (``TF._block_forward``), f32: where the paths of ``logits_check``
-    part along the stack."""
+    part along the stack; with ``inputs``, also each layer's whole input
+    and RoPE tables (``_fed_layers``)."""
 
-    def __init__(self):
+    def __init__(self, inputs: bool = False):
         from repro_torch.models import transformer as TF
 
-        self.TF, self.rows = TF, []
+        self.TF, self.rows, self.inputs = TF, [], [] if inputs else None
 
     def __enter__(self):
         self.saved = self.TF._block_forward
 
-        def wrapper(*args, **kwargs):
-            out = self.saved(*args, **kwargs)
-            self.rows.append(out[:, -1].float())
+        def wrapper(p, cfg, kind, x, rot):
+            if self.inputs is not None:
+                self.inputs.append((x, rot))
+            out = self.saved(p, cfg, kind, x, rot)
+            self.rows.append(out[0][:, -1].float())
             return out
         self.TF._block_forward = wrapper
-        return self.rows
+        return self
 
     def __exit__(self, *exc):
         self.TF._block_forward = self.saved
+
+
+class routing:
+    """Within the block, record every MoE layer call's routing as the model
+    computes it (``MOE.assign``): its experts and keep mask, (tokens, k)."""
+
+    def __init__(self):
+        from repro_torch.models import moe as MOE
+
+        self.MOE, self.calls = MOE, []
+
+    def __enter__(self):
+        self.saved = self.MOE.assign
+
+        def wrapper(p, cfg, x, impl):
+            out = self.saved(p, cfg, x, impl)
+            experts, pos, C = out[2], out[3], out[4]
+            k = experts.shape[-1]
+            self.calls.append((experts.reshape(-1, k), (pos < C).reshape(-1, k)))
+            return out
+        self.MOE.assign = wrapper
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.MOE.assign = self.saved
+
+
+def _moe_rows(calls, held: tuple[int, int]) -> dict:
+    """Per MoE layer call and held expert: the (token, slot) pairs routed
+    to it and those kept under the capacity; the held experts that kept a
+    pair; the pairs dropped over all experts."""
+    import torch
+
+    experts = torch.stack([e for e, _ in calls])
+    keep = torch.stack([k for _, k in calls])
+    hit = experts[..., None] == torch.arange(*held, device=experts.device)
+    routed = hit.sum((1, 2))
+    kept = (hit & keep[..., None]).sum((1, 2))
+    return {"routed": routed.tolist(), "kept": kept.tolist(),
+            "touched": (kept > 0).sum(-1).tolist(),
+            "pairs": experts.numel(),
+            "dropped_all_experts": int((~keep).sum())}
+
+
+def _routing_summary(rows: dict) -> dict:
+    """The first layer call's routing by held expert, and the sums."""
+    routed, kept = rows["routed"], rows["kept"]
+    return {"first_call": {"routed": routed[0], "kept": kept[0],
+                           "dropped": [r - k for r, k in zip(routed[0],
+                                                              kept[0])]},
+            "calls": len(routed), "pairs": rows["pairs"],
+            "routed_to_held": sum(map(sum, routed)),
+            "kept_by_held": sum(map(sum, kept)),
+            "dropped_by_capacity_held": sum(map(sum, routed))
+            - sum(map(sum, kept)),
+            "dropped_by_capacity_all": rows["dropped_all_experts"],
+            "held_touched_by_call": rows["touched"]}
+
+
+def _choice_flips(a, b) -> list[int]:
+    """Per MoE layer call, the (token, slot) choices of run ``a`` that run
+    ``b`` did not make for the same token."""
+    return [int((~(ea[:, :, None] == eb[:, None, :]).any(-1)).sum())
+            for (ea, _), (eb, _) in zip(a, b)]
+
+
+def _fed_layers(model, cfgs: dict, inputs) -> list:
+    """Each layer fed the plain path's input to it, on every configuration
+    of ``cfgs`` (kernel, plain, f32): rel-L2 over every position of the
+    layer's output, kernel path vs plain and plain vs f32."""
+    import torch
+
+    from repro_torch.models import transformer as TF
+
+    out = []
+    with torch.no_grad():
+        for layer, kind, (x, rot) in zip(model.layers,
+                                         cfgs["plain"].block_kinds, inputs):
+            y = {name: TF._block_forward(
+                layer, c, kind, x.float() if name == "f32" else x, rot)[0]
+                for name, c in cfgs.items()}
+            out.append([_rel_l2(y["kernel"], y["plain"]),
+                        _rel_l2(y["plain"], y["f32"])])
+    return out
+
+
+def _of_floor(pairs) -> float:
+    """The worst ratio of a distance to its floor over [distance, floor]
+    pairs."""
+    return max(k / f if f else (math.inf if k else 0.0) for k, f in pairs)
 
 
 def _layer_checks(calls: dict) -> dict:
@@ -1567,30 +1735,60 @@ def _layer_checks(calls: dict) -> dict:
     return out
 
 
-def phase_model(device, wrappers: dict, arch: str) -> dict:
+def _prefill_batch(cfg, B: int, S: int, rng, device) -> dict:
+    """S rows of a prefill: token ids, or stub-frontend features from a
+    numpy seed (every row for audio; ``vision_patches(S)`` rows before the
+    text for vision)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.shapes import vision_patches
+
+    n_feat = {"audio": S, "vision": vision_patches(S)}.get(cfg.frontend, 0)
+    batch = {}
+    if n_feat:
+        batch["features"] = torch.as_tensor(
+            rng.standard_normal((B, n_feat, cfg.frontend_dim),
+                                dtype=np.float32), device=device
+        ).to(cfg.activation_dtype)
+    if S > n_feat:
+        batch["tokens"] = torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (B, S - n_feat)),
+            dtype=torch.int32, device=device)
+    return batch
+
+
+def phase_model(device, wrappers: dict, arch: str, runs: dict | None = None
+                ) -> dict:
     """One arch of the zoo served on the card through its entry points:
     (a) ``make_prefill_step`` (K5 once an attention layer, K6 once an
     RG-LRU layer, K7 once an mLSTM layer), (b) one ``make_decode_step`` at
     position 32,767 over states drawn from a seed (K4 once an attention
     layer; the recurrent layers run no kernel), (b') the same at position
     524,287 where the arch runs ``long_500k``, (c) ``BatchedServer`` with
-    the reference CLI's traffic (K4 once an attention layer a step).  Each
-    part is driven with every launch counter at zero and read just after;
-    each kernel is then held to its plain version on the inputs of its
-    first call (``first_calls``), and the logits to the plain path's and
-    an f32 run's (``logits_check``), with every state restored between
-    the three.  The checks and timings launch more and are not counted.
-    Returns the counts by part."""
+    the reference CLI's traffic (K4 once an attention layer a step); an
+    encoder runs (a) alone.  Each part is driven with every launch
+    counter at zero and read just after; each kernel is then held to its
+    plain version on the inputs of its first call (``first_calls``), and
+    the logits to the plain path's and an f32 run's (``logits_check``),
+    with every state restored between the three.  An MoE model records
+    its routing (``routing``) on each part's counted run and the choices
+    that the plain and f32 runs make otherwise; its bounds multiply the
+    rows the held experts keep and read the held experts that kept one.
+    The checks and timings launch more and are not counted.  ``runs``
+    defaults to ``MODEL_RUNS[arch]``.  Returns the counts by part."""
     import dataclasses
 
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES, cell_status
     from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.mlstm_chunk import ops as ML
     from repro_torch.launch import serve as SERVE
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import moe as MOE
     from repro_torch.models import transformer as TF
     from repro_torch.models.convert import to_serving
 
@@ -1598,8 +1796,13 @@ def phase_model(device, wrappers: dict, arch: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_phase = time.perf_counter()
-    runs = MODEL_RUNS[arch]
+    runs = runs or MODEL_RUNS[arch]
     cfg = get_config(arch)
+    if runs.get("layers"):
+        cfg = dataclasses.replace(cfg, n_layers=runs["layers"])
+    check(("decode" in runs) == cell_status(cfg, SHAPES["decode_32k"])[0],
+          f"{arch}: a decode part where the arch has none, or none where "
+          "it has one")
     plain_cfg = dataclasses.replace(cfg, use_kernels=False)
     f32_cfg = dataclasses.replace(plain_cfg, dtype="float32")
     V = cfg.vocab_size
@@ -1623,33 +1826,48 @@ def phase_model(device, wrappers: dict, arch: str) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = to_serving(TF.init_params(cfg, seed=0, device=device))
+    held = runs.get("experts")
+    model = to_serving(TF.init_params(cfg, seed=0, device=device,
+                                      experts=held))
     torch.cuda.synchronize()
-    init = {"seconds": time.perf_counter() - t0,
+    init = {"seconds": time.perf_counter() - t0, "layers": cfg.n_layers,
             "peak_bytes": torch.cuda.max_memory_allocated(),
             "serving_bytes": sum(p.numel() * p.element_size()
                                  for p in model.parameters())}
     launches = {}
     bf16_params, f32_params = _product_params(model)
+    expert_one, expert_all = _expert_bytes(model)
+    if cfg.is_moe:
+        held = held or (0, cfg.n_experts)
+        d, f = cfg.d_model, cfg.d_ff
+        init.update(experts_held=list(held), n_experts=cfg.n_experts,
+                    expert_bytes_held=expert_all)
+
+    def expert_flops(rows: dict) -> float:
+        """Products of the rows the held experts keep (wi, wg, wo)."""
+        return 6.0 * d * f * sum(map(sum, rows["kept"])) if cfg.is_moe else 0.0
 
     # (a) prefill
     t_part = time.perf_counter()
     B, S = runs["prefill"]
     torch.cuda.reset_peak_memory_stats()
-    batch = {"tokens": torch.as_tensor(rng.integers(0, V, (B, S)),
-                                       dtype=torch.int32, device=device)}
+    batch = _prefill_batch(cfg, B, S, rng, device)
     prefill = make_prefill_step(cfg)
     zero()
-    with first_calls() as calls:
+    with first_calls() as calls, routing() as routed:
         logits = prefill(model, batch)
         torch.cuda.synchronize()
     launches["prefill"] = counts(
         "prefill", flash_attention=n_attn,
         rglru_scan=kinds.count("rglru"), mlstm_chunk=kinds.count("mlstm"))
-    part_a = {"batch": B, "seq": S, "layers": _layer_checks(calls)}
-    rows = {}
+    part_a = {"batch": B, "seq": S,
+              "features": tuple(batch["features"].shape)
+              if "features" in batch else None,
+              "layers": _layer_checks(calls)}
+    rows, routes = {}, {}
     for name, c in (("kernel", cfg), ("plain", plain_cfg), ("f32", f32_cfg)):
-        with last_rows() as rows[name]:
+        with last_rows(inputs=cfg.is_moe and name == "plain") as rows[name], \
+                routing() as routes[name]:
             out = make_prefill_step(c)(model, batch)
         if name != "kernel":
             part_a[f"{name}_logits"] = out
@@ -1659,27 +1877,49 @@ def phase_model(device, wrappers: dict, arch: str) -> dict:
     # path, and plain path vs its f32 run (the noise floor)
     part_a["by_layer"] = [
         [_rel_l2(k, p), _rel_l2(p, e)]
-        for k, p, e in zip(rows["kernel"], rows["plain"], rows["f32"])]
-    worst = max(k / f if f else (math.inf if k else 0.0)
-                for k, f in part_a["by_layer"])
-    check(len(part_a["by_layer"]) == cfg.n_layers
-          and worst <= TOL["model_logits"]["of_floor"],
-          f"{arch} prefill: a layer's output on the kernel path is "
-          f"{worst:.3g} times the plain path's distance from f32")
+        for k, p, e in zip(rows["kernel"].rows, rows["plain"].rows,
+                           rows["f32"].rows)]
+    worst = _of_floor(part_a["by_layer"])
+    deferred = []
+    if not (len(part_a["by_layer"]) == cfg.n_layers
+            and worst <= TOL["model_logits"]["of_floor"]):
+        deferred.append(f"{arch} prefill: a layer's output on the kernel "
+                        f"path is {worst:.3g} times the plain path's "
+                        "distance from f32")
     part_a["by_layer_worst_of_floor"] = worst
     part_a["by_layer"] = [[round(k, 5), round(f, 5)]
                           for k, f in part_a["by_layer"]]
-    del rows
+    if cfg.is_moe:
+        moe_rows = _moe_rows(routed, held)
+        g, _, C = MOE.groups(cfg, B, S, "einsum")
+        part_a["routing"] = {
+            **_routing_summary(moe_rows), "groups": g, "capacity": C,
+            "flips_kernel_vs_plain": _choice_flips(routes["kernel"],
+                                                   routes["plain"]),
+            "flips_plain_vs_f32": _choice_flips(routes["plain"],
+                                                routes["f32"])}
+        fed = _fed_layers(model, {"kernel": cfg, "plain": plain_cfg,
+                                  "f32": f32_cfg}, rows["plain"].inputs)
+        part_a["fed_layers"] = [[round(k, 5), round(f, 5)] for k, f in fed]
+        part_a["fed_layers_worst_of_floor"] = _of_floor(fed)
+    del rows, routes
     flops = 2.0 * B * S * bf16_params
     for kind in kinds:
         if kind in ("attn", "local"):
             flops += 4.0 * B * cfg.n_heads * cfg.head_dim * FA.live_pairs(
-                S, S, window=cfg.local_window if kind == "local" else None)
+                S, S, window=cfg.local_window if kind == "local" else None,
+                causal=cfg.is_decoder)
     if "chunked_mlstm" in calls:
         args, kw = calls["chunked_mlstm"]
         flops += kinds.count("mlstm") * ML.mlstm_chunk_traffic(*args,
                                                                **kw)["flops"]
+    if "features" in batch:
+        flops += 2.0 * batch["features"].numel() * cfg.d_model
     flops += 2.0 * B * cfg.d_model * cfg.padded_vocab
+    if cfg.is_moe:
+        flops += expert_flops(moe_rows)
+        part_a["routing"]["rows_multiplied"] = (
+            (held[1] - held[0]) * g * C * cfg.n_layers)
     nbytes = (_weight_bytes(model) + B * S * cfg.d_model * 2
               + B * cfg.padded_vocab * 2)
     part_a.update(_bound(nbytes, flops, 2.0 * B * S * f32_params))
@@ -1697,8 +1937,15 @@ def phase_model(device, wrappers: dict, arch: str) -> dict:
         part_a["slstm_layers"] = kinds.count("slstm")
     part_a["peak_bytes"] = torch.cuda.max_memory_allocated()
     part_a["seconds"] = time.perf_counter() - t_part
-    del logits, calls, batch
+    del logits, calls, batch, routed
     torch.cuda.empty_cache()
+
+    def moe_weight_bytes(touched: float) -> dict:
+        """Weights a step reads where the held experts that kept a pair
+        are ``touched`` (summed over layers); all held beside them."""
+        return {"weight_bytes": _weight_bytes(model) - expert_all
+                + touched * expert_one,
+                "weight_bytes_all_held": _weight_bytes(model)}
 
     # (b) one decode step at depth, and (b') at the long shape
     def decode_part(what: str, B: int, S: int) -> dict:
@@ -1706,21 +1953,22 @@ def phase_model(device, wrappers: dict, arch: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         caches = TF.init_caches(cfg, B, S, device=device)
         _fill_states(caches)
-        snap = _snapshot(caches)
+        snap = _snapshot(cfg, caches, S - 1)
         tok = torch.as_tensor(rng.integers(0, V, (B, 1)), dtype=torch.int32,
                               device=device)
         index = torch.tensor([S - 1], device=device)
         step = make_decode_step(cfg)
         zero()
-        with first_calls() as calls:
+        with first_calls() as calls, routing() as routed:
             _, logits, _ = step(model, tok, caches, index)
             torch.cuda.synchronize()
         launches[what] = counts(what, decode_attention=n_attn)
         part = {"batch": B, "index": S - 1, "layers": _layer_checks(calls)}
-        runs_ = {}
+        runs_, routes = {}, {"kernel": routed}
         for name, c in (("plain", plain_cfg), ("f32", f32_cfg)):
             _restore(caches, snap)
-            runs_[name] = make_decode_step(c)(model, tok, caches, index)[1]
+            with routing() as routes[name]:
+                runs_[name] = make_decode_step(c)(model, tok, caches, index)[1]
         if n_attn:
             part.update(logits_check(logits, runs_["plain"], runs_["f32"], V,
                                      f"{arch} {what}"))
@@ -1736,11 +1984,26 @@ def phase_model(device, wrappers: dict, arch: str) -> dict:
         del snap, runs_
         torch.cuda.empty_cache()
         states = _state_bytes(cfg, caches, S - 1)
-        part.update(_bound(_weight_bytes(model) + states
+        weights = {"weight_bytes": _weight_bytes(model)}
+        flops = 2.0 * B * bf16_params
+        if cfg.is_moe:
+            moe_rows = _moe_rows(routed, held)
+            part["routing"] = {
+                **_routing_summary(moe_rows), "capacity": MOE.capacity(cfg, B),
+                "flips_kernel_vs_plain": _choice_flips(routes["kernel"],
+                                                       routes["plain"]),
+                "flips_plain_vs_f32": _choice_flips(routes["plain"],
+                                                    routes["f32"])}
+            weights = moe_weight_bytes(sum(moe_rows["touched"]))
+            part["bound_all_held"] = _bound(
+                weights["weight_bytes_all_held"] + states
+                + B * cfg.d_model * 2 + B * cfg.padded_vocab * 2,
+                flops + expert_flops(moe_rows), 2.0 * B * f32_params)
+            flops += expert_flops(moe_rows)
+        part.update(_bound(weights["weight_bytes"] + states
                            + B * cfg.d_model * 2 + B * cfg.padded_vocab * 2,
-                           2.0 * B * bf16_params, 2.0 * B * f32_params))
-        part.update(state_bytes=states, weight_bytes=_weight_bytes(model),
-                    states_drawn=STATE_DRAW)
+                           flops, 2.0 * B * f32_params))
+        part.update(state_bytes=states, **weights, states_drawn=STATE_DRAW)
         ms = time_ms(lambda: step(model, tok, caches, index), device,
                      iters=5, warmup=2)
         part.update(ms_per_step=ms, tok_per_s=B / ms * 1e3,
@@ -1752,49 +2015,63 @@ def phase_model(device, wrappers: dict, arch: str) -> dict:
         # step; the device's share of the step as timed above
         part["device_share_of_step"] = part["profile"]["device_ms"] / ms
         part["seconds"] = time.perf_counter() - t_part
-        del caches, logits, calls
+        del caches, logits, calls, routed, routes
         torch.cuda.empty_cache()
         return part
 
-    parts = {"prefill": part_a,
-             "decode": decode_part("decode", *runs["decode"])}
+    parts = {"prefill": part_a}
+    if "decode" in runs:
+        parts["decode"] = decode_part("decode", *runs["decode"])
     if "long" in runs:
         parts["long"] = decode_part("long", *runs["long"])
 
     # (c) the batched server, the reference CLI's traffic
-    sv = MODEL_SERVE
-    torch.cuda.reset_peak_memory_stats()
-    server = SERVE.BatchedServer(cfg, batch_slots=sv["batch_slots"],
-                                 max_len=sv["max_len"], params=model,
-                                 device=device)
-    reqs = SERVE.cli_requests(cfg, sv["requests"], sv["max_new"])
-    zero()
-    t0 = time.perf_counter()
-    server.run(reqs)
-    wall = time.perf_counter() - t0
-    m = server.metrics
-    steps = m["prefill_steps"] + m["decode_steps"]
-    launches["serve"] = counts("serve", decode_attention=n_attn * steps)
-    check(all(len(r.generated) == sv["max_new"] and r.done
-              and all(0 <= t < V for t in r.generated) for r in reqs),
-          f"model {arch} serve: a request lacks its tokens or has one "
-          "outside the vocabulary")
-    step_bound = _bound(_weight_bytes(model) + _state_bytes(
-        cfg, server.caches, sv["max_len"] - 1), 0.0)
-    parts["serve"] = {
-        **sv, "seconds": wall, **m,
-        "decode_tok_per_s": m["new_tokens"] / m["decode_s"],
-        "ms_per_step": (m["prefill_s"] + m["decode_s"]) / steps * 1e3,
-        "bound_ms_per_step": step_bound["bound_ms"],
-        "bound_decode_tok_per_s": sv["batch_slots"]
-        / step_bound["bound_ms"] * 1e3,
-        "peak_bytes": torch.cuda.max_memory_allocated(),
-        "first_tokens": [r.generated[:4] for r in reqs[:2]]}
+    if "decode" in runs:
+        sv = MODEL_SERVE
+        torch.cuda.reset_peak_memory_stats()
+        server = SERVE.BatchedServer(cfg, batch_slots=sv["batch_slots"],
+                                     max_len=sv["max_len"], params=model,
+                                     device=device)
+        reqs = SERVE.cli_requests(cfg, sv["requests"], sv["max_new"])
+        zero()
+        t0 = time.perf_counter()
+        with routing() as routed:
+            server.run(reqs)
+        wall = time.perf_counter() - t0
+        m = server.metrics
+        steps = m["prefill_steps"] + m["decode_steps"]
+        launches["serve"] = counts("serve", decode_attention=n_attn * steps)
+        check(all(len(r.generated) == sv["max_new"] and r.done
+                  and all(0 <= t < V for t in r.generated) for r in reqs),
+              f"model {arch} serve: a request lacks its tokens or has one "
+              "outside the vocabulary")
+        weights = {"weight_bytes": _weight_bytes(model)}
+        if cfg.is_moe:
+            moe_rows = _moe_rows(routed, held)
+            weights = moe_weight_bytes(sum(moe_rows["touched"]) / steps)
+            served_routing = {"held_touched_a_step": sum(moe_rows["touched"])
+                              / steps, "dropped_by_capacity_all":
+                              moe_rows["dropped_all_experts"]}
+        step_bound = _bound(weights["weight_bytes"] + _state_bytes(
+            cfg, server.caches, sv["max_len"] - 1), 0.0)
+        parts["serve"] = {
+            **sv, "seconds": wall, **m,
+            "decode_tok_per_s": m["new_tokens"] / m["decode_s"],
+            "ms_per_step": (m["prefill_s"] + m["decode_s"]) / steps * 1e3,
+            "bound_ms_per_step": step_bound["bound_ms"],
+            "bound_decode_tok_per_s": sv["batch_slots"]
+            / step_bound["bound_ms"] * 1e3, **weights,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "first_tokens": [r.generated[:4] for r in reqs[:2]]}
+        if cfg.is_moe:
+            parts["serve"]["routing"] = served_routing
+        del server, routed
     emit({"phase": "model", "arch": cfg.name, "init": init, **parts,
           "launches": launches, "tolerance": TOL["model_logits"],
           "seconds": time.perf_counter() - t_phase})
-    del server, model
+    del model
     torch.cuda.empty_cache()
+    check(not deferred, "; ".join(deferred))
     return launches
 
 
@@ -1822,7 +2099,7 @@ def _timing(c: dict, device) -> dict:
     library_ms = None
     if c["name"] in ("decode_attention", "flash_attention"):
         qt, kt, vt = (t.transpose(1, 2) for t in c["args"][:3])
-        causal = c["name"] == "flash_attention"
+        causal = c.get("causal", c["name"] == "flash_attention")
         mask = None
         if c.get("window"):
             # SDPA has no window: the causal band as a boolean mask
@@ -1833,11 +2110,40 @@ def _timing(c: dict, device) -> dict:
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, is_causal=causal, enable_gqa=True),
             device)
+    elif c["name"].startswith("membench"):
+        library_ms = time_ms(_membench_library(c), device)
     return {"ms": time_ms(c["run"], device),
             "plain_ms": time_ms(c["plain"], device, iters=3, warmup=1),
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms}
+
+
+def _membench_library(c: dict):
+    """The one PyTorch call that computes a membench case's function, on its
+    inputs stacked once into one (G, n) tensor (outside the timing): K1
+    ``torch.sum(x, 0, dtype=float32)``; K2 the same over the strided view
+    of the blocks it reads; K3 the gather ``x[:, idx]`` and then the sum,
+    two calls (no single call gathers and sums).  The block geometry is
+    the case's plain version's; the call is held to it (1e-6)."""
+    import torch
+
+    xs = c["args"][0]
+    geo = getattr(c["ref"], "keywords", {})
+    blocks = torch.stack(xs).reshape(len(xs), -1,
+                                     geo.get("block", xs[0].numel()))
+    idx = c["args"][1].long() if c["name"] == "membench_gather" else None
+    delta = geo.get("delta", 1)
+
+    def call():
+        picked = (blocks[:, idx] if idx is not None
+                  else blocks[:, ::delta][:, :blocks.shape[1] // delta])
+        return torch.sum(picked, 0, dtype=torch.float32)
+
+    check(torch.allclose(call().reshape(-1), c["plain"]().float(), rtol=1e-6,
+                         atol=1e-6),
+          f"{c['name']}: the library call does not compute the case")
+    return call
 
 
 def phase_kernels(device, card: list[dict], launches: dict,

@@ -100,7 +100,6 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
     if shape.kind == "prefill":
         return {"batch": token_batch(with_labels=False)}
     # decode / long_decode
-    TF.check_ported(cfg)
     caches = [TF.block_cache(cfg, kind, B, S, device="meta")
               for kind in cfg.block_kinds]
     return {"tokens": _meta((B, 1), i32), "caches": caches,

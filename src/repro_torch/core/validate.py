@@ -153,11 +153,10 @@ def default_cases(*, small: bool = True) -> list[ValidationCase]:
         ValidationCase("membench_aligned", aligned, calibration=True,
                        plain=MB.aligned_sum_ref),
         ValidationCase("membench_strided", strided,
-                       plain=lambda xs: MB.strided_sum_ref(xs, delta=4,
-                                                           block=512)),
+                       plain=functools.partial(MB.strided_sum_ref, delta=4,
+                                               block=512)),
         ValidationCase("membench_gather", gather,
-                       plain=lambda xs, idx: MB.gather_sum_ref(xs, idx,
-                                                               block=512)),
+                       plain=functools.partial(MB.gather_sum_ref, block=512)),
         ValidationCase("flash_attention", flash, plain=FA.attention_ref),
         ValidationCase("decode_attention", decode, plain=DA.gqa_decode_ref),
         ValidationCase("rglru_scan", rglru, plain=RG.rglru_scan_ref),

@@ -12,7 +12,14 @@ the position index and the RG-LRU, mLSTM and sLSTM states do not.
 
     python -m repro_torch.launch.serve --arch qwen2-7b          # the card
     python -m repro_torch.launch.serve --arch recurrentgemma-9b
+    python -m repro_torch.launch.serve --arch internvl2-2b
     python -m repro_torch.launch.serve --arch xlstm-1.3b --local --device cpu
+    python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b --local --device cpu
+
+The MoE decoders route every served step with the sort semantics (the
+server prefills by decode); at their published sizes they exceed one card
+(qwen3-moe-235b-a22b runs on the card as one chip's share of its
+expert-parallel deployment in ``chip_smoke.py``'s model phase).
 """
 from __future__ import annotations
 

@@ -12,9 +12,14 @@ reference's dict keys, so a leaf's path is its name.
 ``to_serving`` casts, once, exactly the tensors the reference casts at use
 to the activation dtype: dense weights and biases, the embedding, and the
 tensors a module names in ``serving_cast`` (the temporal convs, the
-mLSTM's per-head maps).  It leaves f32 what the reference uses in f32:
-the norms, the RG-LRU's gates and ``lam``, and the sLSTM's input
-projection, bias and recurrent weights.  Every product sees the same
+mLSTM's per-head maps, the MoE experts).  It leaves f32 what the
+reference uses in f32: the norms, the RG-LRU's gates and ``lam``, the
+sLSTM's input projection, bias and recurrent weights, and the MoE router.
+
+An MoE model may hold a share of each layer's experts: ``from_reference``
+and ``load`` take ``experts=(lo, hi)`` and keep experts lo..hi-1 of
+``moe.wi``, ``moe.wg`` and ``moe.wo`` (the expert axis, after the group
+index); the router stays whole.  Every product sees the same
 inputs as the reference's, the weights take half the memory in bf16 (15.2
 GB for qwen2-7b instead of 30.5), and no step re-casts them.
 """
@@ -29,19 +34,29 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Transformer
 
 
-def _flatten(tree, prefix: str, out: dict, index: int | None = None) -> None:
+EXPERT_LEAVES = ("moe.wi", "moe.wg", "moe.wo")
+
+
+def _flatten(tree, prefix: str, out: dict, index: int | None = None,
+             experts: slice = slice(None)) -> None:
     for key, val in tree.items():
         name = f"{prefix}.{key}" if prefix else key
         if isinstance(val, dict):
-            _flatten(val, name, out, index)
+            _flatten(val, name, out, index, experts)
         else:
             arr = np.asarray(val)
-            out[name] = torch.tensor(arr if index is None else arr[index])
+            arr = arr if index is None else arr[index]
+            if name.endswith(EXPERT_LEAVES):
+                arr = arr[experts]
+            out[name] = torch.tensor(arr)
 
 
-def from_reference(params: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+def from_reference(params: dict, cfg: ModelConfig, experts=None
+                   ) -> dict[str, torch.Tensor]:
     """The reference's parameter tree (numpy leaves) as a state dict of the
-    port's ``Transformer`` (CPU tensors, the reference's dtypes)."""
+    port's ``Transformer`` (CPU tensors, the reference's dtypes), holding
+    experts ``lo..hi-1`` of every MoE layer for ``experts=(lo, hi)``."""
+    held = slice(*experts) if experts else slice(None)
     sd: dict[str, torch.Tensor] = {}
     top = {k: v for k, v in params.items() if k not in ("groups", "rest")}
     _flatten(top, "", sd)
@@ -49,19 +64,21 @@ def from_reference(params: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     for g in range(cfg.pattern_repeats):
         for j in range(n_pattern):
             _flatten(params["groups"][f"b{j}"], f"layers.{g * n_pattern + j}",
-                     sd, index=g)
+                     sd, index=g, experts=held)
     first = cfg.pattern_repeats * n_pattern
     for i, block in enumerate(params.get("rest", [])):
-        _flatten(block, f"layers.{first + i}", sd)
+        _flatten(block, f"layers.{first + i}", sd, experts=held)
     return sd
 
 
-def load(cfg: ModelConfig, state_dict: dict, *, device=None) -> Transformer:
-    """A ``Transformer`` holding ``state_dict`` on ``device`` (default: the
-    CUDA card; raises without one).  Every parameter must be given."""
+def load(cfg: ModelConfig, state_dict: dict, *, device=None,
+         experts=None) -> Transformer:
+    """A ``Transformer`` (holding ``experts`` of each MoE layer, default
+    all) with ``state_dict`` on ``device`` (default: the CUDA card; raises
+    without one).  Every parameter must be given."""
     dev = compat.resolve_device(device)
     with torch.device("meta"):
-        model = Transformer(cfg)
+        model = Transformer(cfg, experts=experts)
     model.load_state_dict({k: v.to(dev) for k, v in state_dict.items()},
                           strict=True, assign=True)
     return model
@@ -77,5 +94,6 @@ def to_serving(model: Transformer) -> Transformer:
                   [getattr(mod, name) for name in getattr(mod, "serving_cast", ())])
         for p in params:
             p.data = p.data.to(dt)
-    model.embed.data = model.embed.data.to(dt)
+    if model.embed is not None:
+        model.embed.data = model.embed.data.to(dt)
     return model

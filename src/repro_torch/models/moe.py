@@ -1,0 +1,232 @@
+"""Mixture-of-Experts layer: top-k routing with capacity-bounded dispatch.
+
+Port of ``repro.models.moe``, with the reference's two semantics selected
+as it selects them (``forward``): ``einsum`` (``cfg.moe_impl``, prefill)
+and ``sort`` (every decode step).  They drop different (token, slot)
+pairs, and the port drops exactly the reference's:
+
+* ``einsum`` applies the capacity per group of ``sg = min(2048, S)``
+  tokens (halved until it divides B·S; groups span batch rows), k-slot
+  major: every token's slot 0 is placed before any token's slot 1;
+* ``sort`` applies it over all T = B·S tokens, token-major (the stable
+  argsort of the flattened (token, slot) list).
+
+Both run as index gathers on static shapes where the reference's einsum
+form multiplies one-hot tensors ((4, 2048, 128, 160) a layer at the
+card's prefill): the dispatch (E_held, g·C, d) is a gather of token rows,
+the experts' products are batched matrix products over it, and the
+combine is a weighted gather of expert rows.  The combine rounds as
+the reference's does: the einsum form sums the k slots in f32 and rounds
+once, the sort form adds slot by slot in the activation dtype; the combine
+weight is cast to the activation dtype first, and the einsum form
+dispatches only where that cast weight is nonzero (its ``dispatch_mask =
+combine != 0``).  Positions are running counts of one-hot comparisons
+(``_positions``; no ``bincount``, ``nonzero``, float ``index_add_`` or
+host read), so every shape follows from ``cfg``, B and S, nothing waits
+for the device, and the result does not depend on the order of any
+device reduction of floats.
+
+The expert share.  ``MoE(cfg, gen, experts=(lo, hi))`` holds experts
+``lo..hi-1``: what one device computes under expert parallelism, without
+the exchange.  The router, the top-k, the capacity and every pair's
+position stay over all ``n_experts``; the layer computes the rows of its
+own experts, a slot routed elsewhere adds zero, and the aux loss is the
+whole layer's.  The default holds every expert and is the reference layer.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+
+def capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    c = math.ceil(n_tokens * cfg.experts_per_token * cfg.capacity_factor
+                  / cfg.n_experts)
+    return max(8, -(-c // 8) * 8)  # pad to a multiple of 8
+
+
+class Router(nn.Module):
+    """``w`` (d, E): the router, multiplied in f32 whatever the activation
+    dtype (not a ``Dense``, so ``convert.to_serving`` leaves it f32)."""
+
+    def __init__(self, w: torch.Tensor):
+        super().__init__()
+        self.w = nn.Parameter(w, requires_grad=False)
+
+
+class MoE(nn.Module):
+    """``router.w`` (d, E) f32; ``wi``, ``wg`` (E_held, d, f) and ``wo``
+    (E_held, f, d) for the held experts ``experts = (lo, hi)`` (default:
+    all of them)."""
+
+    serving_cast = ("wi", "wg", "wo")
+
+    def __init__(self, cfg: ModelConfig, gen=None, *, device=None,
+                 experts: tuple[int, int] | None = None):
+        super().__init__()
+        E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+        lo, hi = experts or (0, E)
+        if not 0 <= lo < hi <= E:
+            raise ValueError(f"{cfg.name}: experts {lo}..{hi - 1} of {E}")
+        self.experts = (lo, hi)
+        init = dict(generator=gen, dtype=getattr(torch, cfg.param_dtype),
+                    device=device)
+        held = hi - lo
+        self.router = Router(torch.randn((d, E), **init).mul_(0.02))
+        lim = 1.0 / math.sqrt(d)
+        self.wi = nn.Parameter(torch.randn((held, d, f), **init).mul_(lim),
+                               requires_grad=False)
+        self.wg = nn.Parameter(torch.randn((held, d, f), **init).mul_(lim),
+                               requires_grad=False)
+        self.wo = nn.Parameter(torch.randn((held, f, d), **init)
+                               .mul_(1.0 / math.sqrt(f)), requires_grad=False)
+
+
+def forward(p: MoE, cfg: ModelConfig, x: torch.Tensor,
+            decode: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (output (B, S, d), the aux load-balance loss (f32 scalar)).
+    ``cfg.moe_impl`` selects the semantics; decode steps take ``sort``
+    whatever it says, as in the reference."""
+    impl = cfg.moe_impl
+    if decode and impl == "einsum":
+        impl = "sort"
+    if impl == "einsum":
+        return forward_einsum(p, cfg, x)
+    return forward_sort(p, cfg, x)
+
+
+def _router(p: MoE, cfg: ModelConfig, xt: torch.Tensor):
+    """Shared routing over all experts, in f32: (probs, top-k weights
+    renormalized, top-k experts, aux).  xt: (..., d).  Ties in the top-k
+    go to the lower expert, as ``jax.lax.top_k`` gives them (a stable
+    descending sort; ``torch.topk`` promises no order)."""
+    k, E = cfg.experts_per_token, cfg.n_experts
+    logits = xt.float() @ p.router.w.float()
+    probs = torch.softmax(logits, dim=-1)
+    weights, experts = probs.sort(dim=-1, descending=True, stable=True)
+    weights, experts = weights[..., :k], experts[..., :k]
+    weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
+    lead = tuple(range(experts.ndim - 1))
+    # one-hot as a comparison: no check that reads the ids to the host
+    first = experts[..., :1] == torch.arange(E, device=experts.device)
+    aux = E * torch.sum(first.float().mean(lead) * probs.mean(lead))
+    return probs, weights, experts, aux
+
+
+def _positions(experts: torch.Tensor, E: int) -> torch.Tensor:
+    """Each pair's place in its expert's queue: for ``experts`` (g, N) in
+    priority order along the last axis, how many earlier pairs of its
+    group chose the same expert (a running count of an (g, E, N) one-hot,
+    along its contiguous last axis)."""
+    oh = experts[:, None, :] == torch.arange(E, device=experts.device)[:, None]
+    count = torch.cumsum(oh, dim=-1, dtype=torch.int32)
+    return count.gather(1, experts[:, None, :])[:, 0] - 1
+
+
+def _slots(p: MoE, experts, pos, live, C: int) -> torch.Tensor:
+    """Each pair's row in the held experts' buffer of E_held * g * C rows
+    (expert-major, then group, then position) where it is dispatched here
+    (``live`` and routed to a held expert); past the buffer, a row of its
+    own, where it is not."""
+    g, n, k = experts.shape
+    lo, hi = p.experts
+    dev = experts.device
+    held = live & (experts >= lo) & (experts < hi)
+    rows = (experts - lo) * (g * C) + pos \
+        + C * torch.arange(g, device=dev)[:, None, None]
+    spare = (hi - lo) * g * C + torch.arange(g * n * k, device=dev)
+    return torch.where(held, rows, spare.reshape(g, n, k))
+
+
+def _expert_ffn(p: MoE, cfg: ModelConfig, x: torch.Tensor, slot,
+                rows: int) -> torch.Tensor:
+    """The held experts' FFN on the dispatched rows: x (N, d) and each
+    pair's ``slot`` (``_slots``, over N * k pairs) -> y (rows + 1, d) for
+    the ``rows`` of the held experts' buffer, its last row zero (where
+    the pairs not dispatched here gather)."""
+    N, d = x.shape
+    k = slot.shape[-1]
+    # src[r]: the token in buffer row r (N: none, a zero row)
+    src = torch.full((rows + slot.numel(),), N, dtype=torch.long,
+                     device=x.device)
+    src.scatter_(0, slot.reshape(-1),
+                 torch.arange(slot.numel(), device=x.device) // k)
+    xpad = torch.cat([x, x.new_zeros(1, d)])
+    held = p.experts[1] - p.experts[0]
+    xe = xpad.index_select(0, src[:rows]).reshape(held, rows // held, d)
+    h = torch.bmm(xe, p.wi.to(x.dtype))
+    a = torch.bmm(xe, p.wg.to(x.dtype))
+    y = torch.bmm(L.activate(a, cfg.act) * h, p.wo.to(x.dtype))
+    return torch.cat([y.reshape(rows, d), y.new_zeros(1, d)])
+
+
+def _combine_rows(y: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """Each pair's expert output: y's row at its slot, the zero row past
+    the buffer -> (*slot.shape, d)."""
+    rows = y.shape[0] - 1
+    return y.index_select(0, slot.clamp(max=rows).reshape(-1)).reshape(
+        *slot.shape, y.shape[1])
+
+
+def groups(cfg: ModelConfig, B: int, S: int, impl: str
+           ) -> tuple[int, int, int]:
+    """(groups g, tokens a group n, capacity C) of one semantics."""
+    T = B * S
+    if impl == "einsum":
+        sg = min(2048, S) if S > 1 else 1
+        while T % sg:
+            sg //= 2
+        return T // sg, sg, capacity(cfg, sg)
+    return 1, T, capacity(cfg, T)
+
+
+def assign(p: MoE, cfg: ModelConfig, x: torch.Tensor, impl: str):
+    """Routing and capacity assignment of one semantics: (xg (g, n, d),
+    weights, experts and positions (g, n, k), C, aux).  ``einsum``: k-slot
+    major priority within each group; ``sort``: token-major over all
+    tokens.  A pair is kept where its position is below C."""
+    B, S, d = x.shape
+    k, E = cfg.experts_per_token, cfg.n_experts
+    g, n, C = groups(cfg, B, S, impl)
+    xg = x.reshape(g, n, d)
+    _, weights, experts, aux = _router(p, cfg, xg)
+    if impl == "einsum":
+        pos = _positions(experts.transpose(1, 2).reshape(g, k * n), E)
+        pos = pos.reshape(g, k, n).transpose(1, 2)
+    else:
+        pos = _positions(experts.reshape(g, n * k), E).reshape(g, n, k)
+    return xg, weights, experts, pos, C, aux
+
+
+def forward_einsum(p: MoE, cfg: ModelConfig, x: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's grouped einsum semantics, as gathers: the k slots
+    summed in f32, rounded once."""
+    xg, weights, experts, pos, C, aux = assign(p, cfg, x, "einsum")
+    keep = pos < C
+    w = (weights * keep).to(x.dtype)        # the combine weight
+    slot = _slots(p, experts, pos, keep & (w != 0), C)
+    rows = (p.experts[1] - p.experts[0]) * xg.shape[0] * C
+    y = _expert_ffn(p, cfg, xg.reshape(-1, x.shape[-1]), slot, rows)
+    out = (_combine_rows(y, slot).float() * w.float()[..., None]).sum(-2)
+    return out.to(x.dtype).reshape(x.shape), aux
+
+
+def forward_sort(p: MoE, cfg: ModelConfig, x: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's sort semantics: each slot's term rounded to the
+    activation dtype, the terms added one by one in it."""
+    xt, weights, experts, pos, C, aux = assign(p, cfg, x, "sort")
+    keep = pos < C
+    slot = _slots(p, experts, pos, keep, C)
+    y = _expert_ffn(p, cfg, xt[0], slot, (p.experts[1] - p.experts[0]) * C)
+    terms = _combine_rows(y, slot) * (weights * keep).to(x.dtype)[..., None]
+    out = terms[..., 0, :]
+    for j in range(1, cfg.experts_per_token):
+        out = out + terms[..., j, :]
+    return out.reshape(x.shape), aux

@@ -9,10 +9,11 @@ config as the reference's do.  The parameters are one ``nn.Module``,
 a leading axis and scans it (``convert.from_reference`` maps one onto the
 other).  Decode updates each layer's cache or recurrent state in place.
 
-Every block kind runs: ``attn``/``local`` (attention and the MLP),
-``rglru`` (the RG-LRU block and the MLP), ``mlstm`` and ``slstm`` (with its
-plain gelu FFN).  MoE and the audio/vision frontends are later slices of
-the port (ROADMAP, Queue 1, item 1) and raise ``NotImplementedError``.
+Every block kind runs: ``attn``/``local`` (attention and the MLP, or the
+MoE layer when ``cfg.is_moe``), ``rglru`` (the RG-LRU block and the MLP),
+``mlstm`` and ``slstm`` (with its plain gelu FFN); the audio and vision
+archs take stub-frontend features (``embed_inputs``).  An MoE model may
+hold a share of each layer's experts (``experts=``, ``models/moe.py``).
 """
 from __future__ import annotations
 
@@ -23,29 +24,10 @@ from repro_torch import compat
 from repro_torch.models import attention as ATT
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as MLP
+from repro_torch.models import moe as MOE
 from repro_torch.models import recurrent as REC
 from repro_torch.models import xlstm as XL
 from repro_torch.models.config import ModelConfig
-
-#: The ROADMAP item (Queue 1, item 1) that brings each part not yet ported.
-NOT_PORTED = {
-    "moe": "the MoE slice",
-    "frontend": "the audio/VLM slice",
-}
-
-
-def _not_ported(cfg: ModelConfig, what: str):
-    return NotImplementedError(
-        f"{cfg.name}: {what} is not ported yet; it comes with "
-        f"{NOT_PORTED[what]} (ROADMAP, Queue 1, item 1)")
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config this slice cannot run."""
-    if cfg.is_moe:
-        raise _not_ported(cfg, "moe")
-    if cfg.frontend:
-        raise _not_ported(cfg, "frontend")
 
 
 class FFN(nn.Module):
@@ -64,11 +46,13 @@ def _ffn(p: FFN, x: torch.Tensor) -> torch.Tensor:
 
 class Block(nn.Module):
     """One layer of kind ``kind``, with the reference's parameter names:
-    ``attn``/``local``: ``ln1``, ``attn``, ``ln2``, ``mlp``; ``rglru``:
-    ``ln1``, ``rec``, ``ln2``, ``mlp``; ``mlstm``: ``ln1``, ``cell``;
-    ``slstm``: ``ln1``, ``cell``, ``ln2``, ``ffn``."""
+    ``attn``/``local``: ``ln1``, ``attn``, ``ln2``, ``mlp`` (``moe`` for an
+    MoE config, holding ``experts``); ``rglru``: ``ln1``, ``rec``, ``ln2``,
+    ``mlp``; ``mlstm``: ``ln1``, ``cell``; ``slstm``: ``ln1``, ``cell``,
+    ``ln2``, ``ffn``."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, gen=None, *, device=None):
+    def __init__(self, cfg: ModelConfig, kind: str, gen=None, *, device=None,
+                 experts: tuple[int, int] | None = None):
         super().__init__()
         dev = dict(device=device)
         self.ln1 = L.Norm(cfg.d_model, cfg.norm, **dev)
@@ -88,50 +72,78 @@ class Block(nn.Module):
         else:
             raise ValueError(kind)
         self.ln2 = L.Norm(cfg.d_model, cfg.norm, **dev)
-        self.mlp = MLP.MLP(cfg, gen, **dev)
+        if cfg.is_moe and kind in ("attn", "local"):  # as the reference
+            self.moe = MOE.MoE(cfg, gen, experts=experts, **dev)
+        else:
+            self.mlp = MLP.MLP(cfg, gen, **dev)
 
 
 class Transformer(nn.Module):
-    """The parameters of a whole model: ``embed``, ``layers``, ``ln_f`` and
-    (untied) ``head``, drawn from ``gen`` in that order."""
+    """The parameters of a whole model: ``embed`` (decoders and the VLM),
+    ``frontend`` (the stub frontend's projection, audio and vision),
+    ``layers``, ``ln_f`` and (untied) ``head``, drawn from ``gen`` in that
+    order.  ``experts=(lo, hi)``: every MoE layer holds experts lo..hi-1
+    (default: all)."""
 
-    def __init__(self, cfg: ModelConfig, gen=None, *, device=None):
+    def __init__(self, cfg: ModelConfig, gen=None, *, device=None,
+                 experts: tuple[int, int] | None = None):
         super().__init__()
-        check_ported(cfg)
         self.cfg = cfg
         init = dict(dtype=getattr(torch, cfg.param_dtype), device=device)
         self.embed = nn.Parameter(
             L.embed_init(gen, cfg.padded_vocab, cfg.d_model, **init),
-            requires_grad=False)
-        self.layers = nn.ModuleList(Block(cfg, kind, gen, device=device)
-                                    for kind in cfg.block_kinds)
+            requires_grad=False) \
+            if cfg.is_decoder or cfg.family == "vlm" else None
+        self.frontend = L.Dense(L.dense_init(gen, cfg.frontend_dim,
+                                             cfg.d_model, **init)) \
+            if cfg.frontend else None
+        self.layers = nn.ModuleList(
+            Block(cfg, kind, gen, device=device, experts=experts)
+            for kind in cfg.block_kinds)
         self.ln_f = L.Norm(cfg.d_model, cfg.norm, device=device)
         self.head = None if cfg.tie_embeddings else L.Dense(
             L.dense_init(gen, cfg.d_model, cfg.padded_vocab, **init))
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Transformer:
+def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
+                experts: tuple[int, int] | None = None) -> Transformer:
     """Random parameters drawn on ``device`` (default: the CUDA card; raises
-    without one) from a ``torch.Generator`` seeded with ``seed``."""
+    without one) from a ``torch.Generator`` seeded with ``seed``; an MoE
+    model's layers hold ``experts`` (default: all)."""
     dev = compat.resolve_device(device)
     return Transformer(cfg, torch.Generator(device=dev).manual_seed(seed),
-                       device=dev)
+                       device=dev, experts=experts)
+
+
+def _mlp(p: Block, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    return x + MLP.forward(p.mlp, cfg, L.apply_norm(p.ln2, x, cfg.norm))
+
+
+def _attn_ffn(p: Block, cfg: ModelConfig, x: torch.Tensor,
+              decode: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """An attention block's branch after attention: x + MLP (aux None), or
+    x + MoE and its aux loss for an MoE config."""
+    if not cfg.is_moe:
+        return _mlp(p, cfg, x), None
+    m, aux = MOE.forward(p.moe, cfg, L.apply_norm(p.ln2, x, cfg.norm),
+                         decode=decode)
+    return x + m, aux
 
 
 def _block_forward(p: Block, cfg: ModelConfig, kind: str, x: torch.Tensor,
-                   rot) -> torch.Tensor:
-    """One full-sequence layer; ``rot``: the RoPE tables of attention."""
+                   rot) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One full-sequence layer; ``rot``: the RoPE tables of attention.
+    Returns (x, the MoE aux loss or None)."""
     h = L.apply_norm(p.ln1, x, cfg.norm)
     if kind in ("attn", "local"):
         x = x + ATT.forward(p.attn, cfg, h, local=(kind == "local"), rot=rot)
-    elif kind == "rglru":
-        x = x + REC.forward(p.rec, cfg, h)
-    elif kind == "mlstm":
-        return x + XL.mlstm_forward(p.cell, cfg, h)
-    else:
-        x = x + XL.slstm_forward(p.cell, cfg, h)
-        return x + _ffn(p.ffn, L.apply_norm(p.ln2, x, cfg.norm))
-    return x + MLP.forward(p.mlp, cfg, L.apply_norm(p.ln2, x, cfg.norm))
+        return _attn_ffn(p, cfg, x)
+    if kind == "rglru":
+        return _mlp(p, cfg, x + REC.forward(p.rec, cfg, h)), None
+    if kind == "mlstm":
+        return x + XL.mlstm_forward(p.cell, cfg, h), None
+    x = x + XL.slstm_forward(p.cell, cfg, h)
+    return x + _ffn(p.ffn, L.apply_norm(p.ln2, x, cfg.norm)), None
 
 
 def _block_decode(p: Block, cfg: ModelConfig, kind: str, x: torch.Tensor,
@@ -141,14 +153,13 @@ def _block_decode(p: Block, cfg: ModelConfig, kind: str, x: torch.Tensor,
     if kind in ("attn", "local"):
         x = x + ATT.decode_step(p.attn, cfg, h, cache, index,
                                 local=(kind == "local"), rot=rot)[0]
-    elif kind == "rglru":
-        x = x + REC.decode_step(p.rec, cfg, h, cache)[0]
-    elif kind == "mlstm":
+        return _attn_ffn(p, cfg, x, decode=True)[0]
+    if kind == "rglru":
+        return _mlp(p, cfg, x + REC.decode_step(p.rec, cfg, h, cache)[0])
+    if kind == "mlstm":
         return x + XL.mlstm_decode_step(p.cell, cfg, h, cache)[0]
-    else:
-        x = x + XL.slstm_decode_step(p.cell, cfg, h, cache)[0]
-        return x + _ffn(p.ffn, L.apply_norm(p.ln2, x, cfg.norm))
-    return x + MLP.forward(p.mlp, cfg, L.apply_norm(p.ln2, x, cfg.norm))
+    x = x + XL.slstm_decode_step(p.cell, cfg, h, cache)[0]
+    return x + _ffn(p.ffn, L.apply_norm(p.ln2, x, cfg.norm))
 
 
 def block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, *,
@@ -170,11 +181,17 @@ def block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, *,
 def embed_inputs(params: Transformer, cfg: ModelConfig, *,
                  tokens: torch.Tensor | None = None,
                  features: torch.Tensor | None = None) -> torch.Tensor:
-    """Token embeddings in the activation dtype (gathered, then cast: the
-    same values as the reference's cast-then-gather)."""
+    """Token embeddings, stub-frontend features, or both (the VLM prepends
+    the features), in the activation dtype: features cast, then projected
+    by ``frontend``; embeddings gathered, then cast (the same values as the
+    reference's cast-then-gather)."""
+    parts = []
     if features is not None:
-        raise _not_ported(cfg, "frontend")
-    return params.embed[tokens.long()].to(cfg.activation_dtype)
+        parts.append(L.dense(params.frontend,
+                             features.to(cfg.activation_dtype)))
+    if tokens is not None:
+        parts.append(params.embed[tokens.long()].to(cfg.activation_dtype))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, 1)
 
 
 def _rotary(cfg: ModelConfig, positions: torch.Tensor):
@@ -184,12 +201,15 @@ def _rotary(cfg: ModelConfig, positions: torch.Tensor):
 
 def forward_hidden(params: Transformer, cfg: ModelConfig, x: torch.Tensor
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run the block stack.  Returns (hidden, total aux loss), the aux loss
-    zero without MoE."""
+    """Run the block stack.  Returns (hidden, total aux loss): the MoE
+    layers' aux losses summed in layer order, zero without MoE."""
     rot = _rotary(cfg, torch.arange(x.shape[1], device=x.device)[None, :])
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, layer in zip(cfg.block_kinds, params.layers):
-        x = _block_forward(layer, cfg, kind, x, rot)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux = _block_forward(layer, cfg, kind, x, rot)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return x, aux_total
 
 
 def logits_fn(params: Transformer, cfg: ModelConfig,
@@ -208,12 +228,17 @@ def logits_fn(params: Transformer, cfg: ModelConfig,
 
 def loss_fn(params: Transformer, cfg: ModelConfig, batch: dict
             ) -> tuple[torch.Tensor, dict]:
-    """batch keys: tokens, labels, mask? (batch-major).  Forward only."""
+    """batch keys: tokens? features? labels, mask? (batch-major).  Forward
+    only.  Where the logits outnumber the labels (the VLM's patches lead),
+    the loss takes the trailing text positions."""
     x = embed_inputs(params, cfg, tokens=batch.get("tokens"),
                      features=batch.get("features"))
     x, aux = forward_hidden(params, cfg, x)
     logits = logits_fn(params, cfg, x)
-    ce = L.cross_entropy(logits, batch["labels"], batch.get("mask"))
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:
+        logits = logits[:, -labels.shape[1]:]
+    ce = L.cross_entropy(logits, labels, batch.get("mask"))
     loss = ce + cfg.router_aux_weight * aux
     return loss, {"ce": ce, "aux": aux}
 
@@ -222,7 +247,6 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
                 device=None) -> list[dict]:
     """One decode state per layer (``block_cache``), on ``device`` (default:
     the CUDA card; raises without one)."""
-    check_ported(cfg)
     dev = compat.resolve_device(device)
     return [block_cache(cfg, kind, batch, max_len, device=dev)
             for kind in cfg.block_kinds]

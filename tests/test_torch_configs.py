@@ -28,6 +28,10 @@ from repro_torch.models.convert import from_reference, load
 from repro_torch.models.transformer import Transformer
 
 DENSE = ["stablelm-3b", "qwen2-7b", "codeqwen1.5-7b", "command-r-35b"]
+#: The attention archs: the dense decoders, the MoE decoders and the
+#: stub-frontend models.
+ATTENTION = DENSE + ["qwen3-moe-235b-a22b", "grok-1-314b", "hubert-xlarge",
+                     "internvl2-2b"]
 
 
 def _fields(cfg) -> dict:
@@ -124,7 +128,7 @@ def test_full_width_parameters_match_reference_tree(arch):
     assert sum(p.numel() for p in model.parameters()) == _tree_size(ref)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ATTENTION)
 @pytest.mark.parametrize("shape", sorted(SHAPES))
 def test_input_specs_match_reference(arch, shape):
     got = input_specs(ARCHS[arch], SHAPES[shape])

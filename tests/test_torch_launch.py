@@ -1,8 +1,8 @@
 """The port's serving layer (``repro_torch.launch``) against the
 reference's on the CPU: the reference CLI's traffic (4 slots, max_len 128,
 8 requests of 8-token prompts from numpy's seed 0, 16 new tokens each)
-through both ``BatchedServer``s on the reduced qwen2-7b, recurrentgemma-9b
-and xlstm-1.3b in f32 with the same converted weights gives the same
+through both ``BatchedServer``s on the reduced qwen2-7b, recurrentgemma-9b,
+xlstm-1.3b, qwen3-moe-235b-a22b, grok-1-314b and internvl2-2b in f32 with the same converted weights gives the same
 tokens, and the prefill/decode clock split holds as in the reference's own
 test.  Neither server resets a slot's recurrent state when it refills the
 slot, so the second wave of four requests starts from the first wave's
@@ -57,6 +57,14 @@ def test_served_tokens_equal_the_reference_servers():
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-1.3b"])
 def test_recurrent_served_tokens_equal_the_reference_servers(arch):
+    _served_tokens_equal(arch)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "grok-1-314b",
+                                  "internvl2-2b"])
+def test_moe_and_vlm_served_tokens_equal_the_reference_servers(arch):
+    """The MoE decoders prefill by decode, so every served step routes
+    with the sort semantics over the four slots; the VLM serves text."""
     _served_tokens_equal(arch)
 
 

@@ -239,13 +239,6 @@ def test_to_serving_keeps_f32_what_the_reference_uses_in_f32(arch):
     _to_serving_casts_what_the_reference_casts_at_use(arch)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "hubert-xlarge"])
-def test_later_slices_raise(arch):
-    cfg = reduced_config(ARCHS[arch])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TF.init_params(cfg, device="cpu")
-
-
 def _qkv(shape_q, shape_kv, seed=0):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(s).astype(np.float32)

@@ -222,7 +222,7 @@ def _port_layers(arch, dtype, kernels, mixer):
             else:
                 rot = ATT.rotary(cfg, torch.arange(S)[None]) \
                     if kind in ("attn", "local") else None
-                fwd = TF._block_forward(layer, cfg, kind, x, rot)
+                fwd = TF._block_forward(layer, cfg, kind, x, rot)[0]
             state = TF.block_cache(cfg, kind, B, S, device="cpu")
             dec = []
             for t in range(S):

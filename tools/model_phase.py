@@ -1,6 +1,9 @@
 #!/usr/bin/env python3
 """The model path alone, on one H100: ``python3 tools/model_phase.py
-[arch ...]`` (default: every arch of ``chip_smoke.MODEL_RUNS``).
+[arch ...] [--experts LO HI] [--layers N]`` (default: every arch of
+``chip_smoke.MODEL_RUNS``, each with its own run; ``--experts`` and
+``--layers`` replace an MoE arch's expert share and depth, e.g.
+``python3 tools/model_phase.py qwen3-moe-235b-a22b --experts 8 16``).
 
 Builds the four model-path kernels (decode and flash attention, the
 RG-LRU scan, the mLSTM), holds the two attention kernels against their
@@ -14,6 +17,7 @@ JSON lines.
 """
 from __future__ import annotations
 
+import argparse
 import pathlib
 import sys
 
@@ -28,10 +32,19 @@ def main(argv) -> int:
     import chip_smoke as cs
     from repro_torch import compat
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("archs", nargs="*", help="archs of chip_smoke.MODEL_RUNS")
+    ap.add_argument("--experts", type=int, nargs=2, metavar=("LO", "HI"),
+                    help="the experts an MoE arch's layers hold, lo..hi-1")
+    ap.add_argument("--layers", type=int, help="an MoE arch's depth")
+    args = ap.parse_args(argv)
+    unknown = set(args.archs) - set(cs.MODEL_RUNS)
+    if unknown:
+        ap.error(f"not in chip_smoke.MODEL_RUNS: {sorted(unknown)}")
     if not torch.cuda.is_available():
         print("model_phase: needs the CUDA card", file=sys.stderr)
         return 2
-    archs = argv or list(cs.MODEL_RUNS)
+    archs = args.archs or list(cs.MODEL_RUNS)
     print(cs.nvidia_smi(), flush=True)
     compat.build(["decode_attention", "flash_attention", "rglru",
                   "mlstm_chunk"])
@@ -56,7 +69,11 @@ def main(argv) -> int:
     del card
     wrappers = {name: spec[0] for name, spec in cs.kernel_table().items()}
     for arch in archs:
-        cs.phase_model(dev, wrappers, arch)
+        runs = dict(cs.MODEL_RUNS[arch])
+        if "experts" in runs:
+            runs.update({k: v for k, v in (("experts", args.experts),
+                                           ("layers", args.layers)) if v})
+        cs.phase_model(dev, wrappers, arch, runs)
     return 0
 
 
