@@ -27,7 +27,11 @@ attention on its feature rows; an encoder, prefill only) and
 internvl2-2b (flash attention over patch rows and text, decode attention
 at B 16).  It times each kernel beside its bound, its plain version
 and, where one exists, the one PyTorch call that computes the same
-function.  Three phases without kernels follow: ``serve`` (the
+function.  Four phases without kernels follow: ``workload`` (whole-model
+estimation: qwen2-7b's train, prefill and decode captured at full width
+under FakeTensorMode, composed on the card under two hardware specs,
+swept, and predicted by a session calibrated with the validate report
+beside the model phase's measured steps), ``serve`` (the
 reference's ``serve_smoke`` traffic against
 ``Session(device="cuda").serve()``, every served estimate bit-equal to a
 serial one), ``paper`` (Table IV through the scalar model and the card's
@@ -38,8 +42,8 @@ reference's results in ``tests/data/torch_hlo/``).
 
 Prints one JSON object per phase (env, build with each kernel function's
 counts of Hopper instructions in its SASS, parity, head_sizes, estimator,
-stream, optimize, validate, model once per arch, launches, serve, paper,
-predict);
+stream, optimize, validate, model once per arch, launches, workload,
+serve, paper, predict);
 then the ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -1107,7 +1111,9 @@ def phase_optimize(device, full) -> None:
           f"optimize: the descent did not run: {descend}")
 
 
-def phase_validate(device) -> None:
+def phase_validate(device):
+    """``Session.validate`` over the seven card-scale kernels; returns the
+    report (the workload phase calibrates a session with it)."""
     import numpy as np
 
     import repro_torch as rt
@@ -1132,6 +1138,7 @@ def phase_validate(device) -> None:
     check(anchor.err_pct < 1e-6, f"anchor error {anchor.err_pct}")
     emit({"phase": "validate", "measured_bw_gbs": rep.measured_bw / 1e9,
           "calibration_factor": rep.calibration_factor, "rows": rows})
+    return rep
 
 
 #: The reference's ``serve_smoke`` traffic (benchmarks/serve_bench.py).
@@ -1412,7 +1419,8 @@ def phase_predict(device) -> None:
 #: router at its 128 outputs and 8 experts a token, attention whole (more
 #: than a chip's share) and the whole vocabulary.
 MODEL_RUNS = {
-    "qwen2-7b": dict(prefill=(2, 4096), decode=(8, 32768)),
+    # the plain path timed too: the workload phase predicts it
+    "qwen2-7b": dict(prefill=(2, 4096), decode=(8, 32768), time_plain=True),
     "recurrentgemma-9b": dict(prefill=(2, 4096), decode=(128, 32768),
                               long=(1, 524288)),
     # prefill cut to S 2,048: the six sLSTM layers are an eager loop over
@@ -1775,8 +1783,10 @@ def phase_model(device, wrappers: dict, arch: str, runs: dict | None = None
     its routing (``routing``) on each part's counted run and the choices
     that the plain and f32 runs make otherwise; its bounds multiply the
     rows the held experts keep and read the held experts that kept one.
-    The checks and timings launch more and are not counted.  ``runs``
-    defaults to ``MODEL_RUNS[arch]``.  Returns the counts by part."""
+    The checks and timings launch more and are not counted; with
+    ``time_plain`` the plain path's prefill and decode step are timed too.
+    ``runs`` defaults to ``MODEL_RUNS[arch]``.  Returns the counts by part
+    and the parts' results (with ``init``)."""
     import dataclasses
 
     import numpy as np
@@ -1827,10 +1837,13 @@ def phase_model(device, wrappers: dict, arch: str, runs: dict | None = None
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     held = runs.get("experts")
-    model = to_serving(TF.init_params(cfg, seed=0, device=device,
-                                      experts=held))
+    model = TF.init_params(cfg, seed=0, device=device, experts=held)
+    built_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    model = to_serving(model)
     torch.cuda.synchronize()
     init = {"seconds": time.perf_counter() - t0, "layers": cfg.n_layers,
+            "param_bytes_as_built": built_bytes,
             "peak_bytes": torch.cuda.max_memory_allocated(),
             "serving_bytes": sum(p.numel() * p.element_size()
                                  for p in model.parameters())}
@@ -1926,6 +1939,10 @@ def phase_model(device, wrappers: dict, arch: str, runs: dict | None = None
     part_a["ms"] = time_ms(lambda: prefill(model, batch), device, iters=2,
                            warmup=1)
     part_a["tok_per_s"] = B * S / part_a["ms"] * 1e3
+    if runs.get("time_plain"):
+        plain_step = make_prefill_step(plain_cfg)
+        part_a["plain_ms"] = time_ms(lambda: plain_step(model, batch), device,
+                                     iters=1, warmup=1)
     part_a["profile"] = device_profile(lambda: prefill(model, batch), top=8)
     if "slstm_forward" in calls:
         from repro_torch.models import xlstm as XL
@@ -2006,6 +2023,11 @@ def phase_model(device, wrappers: dict, arch: str, runs: dict | None = None
         part.update(state_bytes=states, **weights, states_drawn=STATE_DRAW)
         ms = time_ms(lambda: step(model, tok, caches, index), device,
                      iters=5, warmup=2)
+        if runs.get("time_plain"):
+            plain_step = make_decode_step(plain_cfg)
+            part["plain_ms_per_step"] = time_ms(
+                lambda: plain_step(model, tok, caches, index), device,
+                iters=3, warmup=1)
         part.update(ms_per_step=ms, tok_per_s=B / ms * 1e3,
                     bound_tok_per_s=B / part["bound_ms"] * 1e3,
                     profile=device_profile(
@@ -2072,7 +2094,236 @@ def phase_model(device, wrappers: dict, arch: str, runs: dict | None = None
     del model
     torch.cuda.empty_cache()
     check(not deferred, "; ".join(deferred))
-    return launches
+    return launches, {"init": init, **parts}
+
+
+#: The workload phase captures the arch of the model phase's first run at
+#: the shapes that phase serves it at: prefill and train at its prefill
+#: shape, decode at its decode shape.
+WORKLOAD_ARCH = "qwen2-7b"
+WORKLOAD_HARDWARE = ("stratix10_ddr4_1866", "tpu_v5e")
+#: The model sweeps: (prefill, decode) x batch (1, 8) at 4,096 rows, and
+#: decode at 32,768, each over shards (1, 4, 8) and three hardware specs.
+#: Prefill at 32,768 is left out: the plain path's blocked attention runs
+#: 1,056 (q-block, kv-block) pairs a layer there, ~620,000 ATen ops a
+#: capture at ~0.5 ms each under FakeTensorMode.
+WORKLOAD_SWEEPS = (dict(phases=("prefill", "decode"), batch=(1, 8),
+                        seq_len=(4096,)),
+                   dict(phases=("decode",), batch=(1, 8), seq_len=(32768,)))
+WORKLOAD_SWEEP_AXES = dict(shards=(1, 4, 8),
+                           hardware=(None, "tpu_v5e", "stratix10_ddr4_1866"))
+WORKLOAD_CHUNK = 7
+
+
+def _bytes_by_class(records) -> dict:
+    out: dict = {}
+    for r in records:
+        for k, v in r.bytes_by_class.items():
+            out[k] = out.get(k, 0.0) + v
+    return out
+
+
+def phase_workload(device, wrappers: dict, model_parts: dict,
+                   validated) -> None:
+    """Whole-model estimation on the card (``repro_torch.workload``) for
+    ``WORKLOAD_ARCH`` at the model phase's shapes, launching no kernel:
+
+    1. capture ``prefill`` and ``train`` at the prefill shape and
+       ``decode`` at the decode shape (``workload.steps``, FakeTensorMode:
+       no device memory may be allocated); the prefill's products must
+       equal, within 1 %, the operations the model phase's prefill bound
+       counts once the plain path's whole diagonal blocks are added (the
+       bound counts the causal pairs alone), the train's hold its
+       backward, and ``param_bytes`` equal the bytes of the model that
+       phase built;
+    2. compose them on the card under each of ``WORKLOAD_HARDWARE``: every
+       phase total equals the sum of per-op ``Session.estimate`` at 1e-6,
+       every per-op time equals a CPU session's to rtol 1e-12, and
+       ``estimate_model`` from the config gives the composed decode total;
+    3. ``sweep_model`` over ``WORKLOAD_SWEEPS`` on the card: streaming
+       (chunk ``WORKLOAD_CHUNK``) equals the materialized grid bit for bit;
+       points/s;
+    4. recorded, not gated: a session calibrated by the validate phase's
+       report predicts the captured prefill and decode, beside the model
+       phase's measured plain-path (what was captured) and kernel-path ms;
+    5. every wrapper's launch count is unchanged across the phase.
+    """
+    import numpy as np
+    import torch
+
+    import repro_torch as rt
+    from repro_torch import hw
+    from repro_torch.configs import get_config
+    from repro_torch.core.stream import StatsReducer
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.models.layers import _block_schedule
+    from repro_torch.workload import compose_model, steps
+
+    t_phase = time.perf_counter()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    cfg = get_config(WORKLOAD_ARCH)
+    runs = MODEL_RUNS[WORKLOAD_ARCH]
+    shapes = {"prefill": runs["prefill"], "train": runs["prefill"],
+              "decode": runs["decode"]}
+
+    # (1) capture at full width
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    records, capture = {}, {}
+    for phase, (B, S) in shapes.items():
+        t0 = time.perf_counter()
+        recs = steps.phase_records(cfg, phase, batch=B, seq_len=S,
+                                   device=device)
+        records[phase] = recs
+        capture[phase] = {
+            "batch": B, "seq": S, "seconds": time.perf_counter() - t0,
+            "records": len(recs), "bytes_by_class": _bytes_by_class(recs),
+            "flops": sum(r.flops for r in recs),
+            "matmul_flops": sum(r.flops for r in recs
+                                if r.op_class == "matmul")}
+    # FakeTensorMode probes the device context with a one-element tensor
+    # (init_gpu_context: 4 bytes, one 512-byte block); the smallest
+    # parameter of the arch (a K bias, f32) is 2 KiB
+    grown = torch.cuda.max_memory_allocated() - allocated
+    capture["device_bytes_peak_growth"] = grown
+    check(torch.cuda.memory_allocated() == allocated and grown <= 1024,
+          f"workload: a capture allocated device memory ({grown} B at peak)")
+    # The bound counts the causal pairs the flash kernel multiplies; the
+    # captured plain path multiplies whole blocks of its schedule.
+    B, S = shapes["prefill"]
+    bq, bkv = min(cfg.attn_block_q, S), min(cfg.attn_block_kv, S)
+    blocked = bq * bkv * len(_block_schedule(
+        -(-S // bq), -(-S // bkv), bq, bkv, causal=True, window=None,
+        q_offset=0))
+    check(set(cfg.block_kinds) == {"attn"}, "workload: a dense arch expected")
+    whole_blocks = 4.0 * B * cfg.n_heads * cfg.head_dim * cfg.n_layers * (
+        blocked - FA.live_pairs(S, S))
+    bound_ops = model_parts["prefill"]["flops"]
+    got = capture["prefill"]["matmul_flops"]
+    capture["prefill"].update(
+        model_bound_flops=bound_ops, whole_block_flops=whole_blocks,
+        matmul_flops_over_model_bound=got / bound_ops,
+        matmul_flops_over_bound_with_whole_blocks=got
+        / (bound_ops + whole_blocks))
+    check(abs(got - bound_ops - whole_blocks) <= 0.01 * bound_ops,
+          f"workload: prefill products {got:.6g} against the model phase's "
+          f"{bound_ops:.6g} and {whole_blocks:.6g} of whole blocks")
+    # the backward (two products a forward product) was recorded too
+    check(capture["train"]["matmul_flops"]
+          >= 3 * capture["prefill"]["matmul_flops"],
+          "workload: the train capture lacks its backward")
+    pbytes = steps.param_bytes(cfg)
+    check(pbytes == model_parts["init"]["param_bytes_as_built"],
+          f"workload: param_bytes {pbytes} against the built model's "
+          f"{model_parts['init']['param_bytes_as_built']}")
+
+    # (2) estimate on the card, against the CPU and per-op estimates
+    card, cpu = rt.Session(device=device), rt.Session(device="cpu")
+    estimates = {}
+    for name in WORKLOAD_HARDWARE:
+        spec = hw.get(name)
+        on_card, on_cpu = card.with_hardware(spec), cpu.with_hardware(spec)
+        t0 = time.perf_counter()
+        rep = compose_model(on_card, cfg.name, records)
+        seconds = time.perf_counter() - t0
+        ref = compose_model(on_cpu, cfg.name, records)
+        single: dict = {}
+        rows = {}
+        for ph, ph_cpu in zip(rep.phases, ref.phases):
+            a = np.array([op.t_exe for op in ph.ops])
+            b = np.array([op.t_exe for op in ph_cpu.ops])
+            check(len(a) == len(b) and np.allclose(a, b, rtol=1e-12, atol=0),
+                  f"workload {name} {ph.name}: card per-op times differ from "
+                  "the CPU's")
+            summed = 0.0
+            for op in ph.ops:
+                key = (op.design.lsus, op.design.f)
+                if key not in single:
+                    single[key] = on_card.estimate(op.design).t_exe
+                summed += single[key]
+            check(abs(ph.t_total - summed) <= 1e-6 * summed,
+                  f"workload {name} {ph.name}: total {ph.t_total} is not the "
+                  f"sum of per-op estimates {summed}")
+            rows[ph.name] = {
+                "t_total_ms": ph.t_total * 1e3,
+                "t_compute_ms": ph.t_compute * 1e3,
+                "bottleneck": ph.bottleneck, "scored_ops": len(ph.ops),
+                "max_rel_card_vs_cpu": float(np.max(
+                    np.abs(a - b) / np.maximum(np.abs(b), 1e-300))),
+                "by_class_ms": {d["op_class"]: d["t_exe"] * 1e3
+                                for d in ph.by_class()}}
+        entry = on_card.estimate_model(cfg, phases=("decode",),
+                                       batch=shapes["decode"][0],
+                                       seq_len=shapes["decode"][1])
+        check(entry.total_latency() == rep.phase("decode").t_total,
+              f"workload {name}: estimate_model's decode differs from the "
+              "composed capture")
+        estimates[name] = {"compose_seconds": seconds,
+                           "distinct_designs": len(single),
+                           "split": rep.split(), "phases": rows}
+
+    # (3) model sweeps on the card: streaming == materialized
+    sweeps = []
+    for grid in WORKLOAD_SWEEPS:
+        t0 = time.perf_counter()
+        plan = card.plan_model(cfg, **grid, **WORKLOAD_SWEEP_AXES,
+                               chunk_size=WORKLOAD_CHUNK)
+        t_plan = time.perf_counter() - t0
+        check(plan.device == str(device), f"workload: plan on {plan.device}")
+        t0 = time.perf_counter()
+        full = plan.materialize()
+        t_full = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        streamed = card.sweep_model(plan=plan, chunk_size=WORKLOAD_CHUNK)
+        t_stream = time.perf_counter() - t0
+        ids = streamed.cols["id"].astype(np.int64)
+        check(streamed.streaming and streamed.n_points == plan.n
+              and all(np.array_equal(np.asarray(full[k])[ids],
+                                     streamed.cols[k]) for k in full),
+              f"workload: streamed sweep {grid} differs from the "
+              "materialized one")
+        # a chunk's float sum rounds by the chunk: sums to 1e-12
+        whole = StatsReducer()
+        whole.update(full)
+        want = whole.summary()
+        check(all(streamed.stats[k] == want[k] for k in (
+            "n_points", "memory_bound_points", "t_exe_min", "t_exe_min_id",
+            "total_bytes_sum")) and all(math.isclose(
+                streamed.stats[k], want[k], rel_tol=1e-12)
+                for k in ("t_exe_sum", "t_exe_mean", "t_exe_var")),
+              f"workload: streamed stats {grid} differ from the "
+              "materialized grid's")
+        sweeps.append({**{k: list(v) for k, v in grid.items()},
+                       "points": plan.n, "plan_seconds": t_plan,
+                       "materialized_points_per_s": plan.n / t_full,
+                       "streamed_points_per_s": plan.n / t_stream,
+                       "best": streamed.best()})
+
+    # (4) the calibrated session's prediction beside the measured steps
+    calibrated = compose_model(card.with_calibration(validated), cfg.name,
+                               {p: records[p] for p in ("prefill", "decode")})
+    measured = {"prefill": (model_parts["prefill"]["plain_ms"],
+                            model_parts["prefill"]["ms"]),
+                "decode": (model_parts["decode"]["plain_ms_per_step"],
+                           model_parts["decode"]["ms_per_step"])}
+    predicted = {
+        p: {"predicted_ms": calibrated.phase(p).t_total * 1e3,
+            "measured_plain_ms": measured[p][0],
+            "measured_kernel_ms": measured[p][1],
+            "predicted_over_plain": calibrated.phase(p).t_total * 1e3
+            / measured[p][0]} for p in measured}
+
+    # (5) no kernel launched
+    after = {name: fn.launches for name, fn in wrappers.items()}
+    check(after == launches, f"workload: kernels launched {launches} -> "
+          f"{after}")
+    emit({"phase": "workload", "arch": cfg.name, "capture": capture,
+          "param_bytes": pbytes, "estimate": estimates, "sweeps": sweeps,
+          "calibrated": {"measured_bw_gbs": validated.measured_bw / 1e9,
+                         "calibration_factor": validated.calibration_factor,
+                         **predicted},
+          "seconds": time.perf_counter() - t_phase})
 
 
 def time_ms(fn, device, iters=20, warmup=3) -> float:
@@ -2217,7 +2468,7 @@ def main() -> int:
         fn.launches = 0
     phase_estimator(device)
     phase_optimize(device, phase_stream(device))
-    phase_validate(device)
+    validated = phase_validate(device)
     main_path = {name: fn.launches for name, fn in wrappers.items()}
     for name, count in main_path.items():
         check(count > 0, f"{name} was never launched on the main path")
@@ -2225,13 +2476,16 @@ def main() -> int:
     # The model paths: each arch's prefill, decode and server, each part
     # with the counts at zero just before it and read just after.
     launches = {"main_path": main_path}
-    by_part = {}
+    by_part, model_parts = {}, {}
     for arch in MODEL_RUNS:
-        by_part[arch] = phase_model(device, wrappers, arch)
+        by_part[arch], model_parts[arch] = phase_model(device, wrappers, arch)
         launches[f"model_path/{arch}"] = {
             name: sum(part[name] for part in by_part[arch].values())
             for name in wrappers}
     emit({"phase": "launches", **launches, "model_path_by_part": by_part})
+
+    # Whole-model estimation of the first arch's phases launches no kernel.
+    phase_workload(device, wrappers, model_parts[WORKLOAD_ARCH], validated)
 
     # Serving, the paper's tables and the HLO predictor launch no kernel.
     phase_serve(device)

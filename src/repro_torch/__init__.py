@@ -18,6 +18,9 @@ measured kernels:
     >>> sess.validate()                             # the seven-kernel table
     >>> with sess.serve() as srv: srv.estimate(d)   # micro-batched + cached
     >>> sess.predict(hlo_text)                      # compiled HLO -> step time
+    >>> from repro_torch.configs import get_config
+    >>> sess.estimate_model(get_config("qwen2-7b"),     # a whole model step,
+    ...                     phases=("prefill", "decode"))  # captured op by op
 
 ``Session(device="cpu")`` runs the same pipeline on the CPU, with the
 kernels' plain PyTorch versions in place of the CUDA kernels.
@@ -51,6 +54,16 @@ from repro_torch.search import (
     ResourceEnvelope,
     within,
 )
+# Whole-model estimation (Session.estimate_model / plan_model / sweep_model
+# return these).
+from repro_torch.workload import (
+    ModelReport,
+    ModelSweepPlan,
+    ModelSweepReport,
+    OpEstimate,
+    OpRecord,
+    PhaseReport,
+)
 
 DDR4_1866 = hw.get("stratix10_ddr4_1866").dram_params()
 DDR4_2666 = hw.get("stratix10_ddr4_2666").dram_params()
@@ -68,6 +81,8 @@ __all__ = [
     "SweepReport", "ValidateReport", "RooflineReport", "BACKENDS",
     "EXECUTORS", "DEFAULT_CHUNK", "ResourceEnvelope", "Constraint", "within",
     "OptimizeReport",
+    "ModelReport", "PhaseReport", "OpEstimate", "OpRecord",
+    "ModelSweepPlan", "ModelSweepReport",
     "Server", "ServerClosed", "ServerOverloaded", "RequestTimeout",
     "hw", "Hardware", "MemorySystem", "DramOrganization", "ClockDomain",
     "Lsu", "LsuType", "make_global_access",

@@ -16,9 +16,10 @@ Port of ``repro.api`` for the paper's main loop:
   ``device="cpu"``.  ``sweep`` materializes or streams (with the device
   fold, constraints and a process executor), ``plan`` describes a
   streaming sweep as picklable data, ``optimize`` searches a grid without
-  enumerating it, ``predict``/``roofline`` read compiled HLO text, and
-  ``serve`` turns the session into a concurrent query service
-  (:class:`repro_torch.core.serving.Server`).
+  enumerating it, ``predict``/``roofline`` read compiled HLO text,
+  ``estimate_model``/``plan_model``/``sweep_model`` score whole model steps
+  (:mod:`repro_torch.workload`), and ``serve`` turns the session into a
+  concurrent query service (:class:`repro_torch.core.serving.Server`).
 
     >>> from repro_torch import Design, Session, Space, LsuType
     >>> sess = Session()                     # DDR4-1866 on the CUDA card
@@ -148,6 +149,26 @@ class Design:
         return cls.from_classes(dict(hc.bytes_by_class),
                                 access_bytes=access_bytes,
                                 flops=float(hc.flops), name=name)
+
+    @classmethod
+    def from_kernel(cls, fn, *args, name: str = "",
+                    access_bytes: int | None = None) -> "Design":
+        """Design from a torch callable and example arguments: the call is
+        captured op by op under ``FakeTensorMode`` (nothing runs or is
+        allocated; :func:`repro_torch.workload.walk_callable`) and its
+        access-class bytes and FLOPs summed.  ``args`` are example tensors
+        (real or fake; only their shapes, dtypes and devices are read)."""
+        from repro_torch.workload.capture import walk_callable
+
+        bytes_by_class: dict[str, float] = {}
+        flops = 0.0
+        for r in walk_callable(fn, *args):
+            flops += r.flops
+            for k, v in r.bytes_by_class.items():
+                bytes_by_class[k] = bytes_by_class.get(k, 0.0) + v
+        return cls.from_classes(bytes_by_class, access_bytes=access_bytes,
+                                flops=flops,
+                                name=name or getattr(fn, "__name__", "kernel"))
 
     def with_dram(self, dram: DramParams) -> "Design":
         return dataclasses.replace(self, dram=dram)
@@ -1096,6 +1117,181 @@ class Session:
 
         return _pred.predict_step(hlo_text, cost, self.hw,
                                   gather_row_bytes=gather_row_bytes)
+
+    # -- whole-model estimation (repro_torch.workload) ----------------------
+
+    def _model_records(self, model, args, *, phases, batch, seq_len,
+                       fused) -> tuple[str, dict[str, list]]:
+        """(model name, phase -> op records) for every input form
+        ``estimate_model``/``plan_model`` accept: compiled HLO text, a
+        mapping of phase name -> HLO text (both walked, ``fused`` applies),
+        a model-zoo config (its ``phases`` captured on this session's
+        device by ``workload.steps``), or a torch callable with example
+        args (captured op by op)."""
+        from repro_torch import workload as _wl
+
+        if isinstance(model, str):
+            return "hlo", {"step": _wl.walk_module(model, fused=fused)}
+        if isinstance(model, Mapping):
+            return "hlo", {str(k): _wl.walk_module(str(v), fused=fused)
+                           for k, v in model.items()}
+        if hasattr(model, "block_pattern"):     # models.config.ModelConfig
+            from repro_torch.workload import steps as _steps
+
+            return model.name, {
+                p: _steps.phase_records(model, p, batch=batch,
+                                        seq_len=seq_len, device=self.device)
+                for p in phases}
+        if callable(model):
+            return getattr(model, "__name__", "model"), {
+                "step": _wl.walk_callable(model, *args)}
+        raise TypeError(
+            f"estimate_model wants HLO text, a mapping of phase -> HLO "
+            f"text, a ModelConfig, or a torch callable; got "
+            f"{type(model).__name__}")
+
+    def estimate_model(self, model, *args, phases=("train", "decode"),
+                       batch: int = 1, seq_len: int = 128, name: str = "",
+                       access_bytes: int | None = None,
+                       fused: bool = True):
+        """End-to-end estimate of a whole model step.
+
+        Walks every op of each phase (``workload.walk_module`` for HLO
+        text, ``workload.walk_callable`` for the port's own steps), maps
+        each op's
+        access-class traffic onto LSU groups, scores all ops in **one**
+        batched Eqs. 1-10 pass on this session's backend and device, and
+        composes a :class:`~repro_torch.workload.ModelReport` — per-phase
+        totals (the sum of the per-op estimates), per-layer and per-op-class
+        breakdowns, and the aggregate roofline position.
+
+        ``model`` may be compiled HLO text, a ``{phase: hlo_text}``
+        mapping, a model-zoo :class:`~repro_torch.models.config.ModelConfig`
+        (its ``phases`` captured at ``batch`` x ``seq_len``), or a torch
+        callable with example ``*args``.
+        """
+        from repro_torch import workload as _wl
+
+        mname, records = self._model_records(
+            model, args, phases=phases, batch=batch, seq_len=seq_len,
+            fused=fused)
+        return _wl.compose_model(self, name or mname, records,
+                                 access_bytes=access_bytes)
+
+    def plan_model(self, model, *, phases=("decode",), batch=(1,),
+                   seq_len=(128,), shards=(1,), hardware=(None,),
+                   chunk_size: int = 256, access_bytes: int | None = None,
+                   fused: bool = True, name: str = ""):
+        """A frozen, picklable whole-model sweep plan.
+
+        Every distinct ``(phase, batch, seq_len)`` combination is walked or
+        captured **once here** (the only step that needs the model code);
+        the returned :class:`~repro_torch.workload.ModelSweepPlan` is pure
+        data, carrying this session's device as a string — JSON/pickle it
+        to any process and stream it there.  ``hardware`` axis values may
+        be specs, preset names, or ``None`` (= this session's hardware).
+        """
+        from repro_torch import workload as _wl
+        from repro_torch.core import validate as _validate
+
+        phases = tuple(phases)
+        batch = tuple(int(b) for b in batch)
+        seq_len = tuple(int(s) for s in seq_len)
+        tables: dict[str, tuple] = {}
+        mname = name
+        for b in batch:
+            for s in seq_len:
+                pname, records = self._model_records(
+                    model, (), phases=phases, batch=b, seq_len=s,
+                    fused=fused)
+                mname = mname or pname
+                for p in phases:
+                    if p not in records:
+                        raise ValueError(
+                            f"phase {p!r} not in walked phases "
+                            f"{list(records)}")
+                    tables[f"{p}|{b}|{s}"] = tuple(
+                        {"classes": dict(r.bytes_by_class),
+                         "flops": r.flops}
+                        for r in records[p] if r.total_bytes > 0)
+        pbytes = 0.0
+        if hasattr(model, "block_pattern"):
+            from repro_torch.workload import steps as _steps
+
+            pbytes = _steps.param_bytes(model)
+        return _wl.ModelSweepPlan(
+            model=mname or "model",
+            lists={"phase": phases, "batch": batch, "seq_len": seq_len,
+                   "shards": tuple(shards), "hardware": tuple(hardware)},
+            tables=tables, param_bytes=pbytes,
+            dram=self.dram, bsp=self.bsp, backend=self.backend,
+            calibration_factor=float(self.calibration_factor),
+            chunk_size=chunk_size,
+            access_bytes=access_bytes or _validate.ACCESS_BYTES,
+            device=str(self.device))
+
+    def sweep_model(self, model=None, *, plan=None, phases=("decode",),
+                    batch=(1,), seq_len=(128,), shards=(1,),
+                    hardware=(None,), chunk_size: int | None = None,
+                    reducers=None, k: int = 10,
+                    access_bytes: int | None = None, fused: bool = True):
+        """Sweep model shape x sharding x hardware through the streaming
+        engine.
+
+        With ``chunk_size=None`` (default — model grids are small) the
+        whole grid is evaluated in one materialized pass and the report
+        holds every point; with a ``chunk_size`` the grid streams through
+        ``run_stream`` into Pareto/top-k/stats reducers and the report
+        holds the survivors — per-point values are bit-equal either way.
+        Pass a prebuilt ``plan`` to skip the walk.
+        """
+        from repro_torch import workload as _wl
+        from repro_torch.core import stream as _stream
+
+        if plan is None:
+            if model is None:
+                raise ValueError("sweep_model needs a model or a plan")
+            plan = self.plan_model(
+                model, phases=phases, batch=batch, seq_len=seq_len,
+                shards=shards, hardware=hardware,
+                chunk_size=chunk_size or 256, access_bytes=access_bytes,
+                fused=fused)
+        elif chunk_size is not None:
+            plan = dataclasses.replace(plan, chunk_size=chunk_size)
+
+        if chunk_size is None:
+            cols = plan.materialize()
+            stats = _stream.StatsReducer()
+            if len(cols["id"]):
+                stats.update(cols)
+            return _wl.ModelSweepReport(
+                plan, cols, n_total=plan.n, stats=stats.summary(),
+                streaming=False)
+
+        reducers = tuple(reducers) if reducers is not None \
+            else _stream.default_reducers(k)
+        outcome = plan.run(reducers)
+        front = next((r for r in outcome.reducers
+                      if isinstance(r, _stream.ParetoReducer)), None)
+        topk = next((r for r in outcome.reducers
+                     if isinstance(r, _stream.TopKReducer)), None)
+        stats = next((r for r in outcome.reducers
+                      if isinstance(r, _stream.StatsReducer)), None)
+        pieces = [r.cols for r in (front, topk)
+                  if r is not None and r.cols is not None]
+        if pieces:
+            merged = {kk: np.concatenate([p[kk] for p in pieces])
+                      for kk in pieces[0]}
+            _, first = np.unique(
+                np.asarray(merged["id"], dtype=np.int64),
+                return_index=True)
+            merged = {kk: np.asarray(v)[first] for kk, v in merged.items()}
+        else:
+            merged = {kk: np.empty(0) for kk in _wl.MODEL_COLUMNS}
+        return _wl.ModelSweepReport(
+            plan, merged, n_total=outcome.n_points,
+            stats=stats.summary() if stats is not None else None,
+            streaming=True, reducers=outcome.reducers)
 
     # -- serving ------------------------------------------------------------
 

@@ -58,6 +58,23 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def check_real(what: str, *tensors: torch.Tensor) -> None:
+    """Raise where a kernel wrapper is reached on tensors without data: on
+    the ``meta`` device, fake tensors, or under an active fake mode (a
+    capture of :mod:`repro_torch.workload`).  A kernel must not launch on
+    fake data pointers, and its plain version must not stand in for it
+    unseen."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    if any(t.device.type == "meta" or isinstance(t, FakeTensor)
+           for t in tensors) or torch._C._get_dispatch_mode(
+               torch._C._TorchDispatchModeKey.FAKE) is not None:
+        raise RuntimeError(
+            f"{what}: a kernel wrapper was reached on meta or fake tensors; "
+            "a capture runs the model with use_kernels=False and never "
+            "launches a kernel")
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:

@@ -118,6 +118,7 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, softcap: float = 0.0,
                          f"do not match q {tuple(q.shape)}")
     if not (q.device == k_cache.device == v_cache.device):
         raise ValueError("q and the caches must be on one device")
+    compat.check_real("decode_attention", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, kv_len,
                                     softcap=softcap, scale=scale)

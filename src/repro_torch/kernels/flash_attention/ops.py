@@ -103,6 +103,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    compat.check_real("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                              v.transpose(1, 2), causal=causal, window=window,

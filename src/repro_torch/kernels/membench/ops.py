@@ -76,6 +76,7 @@ def _inputs(xs) -> tuple:
                 or x.device != x0.device or not x.is_contiguous()):
             raise ValueError("inputs must be contiguous 1-D arrays of one "
                              "shape, dtype and device")
+    compat.check_real("membench", *xs)
     if x0.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x0.device}")
     return xs

@@ -174,6 +174,7 @@ def mlstm_chunk(q, k, v, li, lf, *, chunk: int = 256):
         raise ValueError("q, k, v and the gates must be on one device")
     if chunk < 1:
         raise ValueError("chunk must be >= 1")
+    compat.check_real("mlstm_chunk", q, k, v, li, lf)
     if q.device.type == "cpu":
         return mlstm_chunk_ref(q, k, v, li, lf, chunk=chunk)
     if q.device.type != "cuda":

@@ -53,6 +53,7 @@ def scan(a, b, *, block_s: int = 256, block_w: int = 512):
         raise ValueError("a and b must be on one device")
     if block_s < 1 or block_w < 1:
         raise ValueError("block_s and block_w must be >= 1")
+    compat.check_real("rglru_scan", a, b)
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b)
     if a.device.type != "cuda":

@@ -21,8 +21,9 @@ port's kernels (K5 on prefill, K4 on decode), which launch or raise; with
 ``use_kernels=False`` it takes the reference's XLA-path counterparts
 (``blocked_attention``/``dense_attention``).  On CPU tensors the kernels'
 wrappers run their plain versions.  The port keeps one module per layer,
-so ``scan_layers_decode`` and ``remat`` are carried for parity and read by
-nothing.
+so ``scan_layers_decode`` is carried for parity and read by nothing;
+``remat`` is read by ``transformer.forward_hidden``, which checkpoints each
+pattern group and each block when autograd records, as the reference does.
 """
 from __future__ import annotations
 

@@ -189,14 +189,18 @@ def blocked_attention(q, k, v, *, causal: bool = True,
     q = (q * (1.0 / math.sqrt(D))).reshape(B, n_q, block_q, Hkv, G, D)
     k = k.reshape(B, n_kv, block_kv, Hkv, D)
     v = v.reshape(B, n_kv, block_kv, Hkv, D)
-    acc = torch.zeros((B, n_q, block_q, Hkv, G, D), dtype=torch.float32,
-                      device=dev)
-    m = torch.full((B, n_q, block_q, Hkv, G), NEG_INF, dtype=torch.float32,
-                   device=dev)
-    l = torch.zeros((B, n_q, block_q, Hkv, G), dtype=torch.float32, device=dev)
+    # the softmax state of each q-block, replaced (not written in place) at
+    # every step, so autograd can differentiate through the schedule
+    acc = [torch.zeros((B, block_q, Hkv, G, D), dtype=torch.float32,
+                       device=dev) for _ in range(n_q)]
+    m = [torch.full((B, block_q, Hkv, G), NEG_INF, dtype=torch.float32,
+                    device=dev) for _ in range(n_q)]
+    l = [torch.zeros((B, block_q, Hkv, G), dtype=torch.float32, device=dev)
+         for _ in range(n_q)]
     q_pos = q_offset + torch.arange(n_q * block_q, device=dev).reshape(n_q, block_q)
     k_pos = torch.arange(n_kv * block_kv, device=dev).reshape(n_kv, block_kv)
-    kv_limit = torch.as_tensor(Skv if kv_len is None else kv_len, device=dev)
+    # a Python int unless the limit is a tensor: no host-made constant
+    kv_limit = Skv if kv_len is None else torch.as_tensor(kv_len, device=dev)
 
     for qi, kj in schedule.tolist():
         s = torch.einsum("bqhgd,bkhd->bqhgk", q[:, qi].float(), k[:, kj].float())
@@ -210,15 +214,16 @@ def blocked_attention(q, k, v, *, causal: bool = True,
             mask = mask & (kp[None, :] > qp[:, None] - window)
         s = torch.where(mask[None, :, None, None, :], s,
                         torch.full_like(s, NEG_INF))
-        m_prev = m[:, qi]
+        m_prev = m[qi]
         m_new = torch.maximum(m_prev, s.amax(-1))
         p = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m_prev - m_new)
-        l[:, qi] = alpha * l[:, qi] + p.sum(-1)
-        acc[:, qi] = acc[:, qi] * alpha[..., None] + torch.einsum(
+        l[qi] = alpha * l[qi] + p.sum(-1)
+        acc[qi] = acc[qi] * alpha[..., None] + torch.einsum(
             "bqhgk,bkhd->bqhgd", p.to(v.dtype).float(), v[:, kj].float())
-        m[:, qi] = m_new
-    out = acc / torch.clamp(l[..., None], min=1e-30)
+        m[qi] = m_new
+    out = torch.stack(acc, 1) / torch.clamp(torch.stack(l, 1)[..., None],
+                                            min=1e-30)
     out = out.reshape(B, n_q * block_q, Hq, D)[:, :Sq]
     return out.to(v.dtype)
 
@@ -288,7 +293,7 @@ def associative_scan(a: torch.Tensor, b: torch.Tensor
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor | None = None,
                   z_loss: float = 1e-4) -> torch.Tensor:
-    """Mean token cross-entropy with z-loss, in f32 (forward only)."""
+    """Mean token cross-entropy with z-loss, in f32."""
     lf = logits.float()
     m = lf.amax(-1, keepdim=True)
     shifted = lf - m

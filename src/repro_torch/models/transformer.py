@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import compat
 from repro_torch.models import attention as ATT
@@ -199,17 +200,48 @@ def _rotary(cfg: ModelConfig, positions: torch.Tensor):
     return ATT.rotary(cfg, positions) if cfg.has_attention else None
 
 
+#: ``torch.utils.checkpoint`` as ``jax.checkpoint``: non-reentrant (so
+#: checkpoints nest), and no RNG state kept (the blocks draw none).
+_REMAT = dict(use_reentrant=False, preserve_rng_state=False)
+
+
 def forward_hidden(params: Transformer, cfg: ModelConfig, x: torch.Tensor
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the block stack.  Returns (hidden, total aux loss): the MoE
-    layers' aux losses summed in layer order, zero without MoE."""
+    layers' aux losses summed in layer order, zero without MoE.
+
+    With ``cfg.remat`` and autograd recording, the reference's hierarchical
+    remat: each pattern group (``cfg.block_pattern``'s consecutive layers)
+    is checkpointed, and every block inside it again (the remainder blocks
+    only at the block level), so the forward keeps group boundaries and the
+    backward recomputes one group, then one block at a time."""
     rot = _rotary(cfg, torch.arange(x.shape[1], device=x.device)[None, :])
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kind, layer in zip(cfg.block_kinds, params.layers):
-        x, aux = _block_forward(layer, cfg, kind, x, rot)
-        if aux is not None:
-            aux_total = aux_total + aux
-    return x, aux_total
+    remat = cfg.remat and torch.is_grad_enabled()
+    n_pat = len(cfg.block_pattern)
+
+    def block(layer, kind, x, aux):
+        if remat:
+            x, a = checkpoint(_block_forward, layer, cfg, kind, x, rot,
+                              **_REMAT)
+        else:
+            x, a = _block_forward(layer, cfg, kind, x, rot)
+        return x, aux if a is None else aux + a
+
+    def group(g, x, aux):
+        for i, kind in enumerate(cfg.block_pattern):
+            x, aux = block(params.layers[g * n_pat + i], kind, x, aux)
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g in range(cfg.pattern_repeats):
+        if remat:
+            x, aux = checkpoint(group, g, x, aux, **_REMAT)
+        else:
+            x, aux = group(g, x, aux)
+    rest = cfg.pattern_repeats * n_pat
+    for i, kind in enumerate(cfg.remainder_pattern):
+        x, aux = block(params.layers[rest + i], kind, x, aux)
+    return x, aux
 
 
 def logits_fn(params: Transformer, cfg: ModelConfig,
@@ -228,9 +260,10 @@ def logits_fn(params: Transformer, cfg: ModelConfig,
 
 def loss_fn(params: Transformer, cfg: ModelConfig, batch: dict
             ) -> tuple[torch.Tensor, dict]:
-    """batch keys: tokens? features? labels, mask? (batch-major).  Forward
-    only.  Where the logits outnumber the labels (the VLM's patches lead),
-    the loss takes the trailing text positions."""
+    """batch keys: tokens? features? labels, mask? (batch-major).  Where the
+    logits outnumber the labels (the VLM's patches lead), the loss takes the
+    trailing text positions.  Autograd differentiates it on the dense path
+    (the train phase of ``workload.steps`` takes its gradients)."""
     x = embed_inputs(params, cfg, tokens=batch.get("tokens"),
                      features=batch.get("features"))
     x, aux = forward_hidden(params, cfg, x)

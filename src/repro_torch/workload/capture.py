@@ -1,0 +1,288 @@
+"""Capture the port's own eager steps into per-op traffic records.
+
+The reference compiles each model phase to XLA HLO and walks it
+(:mod:`repro_torch.workload.walker`).  The port has no XLA, so it records
+what its own eager step runs: :func:`walk_callable` runs a callable under
+``FakeTensorMode`` (shapes and dtypes only: no parameter or activation is
+allocated and nothing is launched) inside a ``TorchDispatchMode`` that
+makes one :class:`OpRecord` per ATen op from the op's input and output
+shapes and dtypes.  Autograd's backward ops pass through the same
+dispatch, so a callable that takes ``torch.autograd.grad`` records its
+backward (and a ``torch.utils.checkpoint`` recompute) with no separate
+tracer.
+
+Each op is charged by the rules of ``core/hlo_counter.py``
+(``Analyzer._instr_cost``), so the access classes mean the same thing:
+
+======================================  =======  ===============  =======
+ATen op                                 class    bytes            FLOPs
+======================================  =======  ===============  =======
+``mm``/``bmm``/``addmm``/``baddbmm``    stream   reads + result   2·M·N·K
+``embedding``/``index_select``/         gather   2 × result       —
+``gather``/``index``
+``scatter*``/``index_put``/             gather   3 × update       —
+``index_add``, ``embedding`` backward
+a slice written in place (``copy_``     stream   2 × update, as   —
+into a view, ``index_copy``,                     dynamic-update-
+``*_scatter``)                                   slice
+``clone``/``_to_copy``/``copy_`` of a   strided  reads + result   —
+non-contiguous input, ``cat``,
+``stack``, ``constant_pad_nd``,
+``flip``, ``sort``, ``topk``,
+``slice``/``select_backward``
+views (``view``, ``permute``,           free     —                —
+``expand``, ``slice``, ``t``, ...)
+fills (``zeros_like``, ``fill_``, ...)  stream   result           —
+elementwise ops, reductions and every   stream   reads + result   one an
+other op                                                          element
+======================================  =======  ===============  =======
+
+"reads" are the bytes of every tensor argument; the FLOPs of an elementwise
+op count its result's elements, of a reduction its input's, and the ops
+that ``hlo_counter`` counts as transcendental (exp, log, tanh, pow,
+sigmoid, expm1, log1p, erf, and the silu/gelu/softmax ops built on them)
+count their elements as ``transcendentals`` too.
+
+Where a captured phase differs from the reference's walk of fused HLO:
+
+* eager PyTorch runs every op, so a captured phase is charged op by op:
+  each elementwise op reads its inputs and writes its result where XLA
+  fuses a chain into one pass (``fused`` applies to HLO text only), while
+  a view is free where XLA may materialize a transpose or copy.  The
+  totals differ either way (``tools/workload_bytes.py`` prints both by
+  class for a toy config);
+* the port unrolls its layers, so every record has ``trips`` 1 and
+  ``by_layer`` has one row per module, where the reference has one scan
+  scope with ``trips`` = L.
+
+Every record gets a scope: the module path (``layers.3.attn``,
+``layers.3.mlp.wo``) of the innermost frame on the Python call stack whose
+first argument is a module among the callable's arguments (the model
+functions take ``(p, ...)``).  An op of the backward takes the scope of
+the forward op that made the autograd node it runs in; a recompute runs
+the forward's functions again and takes their scope.  Ops outside every
+module take the callable's ``__name__``.
+
+A kernel wrapper reached under capture raises (``compat.check_real``):
+the phases of :mod:`repro_torch.workload.steps` run with
+``use_kernels=False``.
+"""
+from __future__ import annotations
+
+import functools
+import os
+import sys
+
+import torch
+from torch import nn
+from torch._subclasses.fake_tensor import FakeTensorMode, is_fake
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten, tree_map
+
+from repro_torch.workload.walker import OpRecord
+
+__all__ = ["walk_callable"]
+
+_MATMUL = {"mm", "bmm", "addmm", "baddbmm"}
+_GATHER = {"embedding", "index_select", "gather", "index"}
+#: scatters and their update argument's position
+_SCATTER = {"scatter": 3, "scatter_": 3, "scatter_add": 3, "scatter_add_": 3,
+            "scatter_reduce": 3, "scatter_reduce_": 3, "index_put": 2,
+            "index_put_": 2, "_index_put_impl_": 2, "index_add": 3,
+            "index_add_": 3, "embedding_dense_backward": 0}
+#: slice writes and their update argument's position
+_SLICE_WRITE = {"index_copy": 3, "index_copy_": 3, "slice_scatter": 1,
+                "select_scatter": 1, "as_strided_scatter": 1}
+_STRIDED = {"cat", "stack", "constant_pad_nd", "flip", "roll", "sort",
+            "topk", "slice_backward", "select_backward"}
+_COPIES = {"clone", "_to_copy", "copy_"}
+_FILLS = {"zeros", "ones", "full", "arange", "scalar_tensor", "zeros_like",
+          "ones_like", "full_like", "new_zeros", "new_ones", "new_full",
+          "fill", "fill_", "zero_"}
+_REDUCE = {"sum", "mean", "amax", "amin", "max", "min", "prod", "var", "std",
+           "var_mean", "std_mean", "logsumexp", "norm", "linalg_vector_norm",
+           "argmax", "argmin", "all", "any", "cumsum", "cumprod",
+           "_softmax", "_log_softmax", "_softmax_backward_data",
+           "_log_softmax_backward_data", "_fused_rms_norm",
+           "native_layer_norm", "native_layer_norm_backward"}
+_TRANSCENDENTAL = {"exp", "log", "tanh", "pow", "sigmoid", "expm1", "log1p",
+                   "erf", "silu", "gelu", "silu_backward", "gelu_backward",
+                   "_softmax", "_log_softmax"}
+
+#: Frames of the autograd engine: the backward's Python stack ends here.
+_AUTOGRAD_DIR = os.path.dirname(torch.autograd.__file__) + os.sep
+#: Where a forward op leaves its scope for the backward.
+_SCOPE_KEY = "repro_torch.scope"
+
+
+@functools.lru_cache(maxsize=None)
+def _is_view(func) -> bool:
+    """An ATen op whose result aliases an input without writing it."""
+    return any(r.alias_info is not None and not r.alias_info.is_write
+               for r in func._schema.returns)
+
+
+def _nbytes(t: torch.Tensor) -> float:
+    return float(t.numel() * t.element_size())
+
+
+def _tensors(tree) -> list[torch.Tensor]:
+    return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
+
+
+def _charge(name: str, func, args, kwargs, outs: list[torch.Tensor]
+            ) -> tuple[str, str, float, float, float] | None:
+    """(op class, access class, bytes, flops, transcendentals) of one op
+    with tensor results ``outs``, or None where it moves nothing."""
+    if _is_view(func) or name.startswith("empty") \
+            or name in ("new_empty", "new_empty_strided", "lift_fresh"):
+        return None
+    result = sum(map(_nbytes, outs))
+    n_out = float(sum(t.numel() for t in outs))
+    ins = _tensors((args, kwargs))
+    reads = sum(map(_nbytes, ins))
+    if name in _MATMUL:
+        a = args[1] if name in ("addmm", "baddbmm") else args[0]
+        return "matmul", "stream", reads + result, \
+            2.0 * outs[0].numel() * a.shape[-1], 0.0
+    if name in _GATHER:
+        return "gather", "gather", 2.0 * result, 0.0, 0.0
+    if name in _SCATTER:
+        upd = args[_SCATTER[name]] if len(args) > _SCATTER[name] else None
+        if isinstance(upd, (list, tuple)):      # index_put's values
+            upd = None
+        b = _nbytes(upd) if isinstance(upd, torch.Tensor) else result
+        return "gather", "gather", 3.0 * b, 0.0, 0.0
+    if name in _SLICE_WRITE:
+        upd = args[_SLICE_WRITE[name]]
+        return "dynamic", "stream", 2.0 * _nbytes(upd), 0.0, 0.0
+    if name == "copy_" and args[0]._base is not None:
+        # a slice of a larger tensor written in place (decode caches)
+        return "dynamic", "stream", 2.0 * _nbytes(args[0]), 0.0, 0.0
+    if name in _COPIES:
+        src = args[1] if name == "copy_" else args[0]
+        if not src.is_contiguous():
+            return "layout", "strided", reads + result, 0.0, 0.0
+        return "elementwise", "stream", reads + result, 0.0, 0.0
+    if name in _STRIDED:
+        return "layout", "strided", reads + result, 0.0, 0.0
+    if name in _FILLS:
+        return "other", "stream", result, 0.0, 0.0
+    trans = n_out if name in _TRANSCENDENTAL else 0.0
+    if name in _REDUCE:
+        return "reduce", "stream", reads + result, \
+            float(ins[0].numel()) if ins else n_out, trans
+    if torch.Tag.pointwise in func.tags:
+        return "elementwise", "stream", reads + result, n_out, trans
+    return "other", "stream", reads + result, 0.0, trans
+
+
+class _Recorder(TorchDispatchMode):
+    """One :class:`OpRecord` per ATen op, scoped by the module stack."""
+
+    def __init__(self, names: dict[int, str], root: str):
+        super().__init__()
+        self.names = names
+        self.root = root
+        self.records: list[OpRecord] = []
+        self._pending: list[tuple[list[torch.Tensor], str]] = []
+        self._last_backward = root
+
+    def _frame_scope(self, in_backward: bool) -> str | None:
+        """The module path of the innermost frame whose first argument is
+        a known module; None when the stack holds none (in the backward,
+        none before the autograd engine's frames)."""
+        frame = sys._getframe(1).f_back
+        while frame is not None:
+            code = frame.f_code
+            if in_backward and code.co_filename.startswith(_AUTOGRAD_DIR):
+                return None
+            if code.co_argcount:
+                hit = self.names.get(id(frame.f_locals.get(
+                    code.co_varnames[0])))
+                if hit is not None and hit != self.root:
+                    return hit
+            frame = frame.f_back
+        return None
+
+    def _tag_pending(self) -> None:
+        """Leave each forward op's scope on the autograd node that autograd
+        attached to its outputs once the op returned."""
+        for outs, scope in self._pending:
+            for t in outs:
+                node = t.grad_fn
+                if node is not None and _SCOPE_KEY not in node.metadata:
+                    node.metadata[_SCOPE_KEY] = scope
+        self._pending.clear()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        outs = _tensors(out)
+        if not outs:        # metadata queries (a fake tensor's device, ...)
+            return out
+        if self._pending:
+            self._tag_pending()
+        name = func.overloadpacket.__name__
+        charged = _charge(name, func, args, kwargs, outs)
+        node = torch._C._current_autograd_node()
+        scope = self._frame_scope(in_backward=node is not None)
+        if node is None:
+            scope = scope or self.root
+            if torch.is_grad_enabled():
+                self._pending.append((outs, scope))
+        elif scope is None:
+            scope = node.metadata.get(_SCOPE_KEY, self._last_backward)
+            self._last_backward = scope
+        if charged is not None:
+            op_class, cls, nbytes, flops, trans = charged
+            self.records.append(OpRecord(
+                path=f"{scope}/{name}.{len(self.records)}", opcode=name,
+                op_class=op_class, scope=scope, trips=1.0,
+                flops=float(flops),
+                bytes_by_class={cls: float(nbytes)} if nbytes else {},
+                transcendentals=float(trans)))
+        return out
+
+
+def fake_mode() -> FakeTensorMode:
+    """The capture's fake mode: real tensors met inside become fakes, and
+    an op without a fake implementation raises rather than running its
+    real kernel on zero-filled inputs (which would allocate them)."""
+    return FakeTensorMode(allow_non_fake_inputs=True,
+                          allow_fallback_kernels=False)
+
+
+def _module_names(modules, root: str) -> dict[int, str]:
+    """id -> module path of every module under ``modules`` (alive for the
+    capture, so no other object shares an id); a root is ``root``."""
+    names: dict[int, str] = {}
+    for module in modules:
+        for path, mod in module.named_modules():
+            names.setdefault(id(mod), path or root)
+    return names
+
+
+def walk_callable(fn, *args) -> list[OpRecord]:
+    """Per-op records of one call of ``fn(*args)``, captured under
+    ``FakeTensorMode``: no parameter or activation is allocated and no
+    kernel is launched.
+
+    ``args`` may hold fake tensors (a phase of
+    :mod:`repro_torch.workload.steps` builds its model and inputs in a
+    fake mode, which the capture joins), real tensors (read as fakes of
+    their shapes, dtypes and devices), modules (whose module paths scope
+    the records) and any other values, passed as they are.
+    """
+    modules = [a for a in args if isinstance(a, nn.Module)]
+    leaves = _tensors(args) + [p for m in modules for p in m.parameters()]
+    mode = next((t.fake_mode for t in leaves if is_fake(t)), None) \
+        or fake_mode()
+    fake_args = tree_map(
+        lambda t: t if not isinstance(t, torch.Tensor) or is_fake(t)
+        else mode.from_tensor(t), args)
+    root = getattr(fn, "__name__", "step")
+    recorder = _Recorder(_module_names(modules, root), root)
+    with mode, recorder:
+        fn(*fake_args)
+    return recorder.records

@@ -56,6 +56,25 @@ def test_import_loads_neither_jax_nor_repro():
     assert out.stdout.strip() == "[]"
 
 
+def test_whole_model_estimation_loads_neither_jax_nor_repro():
+    """``repro_torch.workload``, a captured config through
+    ``Session.estimate_model`` and ``plan_model`` stay clear of both."""
+    out = _run("import sys, repro_torch.workload\n"
+               "from repro_torch import Session\n"
+               "from repro_torch.configs import ARCHS, reduced_config\n"
+               "cfg = reduced_config(ARCHS['qwen2-7b'])\n"
+               "s = Session(device='cpu')\n"
+               "rep = s.estimate_model(cfg, phases=('train', 'decode'), "
+               "batch=1, seq_len=8)\n"
+               "assert rep.total_latency() > 0\n"
+               "plan = s.plan_model(cfg, phases=('prefill',), seq_len=(8,))\n"
+               "assert plan.materialize()['t_exe'].shape == (1,)\n"
+               "print(sorted(m for m in sys.modules if m.split('.')[0] "
+               "in ('jax', 'jaxlib', 'repro')))")
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_sources_import_neither_jax_nor_repro():
     pattern = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)(?:[\s.,]|$)",
                          re.MULTILINE)
