@@ -4,7 +4,8 @@
 Run from the root of a checkout.  It builds the port's CUDA kernels from
 ``src/repro_torch/csrc``, holds each of the seven kernels against its plain
 PyTorch version on the card (at the reference's test shapes, at the
-main path's card shapes and at the model zoo's other head sizes, where
+main path's card shapes, at the model zoo's other head sizes and at the
+edges of the D = 256 decode and D = 80 flash instances' tiling, where
 one deliberately broken plain version per case must fall outside the
 bound), drives the port's main path — estimate and sweep with
 ``Session(backend="torch")`` on the card and on the CPU; streaming sweeps
@@ -160,19 +161,23 @@ def nvidia_smi() -> str:
 
 
 #: SASS instructions the build phase counts in every kernel function:
-#: Hopper's warpgroup products, TMA tile loads, 1-D bulk copies, and the
-#: warp-level products of the earlier tensor-core kernels.
-SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "HMMA")
+#: Hopper's warpgroup products, TMA tile loads, 1-D bulk copies, the
+#: warp-level products of the earlier tensor-core kernels, and cp.async
+#: copies (LDGSTS).
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "HMMA", "LDGSTS")
 #: Kernel functions of the card shapes (mangled-name fragments), by library,
 #: and the SASS instructions each must contain: flash attention at qwen2-7b
-#: prefill (D = 128, causal, no window, no cap), decode attention at D = 128
-#: without a cap, the three tensor-core mLSTM kernels of the xlstm-1.3b
-#: shape (bf16, dh 1024, chunk 256), and the RG-LRU's copy-ring scan
-#: (float32), so that none of them silently runs on the CUDA cores or
-#: without its bulk copies.
+#: prefill (D = 128, causal, no window, no cap) and at D = 80 (stablelm-3b
+#: causal, hubert-xlarge not), decode attention at D = 128 (bulk copies) and
+#: at recurrentgemma-9b's D = 256 (cp.async and mma.sync) without a cap,
+#: the three tensor-core mLSTM kernels of the xlstm-1.3b shape (bf16, dh
+#: 1024, chunk 256), and the RG-LRU's copy-ring scan (float32), so that
+#: none of them silently runs on the CUDA cores or without its copies.
 SASS_REQUIRED = {
-    "flash_attention": (("flash_wgmmaILi128ELb1ELb0ELb0E", (("HGMMA",), ("UTMALDG",))),),
-    "decode_attention": (("decode_bulkILi128ELb0E", (("UBLKCP", "UTMALDG"),)),),
+    "flash_attention": tuple((f"flash_wgmmaILi{d}ELb{c}ELb0ELb0E", (("HGMMA",), ("UTMALDG",)))
+                             for d, c in ((128, 1), (80, 1), (80, 0))),
+    "decode_attention": (("decode_bulkILi128ELb0E", (("UBLKCP", "UTMALDG"),)),
+                         ("decode_bulkILi256ELb0E", (("LDGSTS",), ("HMMA",)))),
     "mlstm_chunk": tuple((f"mlstm_wg_{k}", (("HGMMA",), ("UTMALDG",)))
                          for k in ("state", "scores", "out")),
     "rglru": (("rglru_ringIfE", (("UTMALDG", "UBLKCP"),)),),
@@ -240,6 +245,49 @@ def sass_counts(lib) -> dict:
             if op in counts[fn]:
                 counts[fn][op] += 1
     return counts
+
+
+#: Kernel instances whose registers and spills the build phase reports by
+#: name (``ptxas_report``): this port's newest designs.
+PTXAS_REPORTED = ("decode_bulkILi256E", "flash_wgmmaILi80E")
+
+
+def ptxas_report(log: str, fragments=PTXAS_REPORTED) -> dict:
+    """Kernel (``short_name``) -> registers and spill bytes, from an ``nvcc
+    -Xptxas -v`` log, for the kernels whose name holds one of
+    ``fragments``."""
+    out, entry, props = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = short_name(m.group(1))
+            if any(f in entry for f in fragments):
+                out[entry] = {}
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            props = short_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and props in out:
+            out[props].update(spill_stores=int(m.group(1)),
+                              spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry in out:
+            out[entry]["registers"] = int(m.group(1))
+    return out
+
+
+def bulk_residency() -> dict:
+    """decode_bulk's CTAs an SM at qwen2-7b's decode (4 kv heads of 128)
+    and recurrentgemma-9b's ring (one of 256), as the wrapper plans them
+    (``bulk_ctas_per_sm``, from shared memory) and as the card's occupancy
+    calculator counts them."""
+    from repro_torch.kernels.decode_attention import ops as DA
+
+    return {f"Hkv{hkv}_D{d}": {"predicted": DA.bulk_ctas_per_sm(hkv, d),
+                               "card": DA.card_bulk_residency(hkv, d)}
+            for hkv, d in ((4, 128), (1, 256))}
 
 
 def check_sass(sass: dict) -> None:
@@ -332,9 +380,10 @@ def test_cases(device) -> list[dict]:
     # per row) and over two chunks of 16 query heads (G = 24)
     decodes += [(1, 100, 16, 8, 128, 77, torch.bfloat16, 32, 0.0),
                 (1, 64, 24, 1, 64, 50, torch.bfloat16, 32, 0.0)]
-    # the CUDA-core kernel at the zoo's other head sizes: D = 80 (10 or 20
-    # slices a row on 16 or 32 lanes; with a softcap) and D = 256 (two
-    # slices a lane in fp32; 16 heads over one kv head, two head chunks)
+    # the zoo's other head sizes: D = 80 on the CUDA cores (10 or 20
+    # slices a row on 16 or 32 lanes; with a softcap) and D = 256 (16 heads
+    # over one kv head: two slices a lane in fp32 on the CUDA cores, the
+    # bulk kernel's four-warp instance in bf16)
     decodes += [(B, S, Hq, Hkv, D, L, dt, 32, cap)
                 for (B, S, Hq, Hkv, D, L, cap) in [(2, 96, 8, 2, 80, 70, 0.0),
                                                    (1, 100, 4, 4, 80, 77, 20.0),
@@ -397,7 +446,7 @@ def test_cases(device) -> list[dict]:
     # with a softcap
     flashes += [(1, 70, 90, 4, 2, 128, False, None, 0.0, torch.bfloat16),
                 (1, 96, 96, 4, 2, 64, False, 32, 5.0, torch.bfloat16)]
-    # D = 80 (the tensor cores' 128-column instance; the CUDA cores'
+    # D = 80 (the tensor cores' 80-column instance; the CUDA cores'
     # own): both kernels, and a window with a softcap on the tensor cores
     flashes += [(1, 90, 90, 4, 2, 80, True, None, 0.0, dt)
                 for dt in (torch.float32, torch.bfloat16)]
@@ -534,6 +583,54 @@ def card_cases(device) -> list[dict]:
             DA.gqa_decode_traffic(*args[:3], 32000), args=args, ref=ref,
             timed=False, fault=True))
     out += head_size_cases(device)
+    out += tiling_edge_cases(device)
+    return out
+
+
+def tiling_edge_cases(device) -> list[dict]:
+    """The edges of the two redesigned instances' tiling, at small shapes,
+    each with its fault check.  decode_bulk at D = 256 (four warps over
+    one kv head of 256, B 2 over 2,048 rows): 16 query heads at kv_len 1,
+    17 and 2,000 (a ragged last stage), 8 query heads (half a tensor-core
+    tile), a softcap of 30, and 2 kv heads (one CTA each).  flash_wgmma at
+    D = 80 (a 64-column block and a 16-column tail): ragged Sq = Skv =
+    4,000, a window of 1,024 with a cap of 50, not causal, and GQA with
+    groups of 2."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops as DA
+    from repro_torch.kernels.flash_attention import ops as FA
+
+    out = []
+    for Hq, Hkv, L, cap, seed in ((16, 1, 1, 0.0, 201), (16, 1, 17, 0.0, 204),
+                                  (16, 1, 2000, 0.0, 207), (8, 1, 2000, 0.0, 210),
+                                  (16, 1, 2000, 30.0, 213), (32, 2, 2000, 0.0, 216)):
+        args = (randn((2, 1, Hq, 256), seed, device, torch.bfloat16),
+                randn((2, 2048, Hkv, 256), seed + 1, device, torch.bfloat16),
+                randn((2, 2048, Hkv, 256), seed + 2, device, torch.bfloat16),
+                torch.tensor(L, dtype=torch.int32, device=device))
+        ref = functools.partial(DA.gqa_decode_ref, softcap=cap)
+        out.append(_case(
+            "decode_attention", f"bulk_D256_len{L}_cap{cap:g}_" + _shapes(args),
+            lambda a=args, c=cap: DA.gqa_decode(*a, softcap=c),
+            lambda a=args, r=ref: r(*a), "bfloat16_card",
+            DA.gqa_decode_traffic(*args[:3], L), args=args, ref=ref,
+            timed=False, fault=True))
+    for S, Hq, Hkv, causal, window, cap, seed in (
+            (4000, 8, 8, True, None, 0.0, 221), (4000, 8, 8, True, 1024, 50.0, 224),
+            (4000, 8, 8, False, None, 0.0, 227), (2048, 8, 4, True, None, 0.0, 230)):
+        qkv = tuple(randn((1, S, h, 80), seed + i, device, torch.bfloat16)
+                    for i, h in enumerate((Hq, Hkv, Hkv)))
+        ref = functools.partial(FA.attention_ref, causal=causal, window=window,
+                                softcap=cap)
+        out.append(_case(
+            "flash_attention", f"wgmma_D80_causal{int(causal)}_win{window}_cap{cap:g}_"
+            + _shapes(qkv),
+            lambda a=qkv, c=causal, w=window, cp=cap: FA.mha(*a, causal=c, window=w,
+                                                            softcap=cp),
+            lambda a=qkv, r=ref: r(*a), "flash_card",
+            FA.flash_attention_traffic(*qkv, causal=causal, window=window), args=qkv,
+            ref=ref, timed=False, fault=True))
     return out
 
 
@@ -543,7 +640,7 @@ def head_size_cases(device) -> list[dict]:
     local attention on prefill (16 query heads over one kv head of 256,
     window 2048, B 1 x S 4096: the tensor-core kernel's D = 256
     instances); stablelm-3b (32 query and 32 kv heads of 80) prefill, B 2
-    x S 2048 (the 128-column instance), and decode at B 8 over 8,192 rows;
+    x S 2048 (the 80-column instance), and decode at B 8 over 8,192 rows;
     qwen3-moe-235b-a22b's prefill (64 query heads over 4 kv heads of 128,
     B 2 x S 4096, causal) and hubert-xlarge's (16 heads of 80, B 2 x S
     4096, not causal); recurrentgemma-9b's local-attention decode (16
@@ -620,9 +717,11 @@ def perturbed(name: str, args, want, plain):
     import torch
 
     if name == "decode_attention":
+        # the last 64 rows, or half of a shorter cache (its one row: kv_len
+        # 0, where every row is masked and the plain version averages all)
         q, kc, vc, kv_len = args
-        return (f"last {DROPPED_ROWS} cache rows dropped",
-                plain(q, kc, vc, kv_len - DROPPED_ROWS))
+        drop = min(DROPPED_ROWS, max(1, int(kv_len) // 2))
+        return (f"last {drop} cache rows dropped", plain(q, kc, vc, kv_len - drop))
     if name == "flash_attention" and not getattr(
             plain, "keywords", {}).get("causal", True):
         q, k, v = args
@@ -2452,9 +2551,18 @@ def main() -> int:
              for name in built}
     sass = {name: sass_counts(compat.library_path(name))
             for name in compat.SOURCES}
+    registers = {}
+    for name in ("decode_attention", "flash_attention"):
+        registers.update(ptxas_report((compat.BUILD_DIR / f"{name}.log").read_text()))
+    residency = bulk_residency()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "compiled": built, "ptxas": ptxas, "sass": sass})
+          "compiled": built, "ptxas": ptxas, "registers_and_spills": registers,
+          "bulk_ctas_per_sm": residency, "sass": sass})
     check_sass(sass)
+    check(len(registers) == 2 + 8, f"ptxas report of {PTXAS_REPORTED}: {sorted(registers)}")
+    for shape, r in residency.items():
+        check(r["predicted"] == r["card"], f"decode_bulk at {shape}: ops.bulk_ctas_per_sm "
+              f"predicts {r['predicted']} CTAs an SM, the card holds {r['card']}")
 
     card = card_cases(device)
     card_err = phase_parity(device, card)

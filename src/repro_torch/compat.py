@@ -152,5 +152,7 @@ def check_launch(err: int, what: str) -> None:
 
 
 def stream_ptr(device: torch.device) -> int:
-    """PyTorch's current CUDA stream on ``device``, as a pointer value."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """PyTorch's current CUDA stream on ``device``, as a pointer value (read
+    without building a ``torch.cuda.Stream``: a launch's host time counts
+    where a step is host-bound)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

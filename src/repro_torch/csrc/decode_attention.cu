@@ -19,18 +19,27 @@
 // never read.  Two split kernels, chosen by dtype and head size (the wrapper
 // names the path, `kernel_path` in ops.py):
 //
-// * decode_bulk (bfloat16, D in {64, 128}, the model path): one CTA per
-//   (batch row, split, group of HC kv heads; all Hkv where the stages fit).
-//   For one b a run of positions of all heads is one contiguous run of bytes,
-//   so one producer thread streams K and V with 1-D bulk copies (no tensor
-//   map; one copy per stage, or one per row when HC < Hkv) into a ring of
-//   16-row stages with full and empty mbarriers: with 4 stages of 32 KB at
-//   qwen2-7b, 128 KB per SM stays in flight whatever the consumers do, and
-//   every cache row is fetched once, whole.  One consumer warp per kv head
-//   runs Q·Kᵀ and P·V on the tensor cores (mma.sync m16n8k16, fp32
+// * decode_bulk (bfloat16, D in {64, 128, 256}, the model path): one CTA
+//   per (batch row, split, group of HC kv heads; all Hkv where the stages
+//   fit).  For one b a run of positions of all heads is one contiguous run
+//   of bytes, so at D 64/128 one producer thread streams K and V with 1-D
+//   bulk copies
+//   (no tensor map; one copy per stage, or one per row when HC < Hkv) into
+//   a ring of 16-row stages with full and empty mbarriers: with 4 stages of
+//   32 KB at qwen2-7b, 128 KB per SM stays in flight whatever the consumers
+//   do, and every cache row is fetched once, whole.  One consumer warp per
+//   kv head runs Q·Kᵀ and P·V on the tensor cores (mma.sync m16n8k16, fp32
 //   accumulate; 16 query heads as M) from shared memory, and writes its
-//   split's partial for its head.  The softcap is a template flag.
-// * decode_split (float32, or bfloat16 at D in {16, 32, 80, 256}): CUDA
+//   split's partial for its head.  The softcap is a template flag.  At D
+//   256 (recurrentgemma-9b's local attention, one kv head) one warp would
+//   need 256 registers, so four warps share the head (BulkCfg): each
+//   computes the whole score tile from its Q fragments and K read with
+//   ldmatrix and owns 64 channels of P·V.  Rows lie 528 bytes apart, so the
+//   ldmatrix reads meet no bank conflict, filled by the producer warp with
+//   cp.async (K's rows, then V's), a row an instruction; 8 stages of 17 KB
+//   make one CTA an SM, so the B 128 ring is one split and the kernel
+//   writes the output without decode_merge.
+// * decode_split (float32, or bfloat16 at D in {16, 32, 80}): CUDA
 //   cores.  A lane owns one or two 16-byte slices of a cache row (RowLayout)
 //   and keeps q and the accumulator for up to 8 heads in registers; the
 //   lanes of a row, a power of two, reduce their dot products with shuffles.
@@ -55,7 +64,8 @@ constexpr int kMaxG = 8;                 // heads per CTA, CUDA-core kernel
 constexpr int kMmaG = 16;                // query heads per warp, tensor cores (M = 16)
 constexpr int kUnroll = 4;               // row groups a warp loads per step
 constexpr int kStageRows = 16;           // cache rows per stage (ops.STAGE_ROWS)
-constexpr int kBulkStages = 4;           // ring depth of decode_bulk (ops.BULK_STAGES)
+constexpr int kBulkStages = 4;           // ring depth of decode_bulk at D 64/128 (ops.BULK_STAGES)
+constexpr int kWideStages = 8;           // ... at D 256: 135 KB, one CTA an SM
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
@@ -111,6 +121,56 @@ __device__ __forceinline__ uint32_t word(const uint4& v, int i) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// ldmatrix: four 8 x 8 matrices of 16-bit values from shared memory; lanes
+// 8i..8i+7 give the addresses of the 8 rows (16 bytes each) of matrix i,
+// and r[i] receives this lane's pair of matrix i: row lane / 4, columns
+// 2 (lane % 4) and +1, or with .trans column lane / 4, rows 2 (lane % 4)
+// and +1.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(sm90::smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(sm90::smem_addr(p))
+               : "memory");
+}
+
+// Shape of decode_bulk<D>.  At D 64/128 one consumer warp takes a kv head
+// and its rows lie in shared memory as the bulk copy leaves them.  At D 256
+// one warp's whole-head Q, accumulator and K fragments would take 256
+// registers, so W = 4 warps share a head, each owning 64 output channels
+// (a 32-register accumulator) and each computing the whole score tile
+// from its Q fragments (64 registers) and K read with ldmatrix.  Rows lie
+// 528 bytes apart, so that the 8 rows of an ldmatrix fall in 8 different
+// 16-byte bank groups.  A 1-D bulk copy cannot pad, and a bulk copy per
+// row bounded the ring (32 copies a stage), so the producer warp fills
+// the rows with cp.async, 16 bytes a lane and a row an instruction.  A CTA
+// takes one kv head and a ring of 8 stages (135 KB, one CTA an SM): the
+// B 128 ring is then one split, and the kernel writes the output itself.
+template <int D>
+struct BulkCfg {
+  static constexpr bool WIDE = D == 256;
+  static constexpr int W = WIDE ? 4 : 1;                  // consumer warps a kv head
+  static constexpr int PAD = WIDE ? 16 : 0;               // bytes after each row
+  static constexpr int THREADS = WIDE ? 32 * 5 : 32 * 9;  // most threads a CTA has
+  static constexpr int STAGES = WIDE ? kWideStages : kBulkStages;  // ring depth
+  static constexpr int MAX_HC = WIDE ? 1 : 8;             // kv heads a CTA
+};
+
+// Dynamic shared memory of decode_bulk<D> at HC kv heads a CTA: the K/V
+// ring, then the full and empty barriers.
+template <int D>
+constexpr size_t bulk_smem(int HC) {
+  using C = BulkCfg<D>;
+  return (size_t)C::STAGES * 2 * kStageRows * (HC * D * 2 + C::PAD) +
+         2 * C::STAGES * sizeof(uint64_t);
 }
 
 // Merge the kWarps per-warp states (m, l, acc) a CTA left in shared memory
@@ -366,22 +426,34 @@ __device__ __forceinline__ float fast_tanh(float x) {
 // so lane (gid, tig) reads V rows 2tig, 2tig+1, 8+2tig, 9+2tig at channels
 // [64j + 8gid, +8), and output channel 64j + 8n + c of n-tile 8j + c is
 // column n.
+//
+// At D 256 (BulkCfg::WIDE) warps 0..3 consume kv head h0, warp 4 produces
+// into rows srow = 528 bytes apart.  Lane (gid, tig) holds Q as A fragments
+// at channels 16 ks + 2 tig (+1, +8, +9) and reads with ldmatrix: K row 8
+// (i / 2) + lane % 8 at the k step's column half i % 2, i = lane / 8 (b0,
+// b1 of both 8-row tiles); V, transposed, row 8 (i % 2) + lane % 8 at
+// channels 64 cw + 16 j + 8 (i / 2) (b0, b1 of n tiles 2j, 2j + 1 of warp
+// cw's 64 channels).  Channels keep their order: output channel 64 cw + 8
+// nt + c is column c of n tile nt.  A grid of one split writes the output
+// itself (out, divided by l, in bf16); else the split's partial.
 template <int D, bool CAP>
-__global__ void __launch_bounds__(32 * 9, 1)
+__global__ void __launch_bounds__(BulkCfg<D>::THREADS, 1)
     decode_bulk(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ kv_len,
                 float* __restrict__ m_part, float* __restrict__ l_part,
-                float* __restrict__ acc_part, int S, int Hkv, int G, int HC, int n_gc,
-                int n_stages, float scale, float softcap) {
+                float* __restrict__ acc_part, __nv_bfloat16* __restrict__ out, int S, int Hkv,
+                int G, int HC, int n_gc, int n_stages, float scale, float softcap) {
+  using C = BulkCfg<D>;
   constexpr int KL = D / 32;             // 16-byte K reads per lane per tile
   constexpr int VL = D / 64;             // 16-byte V reads per lane per row
   constexpr int KS = D / 16;             // k steps of Q Kᵀ
-  constexpr int NT = D / 8;              // n tiles of P V
+  constexpr int NT = D / 8 / C::W;       // n tiles of P V per warp
   extern __shared__ __align__(128) uint8_t smem[];
-  const int row_bytes = HC * D * 2;
-  const int stage_bytes = kStageRows * row_bytes;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBulkStages * 2 * stage_bytes);
-  uint64_t* empty = full + kBulkStages;
+  const int row_bytes = HC * D * 2;          // a cache row of the HC heads
+  const int srow = row_bytes + C::PAD;       // ... as it lies in shared memory
+  const int stage_bytes = kStageRows * srow;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::STAGES * 2 * stage_bytes);
+  uint64_t* empty = full + C::STAGES;
 
   const int split = blockIdx.x, n_split = gridDim.x, b = blockIdx.y;
   const int h0 = (blockIdx.z / n_gc) * HC;
@@ -394,26 +466,39 @@ __global__ void __launch_bounds__(32 * 9, 1)
   const int n = end > start ? (end - start + kStageRows - 1) / kStageRows : 0;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kBulkStages; ++s) {
-      sm90::mbar_init(&full[s], 1);
-      sm90::mbar_init(&empty[s], HC);
+    for (int s = 0; s < C::STAGES; ++s) {
+      sm90::mbar_init(&full[s], C::WIDE ? 32 : 1);  // D 256: every producer lane
+      sm90::mbar_init(&empty[s], C::W * HC);
     }
     sm90::mbar_init_fence();
   }
   __syncthreads();
 
-  if (warp == HC) {
-    // ---- producer: one thread streams the split's rows, stage by stage.
-    if (lane == 0) {
-      for (int i = 0; i < n; ++i) {
-        const int s = i % kBulkStages;
-        sm90::mbar_wait(&empty[s], ((i / kBulkStages) & 1) ^ 1);
-        const int row0 = start + i * kStageRows;
-        const int rows = min(kStageRows, end - row0);
-        uint8_t* kd = smem + s * 2 * stage_bytes;
-        uint8_t* vd = kd + stage_bytes;
+  if (warp == C::W * HC) {
+    // ---- producer warp: streams the split's rows, stage by stage.  D 64 /
+    // 128: lane 0 waits for the slot, arms its barrier and issues one bulk
+    // copy per stage (or per row when HC < Hkv).  D 256: after lane 0's
+    // wait, lane j copies bytes [16 j, 16 j + 16) of each row (cp.async),
+    // and every lane's copies arrive on the stage's barrier when they land.
+    for (int i = 0; i < n; ++i) {
+      const int s = i % C::STAGES;
+      const int row0 = start + i * kStageRows;
+      const int rows = min(kStageRows, end - row0);
+      uint8_t* kd = smem + s * 2 * stage_bytes;
+      uint8_t* vd = kd + stage_bytes;
+      const size_t off = ((size_t)(b * S + row0) * Hkv + h0) * D;
+      if (lane == 0) sm90::mbar_wait(&empty[s], ((i / C::STAGES) & 1) ^ 1);
+      __syncwarp();
+      if constexpr (C::WIDE) {
+        // K's rows, then V's: with a row of K and a row of V asked for in
+        // turn, the time depended on where V lay from K in memory
+        for (int r = 0; r < rows; ++r)
+          sm90::cp_async16(kd + r * srow + 16 * lane, k + off + (size_t)r * Hkv * D + 8 * lane);
+        for (int r = 0; r < rows; ++r)
+          sm90::cp_async16(vd + r * srow + 16 * lane, v + off + (size_t)r * Hkv * D + 8 * lane);
+        sm90::cp_async_mbar_arrive(&full[s]);
+      } else if (lane == 0) {
         sm90::mbar_arrive_expect_tx(&full[s], 2 * rows * row_bytes);
-        const size_t off = ((size_t)(b * S + row0) * Hkv + h0) * D;
         if (HC == Hkv) {
           sm90::bulk_load(kd, k + off, rows * row_bytes, &full[s]);
           sm90::bulk_load(vd, v + off, rows * row_bytes, &full[s]);
@@ -430,6 +515,134 @@ __global__ void __launch_bounds__(32 * 9, 1)
     return;
   }
 
+  if constexpr (C::WIDE) {
+    // ---- consumer warp cw of kv head h0: the whole score tile, and P V
+    // for output channels [64 cw, 64 cw + 64).  The four warps run the
+    // same products in the same order on the same data, so their scores,
+    // m and l agree bit for bit.
+    const int cw = warp;
+    const int Gc = min(kMmaG, G - g0);
+    const int gid = lane / 4, tig = lane % 4;
+    const int i8 = lane / 8, r8 = lane % 8;
+    const size_t bh = (size_t)b * Hkv + h0;
+    // Q as A fragments (heads gid and gid + 8; absent heads are zero rows).
+    const uint32_t* q32 = reinterpret_cast<const uint32_t*>(q + (bh * G + g0) * D);
+    uint32_t qa[KS][4];
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const int w = 8 * ks + tig;
+      qa[ks][0] = gid < Gc ? q32[gid * (D / 2) + w] : 0u;
+      qa[ks][2] = gid < Gc ? q32[gid * (D / 2) + w + 4] : 0u;
+      qa[ks][1] = gid + 8 < Gc ? q32[(gid + 8) * (D / 2) + w] : 0u;
+      qa[ks][3] = gid + 8 < Gc ? q32[(gid + 8) * (D / 2) + w + 4] : 0u;
+    }
+    const int k_row = 8 * (i8 / 2) + r8, k_col = 16 * (i8 % 2);
+    const int v_row = 8 * (i8 % 2) + r8, v_col = 128 * cw + 16 * (i8 / 2);
+    float acc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+    for (int i = 0; i < n; ++i) {
+      const int s = i % C::STAGES;
+      const int live = min(kStageRows, end - start - i * kStageRows);  // >= 1
+      const uint8_t* kt = smem + s * 2 * stage_bytes;
+      const uint8_t* vt = kt + stage_bytes;
+      sm90::mbar_wait(&full[s], (i / C::STAGES) & 1);
+      // Rows past `live` were not copied this round: read row live - 1 in
+      // their place (finite; their scores are masked and their P is 0).
+      const uint8_t* k_lane = kt + min(k_row, live - 1) * srow + k_col;
+      // Even and odd k steps accumulate apart: four independent chains of
+      // products, summed once.
+      float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      float so[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int kb = 0; kb < KS; kb += 4) {
+        uint32_t kf[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ldsm_x4(kf[j], k_lane + 32 * (kb + j));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          mma_bf16(j % 2 ? so[0] : sc[0], qa[kb + j], kf[j][0], kf[j][1]);
+          mma_bf16(j % 2 ? so[1] : sc[1], qa[kb + j], kf[j][2], kf[j][3]);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[t][e] += so[t][e];
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[t][e] * scale;
+          if (CAP) x = fast_tanh(x / softcap) * softcap;
+          sc[t][e] = 8 * t + 2 * tig + e % 2 < live ? x * kLog2e : kNegInf;
+        }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float mt = fmaxf(fmaxf(sc[0][2 * hr], sc[0][2 * hr + 1]),
+                         fmaxf(sc[1][2 * hr], sc[1][2 * hr + 1]));
+        mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, 1));
+        mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, 2));
+        const float mn = fmaxf(m[hr], mt);
+        const float alpha = exp2f(m[hr] - mn);
+        m[hr] = mn;
+        l[hr] *= alpha;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          acc[nt][2 * hr] *= alpha;
+          acc[nt][2 * hr + 1] *= alpha;
+        }
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int e = 2 * hr; e < 2 * hr + 2; ++e) {
+            sc[t][e] = exp2f(sc[t][e] - mn);
+            l[hr] += sc[t][e];
+          }
+      }
+      uint32_t vf[NT / 2][4];
+      const uint8_t* v_lane = vt + min(v_row, live - 1) * srow + v_col;
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) ldsm_x4_trans(vf[j], v_lane + 32 * j);
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(&empty[s]);  // the stage is in registers
+      const uint32_t pa[4] = {pack_bf16(sc[0][0], sc[0][1]), pack_bf16(sc[0][2], sc[0][3]),
+                              pack_bf16(sc[1][0], sc[1][1]), pack_bf16(sc[1][2], sc[1][3])};
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) {
+        mma_bf16(acc[2 * j], pa, vf[j][0], vf[j][1]);
+        mma_bf16(acc[2 * j + 1], pa, vf[j][2], vf[j][3]);
+      }
+    }
+
+    const size_t part = (bh * n_split + split) * G + g0;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      l[hr] += __shfl_xor_sync(kFull, l[hr], 1);
+      l[hr] += __shfl_xor_sync(kFull, l[hr], 2);
+      const int g = gid + 8 * hr;
+      if (g >= Gc) continue;
+      if (n_split == 1) {  // decode_merge's arithmetic for one split
+        const float inv = 1.f / fmaxf(l[hr], 1e-30f);
+        __nv_bfloat16* o = out + (bh * G + g0 + g) * D + 64 * cw + 2 * tig;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          *reinterpret_cast<uint32_t*>(o + 8 * nt) =
+              pack_bf16(acc[nt][2 * hr] * inv, acc[nt][2 * hr + 1] * inv);
+        continue;
+      }
+      float* o = acc_part + (part + g) * D + 64 * cw + 2 * tig;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        *reinterpret_cast<float2*>(o + 8 * nt) = make_float2(acc[nt][2 * hr], acc[nt][2 * hr + 1]);
+      if (cw == 0 && tig == 0) {
+        m_part[part + g] = m[hr];
+        l_part[part + g] = l[hr];
+      }
+    }
+  } else {
   // ---- consumer warp: kv head h, query heads [g0, g0 + Gc).
   const int h = h0 + warp;
   const int Gc = min(kMmaG, G - g0);
@@ -453,11 +666,11 @@ __global__ void __launch_bounds__(32 * 9, 1)
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 
   for (int i = 0; i < n; ++i) {
-    const int s = i % kBulkStages;
+    const int s = i % C::STAGES;
     const int live = min(kStageRows, end - start - i * kStageRows);  // >= 1
     const uint8_t* kt = smem + s * 2 * stage_bytes + warp * D * 2;
     const uint8_t* vt = kt + stage_bytes;
-    sm90::mbar_wait(&full[s], (i / kBulkStages) & 1);
+    sm90::mbar_wait(&full[s], (i / C::STAGES) & 1);
     // Rows past `live` were not copied this round: read as zeros.  K now,
     // V after the softmax, so that the two are never live together.
     uint4 kr[2][KL];
@@ -557,6 +770,7 @@ __global__ void __launch_bounds__(32 * 9, 1)
       l_part[part + g] = l[hr];
     }
   }
+  }
 }
 
 // One CTA per (b * Hkv + h, query head g), one thread per 4 channels: the
@@ -618,20 +832,20 @@ cudaError_t launch_bulk(const void* q, const void* k, const void* v, const int32
                         void* out, float* m_part, float* l_part, float* acc_part, int B, int S,
                         int Hkv, int G, int HC, int n_split, int n_stages, float scale,
                         float softcap, cudaStream_t s) {
-  if (HC < 1 || HC > 8 || Hkv % HC) return cudaErrorInvalidValue;
+  using C = BulkCfg<D>;
+  if (HC < 1 || HC > C::MAX_HC || Hkv % HC) return cudaErrorInvalidValue;
   const int n_gc = (G + kMmaG - 1) / kMmaG;
-  const size_t smem =
-      (size_t)kBulkStages * 2 * kStageRows * HC * D * 2 + 2 * kBulkStages * sizeof(uint64_t);
+  const size_t smem = bulk_smem<D>(HC);
   const auto kernel = decode_bulk<D, CAP>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(n_split, B, Hkv / HC * n_gc), 32 * (HC + 1), smem, s>>>(
+  kernel<<<dim3(n_split, B, Hkv / HC * n_gc), 32 * (C::W * HC + 1), smem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), kv_len, m_part, l_part, acc_part, S, Hkv, G, HC,
-      n_gc, n_stages, scale, softcap);
+      static_cast<const __nv_bfloat16*>(v), kv_len, m_part, l_part, acc_part,
+      static_cast<__nv_bfloat16*>(out), S, Hkv, G, HC, n_gc, n_stages, scale, softcap);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || (C::WIDE && n_split == 1)) return err;  // written by the kernel
   return launch_merge<__nv_bfloat16>(m_part, l_part, acc_part, out, B, Hkv, G, D, n_split,
                                      s);
 }
@@ -665,6 +879,21 @@ cudaError_t dispatch_split(int D, const void* q, const void* k, const void* v,
   }
 }
 
+// CTAs of decode_bulk<D> (no cap) that one SM of this card holds at HC kv
+// heads a CTA, from the CUDA occupancy calculator.
+template <int D>
+cudaError_t bulk_residency(int HC, int* ctas) {
+  using C = BulkCfg<D>;
+  if (HC < 1 || HC > C::MAX_HC) return cudaErrorInvalidValue;
+  const auto kernel = decode_bulk<D, false>;
+  const size_t smem = bulk_smem<D>(HC);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kernel, 32 * (C::W * HC + 1),
+                                                       smem);
+}
+
 template <int D>
 cudaError_t dispatch_bulk(const void* q, const void* k, const void* v, const int32_t* kv_len,
                           void* out, float* m, float* l, float* acc, int B, int S, int Hkv,
@@ -680,8 +909,8 @@ cudaError_t dispatch_bulk(const void* q, const void* k, const void* v, const int
 }  // namespace
 
 // path: 0 = decode_split (float32 or bfloat16, D in {16, 32, 64, 80, 128, 256}), 1 =
-// decode_bulk (bfloat16, D in {64, 128}; HC kv heads per CTA, a divisor of
-// Hkv, at most 8, and 16-byte aligned caches); dtype: 0 = float32, 1 =
+// decode_bulk (bfloat16, D in {64, 128, 256}; HC kv heads per CTA, a divisor of
+// Hkv, at most 8, 1 at D 256, and 16-byte aligned caches); dtype: 0 = float32, 1 =
 // bfloat16.  Scratch m_part and l_part hold B*Hkv*n_split*G floats,
 // acc_part B*Hkv*n_split*G*D; split s covers the 16-row stages [s * n_stages /
 // n_split, (s + 1) * n_stages / n_split).  Launches the split kernel then
@@ -707,6 +936,9 @@ extern "C" int decode_attention(int path, int dtype, int D, const void* q, const
       case 128:
         return dispatch_bulk<128>(q, k, v, kv, out, m, l, acc, B, S, Hkv, G, HC, n_split,
                                   n_stages, scale, softcap, s);
+      case 256:
+        return dispatch_bulk<256>(q, k, v, kv, out, m, l, acc, B, S, Hkv, G, HC, n_split,
+                                  n_stages, scale, softcap, s);
       default:
         return cudaErrorInvalidValue;
     }
@@ -718,4 +950,14 @@ extern "C" int decode_attention(int path, int dtype, int D, const void* q, const
     return dispatch_split<__nv_bfloat16>(D, q, k, v, kv, out, m, l, acc, B, S, Hkv, G,
                                          n_split, n_stages, scale, softcap, s);
   return cudaErrorInvalidValue;
+}
+
+// CTAs of decode_bulk<D> one SM holds at HC kv heads a CTA, into *ctas.
+extern "C" int decode_bulk_residency(int D, int HC, int* ctas) {
+  switch (D) {
+    case 64: return bulk_residency<64>(HC, ctas);
+    case 128: return bulk_residency<128>(HC, ctas);
+    case 256: return bulk_residency<256>(HC, ctas);
+    default: return cudaErrorInvalidValue;
+  }
 }

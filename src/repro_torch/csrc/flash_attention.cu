@@ -19,18 +19,26 @@
 // group at once.  kv tiles that are wholly masked (past the causal diagonal,
 // outside the window, past Skv) are never loaded, as pl.when(live) skips
 // them on the TPU; CTAs are issued longest first.  Ragged Sq and Skv are
-// masked here, and no tensor is ever padded: a head size between the tile
-// widths (80, stablelm-3b's) runs the next instance (128), whose columns
-// past D the TMA fills with zeros in K and V, the Q loads leave zero and
-// the output stores skip.  Two kernels, chosen by dtype and head size (the
-// wrapper names the path, `kernel_path` in ops.py):
+// masked here, and no tensor is ever padded.  Two kernels, chosen by dtype
+// and head size (the wrapper names the path, `kernel_path` in ops.py):
 //
 // * flash_wgmma (bfloat16, D in {64, 80, 128, 256}, the model path), laid out as
 //   FlashAttention-3: three warpgroups.  The producer warpgroup gives up its
 //   registers (setmaxnreg) and one thread issues TMA loads of K and V tiles
 //   (128 keys; 64 at D = 256) into a ring of 3 stages (2 at D = 256),
 //   128-byte swizzled, each tile as D / 64 boxes of 64 columns, with full
-//   and empty mbarriers.  Two
+//   and empty mbarriers.  D = 80 (stablelm-3b, hubert-xlarge) adds a tail
+//   block: columns 64-79 as a second box of 16 columns (32 bytes) under the
+//   32-byte swizzle, exactly one swizzle atom, so that Q·Kᵀ takes 5 k steps
+//   (4 over the 128-byte block, 1 over the tail) and P·V an m64n64k16 and
+//   an m64n16k16 product: no product touches a column past D, and a tile
+//   is 20 KB, not the 32 KB of the 128-column instance.  Fewer products
+//   alone gained ~10 %: at D = 80 a tile's softmax costs as much as at 128,
+//   so the instance also overlaps S_{i+1} with P_i V_i inside each group
+//   (WgCfg::OVERLAP; the registers allow it at 80, not at 128) and keeps
+//   one CTA on each SM walking item after item (WgCfg::PERSISTENT), so that
+//   a CTA's start, a quarter of stablelm-3b's time, is paid once an SM.
+//   Two
 //   consumer warpgroups own 64 rows each: S = Q Kᵀ is wgmma with both
 //   operands in shared memory (Q loaded once, by plain 16-byte loads into the
 //   same swizzle, since a block of flattened rows is no TMA box when G does
@@ -68,7 +76,8 @@ struct Params {
   const void* v;
   void* out;
   int Sq, Skv, Hkv, G;
-  int dq;                   // head size of q, k, v, out (<= the kernel's D)
+  int BH;                   // B * Hkv
+  int dq;                   // head size of q, k, v, out (the kernel's D)
   long long qsb, qsh, qss;  // q and out strides (batch, head, position)
   long long ksb, ksh, kss;  // k and v strides
   int causal, window;       // window <= 0: none
@@ -125,27 +134,50 @@ constexpr int kConsumerRegs = 240;
 constexpr int kTurnBar = 1;
 constexpr int kGroupBar = 3;
 
+// Byte offset of 16-byte chunk c of row r in a tile swizzled as TMA and
+// wgmma swizzle it: rows of `width` bytes (128 or 32), column blocks
+// `block` bytes apart, and the chunk's place in its row XORed with address
+// bits 7.. of the row (r % 8 at 128 bytes, bit 2 of r at 32).
+__device__ __forceinline__ int swz(int r, int c, int block, int width) {
+  const int n = width / 16;  // chunks a row
+  return (c / n) * block + r * width + (((c % n) ^ ((r * width >> 7) % n)) << 4);
+}
+
 template <int D>
 struct WgCfg {
   static constexpr int BN = D <= 128 ? 128 : 64;    // keys per tile
-  // K/V ring depth: three tiles where they fit beside Q (D <= 128), two at
-  // D = 256 (Q alone is 64 KB).
+  // K/V ring depth: three tiles where they fit beside Q (D <= 128; at D =
+  // 80 four were slower), two at D = 256 (Q alone is 64 KB).
   static constexpr int STAGES = D <= 128 ? 3 : 2;
   static constexpr int NC = D / 64;                 // 64-column (128-byte) blocks
+  // Columns past the 64-column blocks: one 16-column (32-byte) block under
+  // the 32-byte swizzle at D = 80, one swizzle atom wide.
+  static constexpr int TAIL = D % 64;
+  // Whether a group issues S_i with P_{i-1} V_{i-1} (FlashAttention-3's
+  // overlap inside a group): at D = 80 the second score tile fits beside
+  // P and O (64 + 32 + 40 registers); at D = 128 it spilled.
+  static constexpr bool OVERLAP = D == 80;
+  // Whether a CTA stays on its SM and takes item after item, so that the
+  // ring streams on from one item's tiles to the next's and each item's
+  // start (the first tiles' latency, the CTA's launch) is hidden: at D = 80
+  // it was a quarter of stablelm-3b's time.
+  static constexpr bool PERSISTENT = D == 80;
+  static_assert(TAIL == 0 || TAIL == 16, "flash_wgmma: D is 64 NC or 64 NC + 16");
   static constexpr int Q_BLOCK = kRows * 128;       // bytes of one column block of Q
   static constexpr int KV_BLOCK = BN * 128;         // ... of K or V
-  static constexpr int KV_TILE = NC * KV_BLOCK;     // one tile of K (or V)
-  static constexpr int Q_BYTES = NC * Q_BLOCK;
+  static constexpr int KV_TAIL = BN * TAIL * 2;     // ... of K's or V's tail block
+  static constexpr int KV_TILE = NC * KV_BLOCK + KV_TAIL;  // one tile of K (or V)
+  static constexpr int Q_BYTES = NC * Q_BLOCK + kRows * TAIL * 2;
   static constexpr int BAR_OFF = Q_BYTES + 2 * STAGES * KV_TILE;
   // 1024 bytes of slack to align the swizzled tiles, then the barriers.
   static constexpr size_t SMEM = 1024 + BAR_OFF + 3 * STAGES * sizeof(uint64_t);
-};
 
-// Byte offset of 16-byte chunk c of row r in a 128-byte-swizzled tile whose
-// column blocks are `block` bytes apart.
-__device__ __forceinline__ int swz(int r, int c, int block) {
-  return (c / 8) * block + r * 128 + (((c % 8) ^ (r % 8)) << 4);
-}
+  // Byte offset of 16-byte chunk c of row r of Q (and of O, staged over
+  // it): the 128-byte-swizzled blocks, then the tail block's 32-byte rows.
+  static __device__ __forceinline__ int q_off(int r, int c) {
+    return c < 8 * NC ? swz(r, c, Q_BLOCK, 128) : NC * Q_BLOCK + swz(r, c - 8 * NC, 0, 32);
+  }
+};
 
 // Built with -DFLASH_TIMING (tools/flash_cta_timing.py), every CTA of the
 // wgmma kernel below records its start and end (%globaltimer, ns), its
@@ -159,31 +191,68 @@ __device__ __forceinline__ unsigned long long gtime() {
 }
 #endif
 
-// grid (ceil(Sq * G / kRows), B * Hkv), kThreads threads.
+// grid (ceil(Sq * G / kRows), B * Hkv), kThreads threads: one work item (a
+// block of kRows flattened rows of one (b, kv head)) a CTA; with
+// WgCfg::PERSISTENT, grid (min(items, SMs), 1) and each CTA takes items
+// blockIdx.x, + gridDim.x, ...  Items are dealt longest rows first.
+// tmk, tmv: K and V in 64-column boxes; tmk_tail, tmv_tail: their 16-column
+// tail (D = 80), read only where WgCfg<D>::TAIL.
 template <int D, bool CAUSAL, bool WINDOW, bool CAP>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_wgmma(const Params p, const __grid_constant__ CUtensorMap tmk,
-                const __grid_constant__ CUtensorMap tmv) {
+                const __grid_constant__ CUtensorMap tmv,
+                const __grid_constant__ CUtensorMap tmk_tail,
+                const __grid_constant__ CUtensorMap tmv_tail) {
   using C = WgCfg<D>;
   constexpr int BN = C::BN;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // Swizzled tiles start on 1024 bytes; offsetting the shared array itself
   // (not a generic address) keeps every access a shared-memory one.
   uint8_t* sm = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
-  uint8_t* Qs = sm;                                   // [NC][kRows][128 B]
-  uint8_t* Ks = Qs + C::Q_BYTES;                      // [STAGES][NC][BN][128 B]
+  uint8_t* Qs = sm;                                   // [NC][kRows][128 B], [kRows][32 B]
+  uint8_t* Ks = Qs + C::Q_BYTES;                      // [STAGES][NC][BN][128 B], [BN][32 B]
   uint8_t* Vs = Ks + C::STAGES * C::KV_TILE;
   uint64_t* full_k = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
   uint64_t* full_v = full_k + C::STAGES;
   uint64_t* empty = full_v + C::STAGES;
 
   const int n_rows = p.Sq * p.G;
-  const int R0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // longest rows first
-  const int b = blockIdx.y / p.Hkv, h = blockIdx.y % p.Hkv;
-  int k_lo, k_hi;  // R0 < n_rows: the grid holds no empty CTA
-  key_range(p, R0 / p.G, (min(R0 + kRows, n_rows) - 1) / p.G, k_lo, k_hi);
-  const int t_lo = k_lo / BN;
-  const int n_tiles = k_hi > k_lo ? (k_hi + BN - 1) / BN - t_lo : 0;
+  const int n_rb = (n_rows + kRows - 1) / kRows;
+  // Work item k of this CTA (false past the last): its first row R0, (b,
+  // h) and kv tiles [t_lo, t_lo + n_tiles).  R0 ... n_tiles below are the
+  // item in hand.
+  struct Item {
+    int R0, b, h, t_lo, n_tiles;
+  };
+  auto item = [&](int k, Item& x) -> bool {
+    int rb, bh;
+    if constexpr (C::PERSISTENT) {
+      const int idx = blockIdx.x + k * gridDim.x;
+      if (idx >= n_rb * p.BH) return false;
+      rb = idx / p.BH;
+      bh = idx % p.BH;
+    } else {
+      if (k > 0) return false;
+      rb = blockIdx.x;
+      bh = blockIdx.y;
+    }
+    x.R0 = (n_rb - 1 - rb) * kRows;  // longest rows first; R0 < n_rows
+    x.b = bh / p.Hkv;
+    x.h = bh % p.Hkv;
+    int k_lo, k_hi;
+    key_range(p, x.R0 / p.G, (min(x.R0 + kRows, n_rows) - 1) / p.G, k_lo, k_hi);
+    x.t_lo = k_lo / BN;
+    x.n_tiles = k_hi > k_lo ? (k_hi + BN - 1) / BN - x.t_lo : 0;
+    return true;
+  };
+  int R0, b, h, t_lo, n_tiles;
+  auto take = [&](const Item& x) {
+    R0 = x.R0;
+    b = x.b;
+    h = x.h;
+    t_lo = x.t_lo;
+    n_tiles = x.n_tiles;
+  };
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < C::STAGES; ++s) {
@@ -199,71 +268,72 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x == 0 && cta < 8192) {
     unsigned smid;
     asm volatile("mov.u32 %0, %smid;" : "=r"(smid));
+    int tiles = 0;
+    Item x;
+    for (int k = 0; item(k, x); ++k) tiles += x.n_tiles;
     g_timing[4 * cta] = gtime();
-    g_timing[4 * cta + 2] = n_tiles;
+    g_timing[4 * cta + 2] = tiles;
     g_timing[4 * cta + 3] = smid;
   }
 #endif
 
   const int wg = threadIdx.x / kWgThreads;
   if (wg == 2) {
-    // ---- producer: one thread keeps the ring of K and V tiles full.
+    // ---- producer: one thread keeps the ring of K and V tiles full, item
+    // after item (ring position `it` runs on across items).
     sm90::reg_dealloc<kProducerRegs>();
     if (threadIdx.x == 2 * kWgThreads) {
-      for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % C::STAGES;
-        sm90::mbar_wait(&empty[s], ((i / C::STAGES) & 1) ^ 1);
-        const int key0 = (t_lo + i) * BN;
-        sm90::mbar_arrive_expect_tx(&full_k[s], C::KV_TILE);
+      int it = 0;
+      Item x;
+      for (int k = 0; item(k, x); ++k) {
+        take(x);
+        for (int i = 0; i < n_tiles; ++i, ++it) {
+          const int s = it % C::STAGES;
+          sm90::mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);
+          const int key0 = (t_lo + i) * BN;
+          sm90::mbar_arrive_expect_tx(&full_k[s], C::KV_TILE);
 #pragma unroll
-        for (int c = 0; c < C::NC; ++c)
-          sm90::tma_load_4d(Ks + s * C::KV_TILE + c * C::KV_BLOCK, &tmk, &full_k[s], 64 * c,
-                            key0, h, b);
-        sm90::mbar_arrive_expect_tx(&full_v[s], C::KV_TILE);
+          for (int c = 0; c < C::NC; ++c)
+            sm90::tma_load_4d(Ks + s * C::KV_TILE + c * C::KV_BLOCK, &tmk, &full_k[s], 64 * c,
+                              key0, h, b);
+          if constexpr (C::TAIL > 0)
+            sm90::tma_load_4d(Ks + s * C::KV_TILE + C::NC * C::KV_BLOCK, &tmk_tail, &full_k[s],
+                              64 * C::NC, key0, h, b);
+          sm90::mbar_arrive_expect_tx(&full_v[s], C::KV_TILE);
 #pragma unroll
-        for (int c = 0; c < C::NC; ++c)
-          sm90::tma_load_4d(Vs + s * C::KV_TILE + c * C::KV_BLOCK, &tmv, &full_v[s], 64 * c,
-                            key0, h, b);
+          for (int c = 0; c < C::NC; ++c)
+            sm90::tma_load_4d(Vs + s * C::KV_TILE + c * C::KV_BLOCK, &tmv, &full_v[s], 64 * c,
+                              key0, h, b);
+          if constexpr (C::TAIL > 0)
+            sm90::tma_load_4d(Vs + s * C::KV_TILE + C::NC * C::KV_BLOCK, &tmv_tail, &full_v[s],
+                              64 * C::NC, key0, h, b);
+        }
       }
     }
   } else {
-    // ---- consumers: group w owns rows [64w, 64w + 64) of the CTA.
+    // ---- consumers: group w owns rows [64w, 64w + 64) of each item.
     sm90::reg_alloc<kConsumerRegs>();
     const int w = wg;
     const int tid = threadIdx.x - wg * kWgThreads;
     const int warp = tid / 32, lane = tid % 32;
     const auto* q = static_cast<const __nv_bfloat16*>(p.q);
-
-    // Q rows into shared memory, swizzled as TMA would (absent rows zero).
-    for (int e = tid; e < 64 * D / 8; e += kWgThreads) {
-      const int r = 64 * w + e / (D / 8), c = e % (D / 8);
-      const int R = R0 + r;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (R < n_rows && 8 * c < p.dq)
-        val = *reinterpret_cast<const uint4*>(q + b * p.qsb +
-                                              (long long)(h * p.G + R % p.G) * p.qsh +
-                                              (long long)(R / p.G) * p.qss + c * 8);
-      *reinterpret_cast<uint4*>(Qs + swz(r, c, C::Q_BLOCK)) = val;
-    }
-    sm90::fence_proxy_async();
-    sm90::bar_sync(kGroupBar + w, kWgThreads);
-
     // Rows of this thread: 64w + 16 warp + lane / 4 (+ 8).
     const int row0 = 64 * w + 16 * warp + lane / 4;
-    const int pos[2] = {(R0 + row0) / p.G, (R0 + row0 + 8) / p.G};
-    const int w_lo = (R0 + 64 * w) / p.G, w_hi = (R0 + 64 * w + 63) / p.G;
     const float sl2 = CAP ? p.scale / p.softcap : p.scale * kLog2e;
     const float cl2 = p.softcap * kLog2e;
-
-    float o[D / 2];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-    // Running max (log2 units; -inf until a live key) and sum of each row.
-    float m[2] = {-kInf, -kInf}, l[2] = {0.f, 0.f};
     const float f = CAP ? 1.f : sl2;  // score -> log2 units, after the cap
     const uint8_t* q_w = Qs + 64 * w * 128;
+    const uint8_t* q_tail = Qs + C::NC * C::Q_BLOCK + 64 * w * 32;
+
+    // O over the 64-column blocks and over the tail block; oc(i) is
+    // element i of the whole row of D / 2 (constant i once unrolled).
+    float o[32 * C::NC], ot[C::TAIL > 0 ? C::TAIL / 2 : 1];
+    auto oc = [&](int i) -> float& { return i < 32 * C::NC ? o[i] : ot[i - 32 * C::NC]; };
+    // Running max (log2 units; -inf until a live key) and sum of each row.
+    float m[2], l[2];
     float sc[BN / 2];                 // S of the current tile, then its P
     float alpha[2];
+    int pos[2], w_lo, w_hi;
 
     // Cap, and mask only where the tile crosses an edge of this group's rows
     // (a masked score is -inf and weighs 0); then the online softmax per row
@@ -314,31 +384,39 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     };
 
-    // Each tile: one turn at the tensor cores for S_i = Q K_iᵀ (both
-    // K-major: k step ks is 32 bytes into column block ks / 4); the group
-    // computes P_i while the other group takes its turn, then O += P_i V_i
-    // with P_i as the A operand in registers and V MN-major (k step kk is
-    // 16 rows, 2048 bytes, down each column block).
-    if (w == 1 && n_tiles > 0) sm90::bar_arrive(kTurnBar, 2 * kWgThreads);  // group 0 first
-    for (int i = 0; i < n_tiles; ++i) {
-      const int s = i % C::STAGES;
-      const uint32_t ph = (i / C::STAGES) & 1;
-      const uint8_t* kt = Ks + s * C::KV_TILE;
-      const uint8_t* vt = Vs + s * C::KV_TILE;
-      sm90::mbar_wait(&full_k[s], ph);
-      sm90::bar_sync(kTurnBar + w, 2 * kWgThreads);
-      sm90::wgmma_fence();
+    // S_i = Q K_iᵀ (both K-major: k step ks is 32 bytes into column block
+    // ks / 4, and the tail block is one k step); O += P_i V_i with P_i as
+    // the A operand in registers and V MN-major (k step kk is 16 rows, 2048
+    // bytes down each column block, 512 down the tail block).  `it` is the
+    // ring position of the item's first tile.
+    int it = 0;
+    uint32_t pa[BN / 16][4];
+    auto issue_s = [&](int i) {
+      const uint8_t* kt = Ks + ((it + i) % C::STAGES) * C::KV_TILE;
 #pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks)
+      for (int ks = 0; ks < 4 * C::NC; ++ks)
         sm90::wgmma_ss<BN>(
             sc, sm90::desc_sw128(q_w + (ks / 4) * C::Q_BLOCK + (ks % 4) * 32, 16, 1024),
             sm90::desc_sw128(kt + (ks / 4) * C::KV_BLOCK + (ks % 4) * 32, 16, 1024), ks > 0);
+      if constexpr (C::TAIL > 0)
+        sm90::wgmma_ss<BN>(sc, sm90::desc_sw32(q_tail, 16, 256),
+                           sm90::desc_sw32(kt + C::NC * C::KV_BLOCK, 16, 256), 1);
       sm90::wgmma_commit();
-      if (!(w == 1 && i == n_tiles - 1)) sm90::bar_arrive(kTurnBar + 1 - w, 2 * kWgThreads);
-      sm90::wgmma_wait<0>();
-      sm90::fence_operands(sc);
-      softmax(i);
-      uint32_t pa[BN / 16][4];
+    };
+    auto issue_pv = [&](int i) {
+      const uint8_t* vt = Vs + ((it + i) % C::STAGES) * C::KV_TILE;
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        sm90::wgmma_rs<64 * C::NC>(o, pa[kk],
+                                   sm90::desc_sw128(vt + kk * 2048, C::KV_BLOCK, 1024));
+        if constexpr (C::TAIL > 0)
+          sm90::wgmma_rs<C::TAIL>(
+              ot, pa[kk], sm90::desc_sw32(vt + C::NC * C::KV_BLOCK + kk * 512, C::KV_TAIL, 256));
+      }
+      sm90::wgmma_commit();
+    };
+    // P (the softmax's sc) into bf16 A fragments; O scaled by alpha.
+    auto take_p = [&]() {
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk) {
         pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
@@ -348,47 +426,164 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
-        o[4 * j] *= alpha[0];
-        o[4 * j + 1] *= alpha[0];
-        o[4 * j + 2] *= alpha[1];
-        o[4 * j + 3] *= alpha[1];
+        oc(4 * j) *= alpha[0];
+        oc(4 * j + 1) *= alpha[0];
+        oc(4 * j + 2) *= alpha[1];
+        oc(4 * j + 3) *= alpha[1];
       }
-      sm90::mbar_wait(&full_v[s], ph);
-      sm90::fence_operands(o);
-      sm90::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk)
-        sm90::wgmma_rs<D>(o, pa[kk], sm90::desc_sw128(vt + kk * 2048, C::KV_BLOCK, 1024));
-      sm90::wgmma_commit();
+    };
+    auto wait_o = [&]() {
       sm90::wgmma_wait<0>();
       sm90::fence_operands(o);
+      sm90::fence_operands(ot);
+    };
+    auto wait_k = [&](int i) {
+      sm90::mbar_wait(&full_k[(it + i) % C::STAGES], ((it + i) / C::STAGES) & 1);
+    };
+    auto wait_v = [&](int i) {
+      sm90::mbar_wait(&full_v[(it + i) % C::STAGES], ((it + i) / C::STAGES) & 1);
+    };
+    auto release = [&](int i) {
       __syncwarp();
-      if (lane == 0) sm90::mbar_arrive(&empty[s]);
-    }
+      if (lane == 0) sm90::mbar_arrive(&empty[(it + i) % C::STAGES]);
+    };
 
-    // O / l into this group's Q rows (no wgmma reads them any more), then
-    // out in 16-byte stores.
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      float lt = l[hr];
-      lt += __shfl_xor_sync(kFull, lt, 1);
-      lt += __shfl_xor_sync(kFull, lt, 2);
-      const float inv = 1.f / fmaxf(lt, 1e-30f);
-      const int r = row0 + 8 * hr;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<uint32_t*>(Qs + swz(r, j, C::Q_BLOCK) + 4 * (lane % 4)) =
-            pack_bf16(o[4 * j + 2 * hr] * inv, o[4 * j + 2 * hr + 1] * inv);
-    }
-    sm90::bar_sync(kGroupBar + w, kWgThreads);
-    auto* out = static_cast<__nv_bfloat16*>(p.out);
-    for (int e = tid; e < 64 * D / 8; e += kWgThreads) {
+    // 16-byte chunk e of this group's Q rows of item x (absent rows zero),
+    // and where it lies in shared memory, swizzled as TMA would.
+    auto q_chunk = [&](const Item& x, int e) {
       const int r = 64 * w + e / (D / 8), c = e % (D / 8);
-      const int R = R0 + r;
-      if (R < n_rows && 8 * c < p.dq)
-        *reinterpret_cast<uint4*>(out + b * p.qsb + (long long)(h * p.G + R % p.G) * p.qsh +
-                                  (long long)(R / p.G) * p.qss + c * 8) =
-            *reinterpret_cast<const uint4*>(Qs + swz(r, c, C::Q_BLOCK));
+      const int R = x.R0 + r;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (R < n_rows)
+        val = *reinterpret_cast<const uint4*>(q + x.b * p.qsb +
+                                              (long long)(x.h * p.G + R % p.G) * p.qsh +
+                                              (long long)(R / p.G) * p.qss + c * 8);
+      return val;
+    };
+    auto q_at = [&](int e) { return Qs + C::q_off(64 * w + e / (D / 8), e % (D / 8)); };
+
+    Item x;
+    item(0, x);
+    take(x);
+    for (int e = tid; e < 64 * D / 8; e += kWgThreads)
+      *reinterpret_cast<uint4*>(q_at(e)) = q_chunk(x, e);
+    sm90::fence_proxy_async();
+    sm90::bar_sync(kGroupBar + w, kWgThreads);
+    for (int k = 0;; ++k) {
+
+      pos[0] = (R0 + row0) / p.G;
+      pos[1] = (R0 + row0 + 8) / p.G;
+      w_lo = (R0 + 64 * w) / p.G;
+      w_hi = (R0 + 64 * w + 63) / p.G;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) oc(i) = 0.f;
+      m[0] = m[1] = -kInf;
+      l[0] = l[1] = 0.f;
+
+      // The two groups take turns at the tensor cores (named barriers): a
+      // group issues its products in its turn, so that its softmax runs
+      // under the other group's.  A group takes n_tiles turns an item
+      // (n_tiles + 1 with the overlap); group 1's last passes none back.
+      if (w == 1 && n_tiles > 0) sm90::bar_arrive(kTurnBar, 2 * kWgThreads);  // group 0 first
+      if constexpr (C::OVERLAP) {
+        // FlashAttention-3's overlap inside the group: S_i is issued in
+        // one turn with P_{i-1} V_{i-1}, and the softmax of S_i runs under
+        // that product; a stage is released once its V has been read.
+        if (n_tiles > 0) {
+          wait_k(0);
+          sm90::bar_sync(kTurnBar + w, 2 * kWgThreads);
+          sm90::wgmma_fence();
+          issue_s(0);
+          sm90::bar_arrive(kTurnBar + 1 - w, 2 * kWgThreads);
+          sm90::wgmma_wait<0>();
+          sm90::fence_operands(sc);
+          softmax(0);
+          take_p();
+          for (int i = 1; i < n_tiles; ++i) {
+            wait_k(i);
+            wait_v(i - 1);
+            sm90::fence_operands(o);
+            sm90::fence_operands(ot);
+            sm90::bar_sync(kTurnBar + w, 2 * kWgThreads);
+            sm90::wgmma_fence();
+            issue_s(i);
+            issue_pv(i - 1);
+            sm90::bar_arrive(kTurnBar + 1 - w, 2 * kWgThreads);
+            sm90::wgmma_wait<1>();
+            sm90::fence_operands(sc);
+            softmax(i);
+            wait_o();
+            release(i - 1);
+            take_p();
+          }
+          wait_v(n_tiles - 1);
+          sm90::fence_operands(o);
+          sm90::fence_operands(ot);
+          sm90::bar_sync(kTurnBar + w, 2 * kWgThreads);
+          sm90::wgmma_fence();
+          issue_pv(n_tiles - 1);
+          if (w == 0) sm90::bar_arrive(kTurnBar + 1, 2 * kWgThreads);
+          wait_o();
+          release(n_tiles - 1);
+        }
+      } else {
+        // One turn a tile for S_i; the group computes P_i while the other
+        // group takes its turn, then O += P_i V_i.
+        for (int i = 0; i < n_tiles; ++i) {
+          wait_k(i);
+          sm90::bar_sync(kTurnBar + w, 2 * kWgThreads);
+          sm90::wgmma_fence();
+          issue_s(i);
+          if (!(w == 1 && i == n_tiles - 1)) sm90::bar_arrive(kTurnBar + 1 - w, 2 * kWgThreads);
+          sm90::wgmma_wait<0>();
+          sm90::fence_operands(sc);
+          softmax(i);
+          take_p();
+          wait_v(i);
+          sm90::fence_operands(o);
+          sm90::fence_operands(ot);
+          sm90::wgmma_fence();
+          issue_pv(i);
+          wait_o();
+          release(i);
+        }
+      }
+      it += n_tiles;
+
+      // O / l into this group's Q rows (no wgmma reads them any more), then
+      // out in 16-byte stores.
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float lt = l[hr];
+        lt += __shfl_xor_sync(kFull, lt, 1);
+        lt += __shfl_xor_sync(kFull, lt, 2);
+        const float inv = 1.f / fmaxf(lt, 1e-30f);
+        const int r = row0 + 8 * hr;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<uint32_t*>(Qs + C::q_off(r, j) + 4 * (lane % 4)) =
+              pack_bf16(oc(4 * j + 2 * hr) * inv, oc(4 * j + 2 * hr + 1) * inv);
+      }
+      sm90::bar_sync(kGroupBar + w, kWgThreads);
+      auto* out = static_cast<__nv_bfloat16*>(p.out);
+      for (int e = tid; e < 64 * D / 8; e += kWgThreads) {
+        const int r = 64 * w + e / (D / 8), c = e % (D / 8);
+        const int R = R0 + r;
+        if (R < n_rows)
+          *reinterpret_cast<uint4*>(out + b * p.qsb + (long long)(h * p.G + R % p.G) * p.qsh +
+                                    (long long)(R / p.G) * p.qss + c * 8) =
+              *reinterpret_cast<const uint4*>(Qs + C::q_off(r, c));
+      }
+      if constexpr (!C::PERSISTENT) break;
+      if (!item(k + 1, x)) break;
+      // The next item's Q over these rows, once the group's stores have
+      // read them.
+      take(x);
+      sm90::bar_sync(kGroupBar + w, kWgThreads);
+      for (int e = tid; e < 64 * D / 8; e += kWgThreads)
+        *reinterpret_cast<uint4*>(q_at(e)) = q_chunk(x, e);
+      sm90::fence_proxy_async();
+      sm90::bar_sync(kGroupBar + w, kWgThreads);
     }
 #ifdef FLASH_TIMING
     if (threadIdx.x == 0 && cta < 8192) g_timing[4 * cta + 1] = gtime();
@@ -536,28 +731,44 @@ __global__ void __launch_bounds__(kSimtWarps * 32) flash_simt(const Params p) {
 }
 
 // Tensor map of a (B, Hkv, Skv, D) bf16 view with element strides (sb, sh,
-// ss, 1): boxes of 64 channels (128 bytes, 128-byte swizzle) by `rows` keys;
-// keys past Skv, and channels past D where the kernel's tile is wider, read
-// as zeros.
+// ss, 1): boxes of `cols` channels by `rows` keys, 64 channels (128 bytes)
+// under the 128-byte swizzle or 16 (32 bytes) under the 32-byte one; keys
+// past Skv read as zeros.
 bool kv_map(CUtensorMap* map, const void* base, int B, int Hkv, int Skv, int D, long long sb,
-            long long sh, long long ss, int rows) {
+            long long sh, long long ss, int rows, int cols) {
   return sm90::tile_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, {D, Skv, Hkv, B},
-                       {ss, sh, sb}, {64, rows, 1, 1}, CU_TENSOR_MAP_SWIZZLE_128B);
+                       {ss, sh, sb}, {cols, rows, 1, 1},
+                       cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B);
 }
 
 template <int D, bool CAUSAL, bool WINDOW, bool CAP>
 cudaError_t launch_wgmma(const Params& p, int B, cudaStream_t s) {
   using C = WgCfg<D>;
-  CUtensorMap tmk, tmv;
-  if (!kv_map(&tmk, p.k, B, p.Hkv, p.Skv, p.dq, p.ksb, p.ksh, p.kss, C::BN) ||
-      !kv_map(&tmv, p.v, B, p.Hkv, p.Skv, p.dq, p.ksb, p.ksh, p.kss, C::BN))
+  if (p.dq != D) return cudaErrorInvalidValue;
+  CUtensorMap tmk, tmv, tmk_tail, tmv_tail;
+  if (!kv_map(&tmk, p.k, B, p.Hkv, p.Skv, D, p.ksb, p.ksh, p.kss, C::BN, 64) ||
+      !kv_map(&tmv, p.v, B, p.Hkv, p.Skv, D, p.ksb, p.ksh, p.kss, C::BN, 64))
+    return cudaErrorInvalidValue;
+  tmk_tail = tmk;
+  tmv_tail = tmv;
+  if (C::TAIL > 0 &&
+      (!kv_map(&tmk_tail, p.k, B, p.Hkv, p.Skv, D, p.ksb, p.ksh, p.kss, C::BN, C::TAIL) ||
+       !kv_map(&tmv_tail, p.v, B, p.Hkv, p.Skv, D, p.ksb, p.ksh, p.kss, C::BN, C::TAIL)))
     return cudaErrorInvalidValue;
   const auto kernel = flash_wgmma<D, CAUSAL, WINDOW, CAP>;
-  const cudaError_t err =
+  cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq * p.G + kRows - 1) / kRows, B * p.Hkv);
-  kernel<<<grid, kThreads, C::SMEM, s>>>(p, tmk, tmv);
+  const int n_rb = (p.Sq * p.G + kRows - 1) / kRows;
+  dim3 grid(n_rb, B * p.Hkv);
+  if (C::PERSISTENT) {
+    int dev, sms;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return err;
+    grid = dim3(n_rb * B * p.Hkv < sms ? n_rb * B * p.Hkv : sms, 1);
+  }
+  kernel<<<grid, kThreads, C::SMEM, s>>>(p, tmk, tmv, tmk_tail, tmv_tail);
   return cudaGetLastError();
 }
 
@@ -613,13 +824,13 @@ extern "C" int flash_attention(int path, int dtype, int D, const void* q, const 
                                float scale, float softcap, void* stream) {
   if (B < 1 || Hkv < 1 || G < 1 || Sq < 1 || Skv < 1 || B * Hkv > 65535)
     return cudaErrorInvalidValue;
-  const Params p{q, k, v, out, Sq, Skv, Hkv, G, D, qsb, qsh, qss, ksb, ksh, kss,
+  const Params p{q, k, v, out, Sq, Skv, Hkv, G, B * Hkv, D, qsb, qsh, qss, ksb, ksh, kss,
                  causal, window, scale, softcap};
   const auto s = static_cast<cudaStream_t>(stream);
   if (path == 1 && dtype == 1) {
     switch (D) {
       case 64: return dispatch_wgmma<64>(p, B, s);
-      case 80:  // the 128-column instance; columns 80..127 are zeros
+      case 80: return dispatch_wgmma<80>(p, B, s);
       case 128: return dispatch_wgmma<128>(p, B, s);
       case 256: return dispatch_wgmma<256>(p, B, s);
       default: return cudaErrorInvalidValue;

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
-// TMA tile loads and 1-D bulk copies, named barriers, register
+// TMA tile loads, 1-D bulk copies and cp.async, named barriers, register
 // reallocation, warpgroup matrix products (wgmma) with their shared memory
 // descriptors, and (host side) the tensor maps that TMA loads read.  Each is one PTX instruction or a short fixed
 // sequence; see the PTX ISA sections of the same names.
@@ -86,6 +86,20 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// 16-byte asynchronous copy from global to shared memory (cp.async, through
+// L2 only), both addresses 16-byte aligned; cp_async_mbar_arrive reports it.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+// One arrival on `bar` once every earlier cp.async of this thread has landed
+// (.noinc: the barrier's count includes it).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
 // 4-D TMA tile store from shared memory (coordinates innermost first), in
 // this thread's current bulk group.
 __device__ __forceinline__ void tma_store_4d(const void* map, const void* src, int c0, int c1,
@@ -152,6 +166,16 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* tile, uint32_t lbo, u
   const uint64_t addr = smem_addr(tile);
   return ((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// The same in the 32-byte swizzle layout (rows of 32 bytes, 8-row atoms of
+// 256 bytes, 256-byte aligned): a K-major operand of one k step, 16 bf16
+// wide, or an MN-major one 16 columns wide; `sbo` is the stride between
+// 8-row atoms, `lbo` between 16-column blocks (unused at 16 columns).
+__device__ __forceinline__ uint64_t desc_sw32(const void* tile, uint32_t lbo, uint32_t sbo) {
+  const uint64_t addr = smem_addr(tile);
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (3ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -266,6 +290,18 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
 }
 
 template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4],
                                              uint64_t db) {
   asm volatile(
@@ -375,8 +411,8 @@ inline EncodeTiled encode_tiled() {
 // Tensor map of a 4-D view: `dims` innermost first, the innermost
 // contiguous, `strides` the other three in elements (each a multiple of 16
 // bytes, the base 16-byte aligned); boxes of `box` elements, whose inner
-// extent is 128 bytes under the 128-byte swizzle.  Elements outside the view
-// read as zeros.
+// extent is the swizzle's width (128 bytes under the 128-byte swizzle, 32
+// under the 32-byte one).  Elements outside the view read as zeros.
 inline bool tile_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
                      const void* base, const long long (&dims)[4],
                      const long long (&strides)[3], const int (&box)[4],

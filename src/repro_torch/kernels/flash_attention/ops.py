@@ -14,8 +14,9 @@ ignores them: the card's tiles are fixed by the kernel (on the tensor cores
 128 query rows and 128 keys, 64 keys at D = 256).
 
 No tensor is padded: where the reference's ``mha`` pads D to 128 lanes,
-the tensor-core kernel at D = 80 (stablelm-3b's) runs its 128-column
-instance with the columns past 80 zero inside the kernel.
+the tensor-core kernel at D = 80 (stablelm-3b's and hubert-xlarge's) runs
+an 80-column instance, a 64-column block and a 16-column tail block, so
+that no product touches a column past 80.
 """
 from __future__ import annotations
 

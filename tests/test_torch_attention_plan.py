@@ -29,7 +29,7 @@ def test_flash_path(dtype, D):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", DA.HEAD_DIMS)
 def test_decode_path(dtype, D):
-    want = "bulk" if dtype == torch.bfloat16 and D in (64, 128) else "simt"
+    want = "bulk" if dtype == torch.bfloat16 and D in (64, 128, 256) else "simt"
     assert DA.kernel_path(dtype, D) == want
 
 
@@ -78,22 +78,76 @@ def test_decode_plan_at_qwen2_7b_decode():
 
 @pytest.mark.parametrize("B", [8, 128])
 def test_decode_plan_at_recurrentgemma_ring(B):
-    """recurrentgemma-9b's 2,048-row ring (128 stages) on the CUDA-core
-    kernel (D = 256, 16 query heads: two head chunks a kv head): splits of
-    at least ``MIN_SPLIT_STAGES`` stages, where whole waves would deal
-    66 (B 8) or 33 (B 128) splits of 2-4 stages."""
-    ctas = B * 1 * 2
-    n_split, n_stages = DA._plan(2048, ctas, H100_SMS, 8)
-    assert n_stages == 128
-    assert n_split == min({8: 66, 128: 33}[B], 128 // DA.MIN_SPLIT_STAGES)
+    """recurrentgemma-9b's 2,048-row ring (128 stages) on the bulk kernel
+    (D = 256, 16 query heads over one kv head: one CTA per batch row and
+    split, one an SM, 132 slots).  Whole waves would take 33 splits of
+    3-4 stages; the floor allows 8, and of those the fullest last wave is
+    8 splits at B 8 (64 CTAs) and 1 at B 128 (128 of 132 slots: the kernel
+    writes the output, no merge)."""
+    assert DA.kernel_path(torch.bfloat16, 256) == "bulk"
+    assert DA.heads_per_cta(1, 256) == 1
+    per_sm = DA.bulk_ctas_per_sm(1, 256)
+    assert per_sm == 1
+    n_split, n_stages = DA._plan(2048, B, H100_SMS, per_sm, fullest=True)
+    assert n_stages == 128 and 128 // DA.MIN_SPLIT_STAGES == 8
+    assert n_split == {8: 8, 128: 1}[B]
+
+
+# (S, CTAs per split, CTAs per SM) where the floor caps the split count
+# below whole waves: the ring at B 128 and B 8, qwen2-7b at B 1, a ragged
+# S, and the CUDA-core kernel's stablelm-3b decode (256 CTAs a split).
+CAPPED = [(2048, 128, 2), (2048, 8, 2), (32768, 1, 1), (4000, 8, 1),
+          (8192, 256, 8), (2048, 128, 3)]
+
+
+@pytest.mark.parametrize("S,ctas,per_sm", CAPPED)
+def test_decode_plan_fullest_last_wave(S, ctas, per_sm):
+    """With ``fullest`` (the bulk kernel) a capped plan takes the count of
+    at most ``cap`` splits whose last wave is fullest, the fewest of those;
+    without it (the CUDA-core kernel) the cap itself.  Either way whole
+    waves win where the cap allows them (qwen2-7b: 33)."""
+    slots = H100_SMS * per_sm
+    n_stages = -(-S // DA.STAGE_ROWS)
+    cap = max(1, n_stages // DA.MIN_SPLIT_STAGES)
+    assert slots // math.gcd(slots, ctas) > cap
+
+    def fill(n):
+        return ctas * n / (slots * -(-ctas * n // slots))
+
+    n_split, _ = DA._plan(S, ctas, H100_SMS, per_sm, fullest=True)
+    assert 1 <= n_split <= cap
+    assert all(fill(n) < fill(n_split) or (fill(n) == fill(n_split) and n >= n_split)
+               for n in range(1, cap + 1))
+    assert DA._plan(S, ctas, H100_SMS, per_sm) == (cap, n_stages)
+    assert DA._plan(32768, 8, H100_SMS, 1, fullest=True) == (33, 2048)
 
 
 @pytest.mark.parametrize("Hkv,D,want", [(4, 128, 4), (8, 128, 4), (1, 64, 1),
-                                        (16, 64, 8), (2, 64, 2)])
+                                        (16, 64, 8), (2, 64, 2), (1, 256, 1),
+                                        (2, 256, 1)])
 def test_bulk_heads_per_cta(Hkv, D, want):
     hc = DA.heads_per_cta(Hkv, D)
-    assert hc == want and Hkv % hc == 0
-    assert DA.BULK_STAGES * 2 * DA.STAGE_ROWS * hc * D * 2 <= DA.BULK_SMEM
+    assert hc == want and Hkv % hc == 0 and hc <= DA.BULK_MAX_HEADS[D]
+    assert DA.bulk_smem(hc, D) <= DA.BULK_SMEM
+
+
+@pytest.mark.parametrize("Hkv,D,smem,per_sm", [(4, 128, 131_136, 1),
+                                               (1, 256, 135_296, 1),
+                                               (2, 256, 135_296, 1),
+                                               (1, 64, 16_448, 13)])
+def test_bulk_ctas_per_sm_follow_from_shared_memory(Hkv, D, smem, per_sm):
+    """A bulk CTA's shared memory is its ring of stages of 16 K and 16 V
+    rows (4 stages; at D = 256 8 stages of 528-byte rows) and a full and an
+    empty barrier of 8 bytes a stage; an SM's 228 KiB, less 1 KiB for
+    each CTA, holds as many as fit: one at recurrentgemma-9b's ring and at
+    qwen2-7b, 13 of a lone kv head of 64."""
+    hc = DA.heads_per_cta(Hkv, D)
+    stage = 16 * (hc * D * 2 + (16 if D == 256 else 0))
+    stages = 8 if D == 256 else 4
+    assert DA.BULK_STAGES[D] == stages
+    assert DA.bulk_smem(hc, D) == stages * (2 * stage + 16) == smem
+    assert DA.bulk_ctas_per_sm(Hkv, D) == per_sm \
+        == 228 * 1024 // (smem + DA.CTA_RESERVED_SMEM)
 
 
 def test_split_rows_match_a_direct_deal():
@@ -129,8 +183,17 @@ SASS = """\
         /*0010*/              @!P0 UTMALDG.4D [UR8], [UR4] ;    /* 0x0000000000000000 */
         /*0020*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ ; /* 0x00 */
         /*0030*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24 ; /* 0x00 */
+\t\tFunction : _ZN12_GLOBAL__N_111flash_wgmmaILi80ELb1ELb0ELb0EEEvNS_6ParamsE
+        /*0000*/                   UTMALDG.4D [UR8], [UR4] ;    /* 0x0000000000000000 */
+        /*0010*/                   HGMMA.64x16x16.F32.BF16 R24, R4, gdesc[UR4], R24 ; /* 0x00 */
+\t\tFunction : _ZN12_GLOBAL__N_111flash_wgmmaILi80ELb0ELb0ELb0EEEvNS_6ParamsE
+        /*0000*/                   UTMALDG.4D [UR8], [UR4] ;    /* 0x0000000000000000 */
+        /*0010*/                   HGMMA.64x64x16.F32.BF16 R24, R4, gdesc[UR4], R24 ; /* 0x00 */
 \t\tFunction : _ZN12_GLOBAL__N_111decode_bulkILi128ELb0EEEvPK13__nv_bfloat16
         /*0000*/                   UBLKCP.S.G [UR4], [UR6], R2 ; /* 0x00 */
+        /*0010*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ; /* 0x00 */
+\t\tFunction : _ZN12_GLOBAL__N_111decode_bulkILi256ELb0EEEvPK13__nv_bfloat16
+        /*0000*/                   LDGSTS.E.BYPASS.LTC128B.128 [R3], [R4.64] ; /* 0x00 */
         /*0010*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ; /* 0x00 */
 \t\tFunction : _ZN12_GLOBAL__N_114mlstm_wg_stateENS_8WgParamsE14CUtensorMap_stS1_S1_
         /*0000*/                   UTMALDG.4D [UR8], [UR4] ;    /* 0x0000000000000000 */
@@ -154,35 +217,89 @@ def test_sass_counts_and_required_instructions(tmp_path, monkeypatch):
     (tmp_path / "sass.txt").write_text(SASS)
     monkeypatch.setattr(cs, "cuobjdump", lambda: str(fake))
     counts = cs.sass_counts("lib.so")
-    flash, decode, state, scores, out, ring = counts.values()
-    assert flash == {"HGMMA": 2, "UTMALDG": 1, "UBLKCP": 0, "HMMA": 0}
-    assert decode == {"HGMMA": 0, "UTMALDG": 0, "UBLKCP": 1, "HMMA": 1}
+    flash, flash80, flash80nc, decode, decode256, state, scores, out, ring = \
+        counts.values()
+    assert flash == {"HGMMA": 2, "UTMALDG": 1, "UBLKCP": 0, "HMMA": 0,
+                     "LDGSTS": 0}
+    assert flash80 == flash80nc == {"HGMMA": 1, "UTMALDG": 1, "UBLKCP": 0,
+                                    "HMMA": 0, "LDGSTS": 0}
+    assert decode == {"HGMMA": 0, "UTMALDG": 0, "UBLKCP": 1, "HMMA": 1,
+                      "LDGSTS": 0}
+    assert decode256 == {"HGMMA": 0, "UTMALDG": 0, "UBLKCP": 0, "HMMA": 1,
+                         "LDGSTS": 1}
     assert state == scores == out == {"HGMMA": 1, "UTMALDG": 1, "UBLKCP": 0,
-                                      "HMMA": 0}
-    assert ring == {"HGMMA": 0, "UTMALDG": 1, "UBLKCP": 0, "HMMA": 0}
+                                      "HMMA": 0, "LDGSTS": 0}
+    assert ring == {"HGMMA": 0, "UTMALDG": 1, "UBLKCP": 0, "HMMA": 0,
+                    "LDGSTS": 0}
     names = list(counts)
-    assert names[2:] == ["mlstm_wg_state", "mlstm_wg_scores", "mlstm_wg_out",
+    assert names[1:5] == ["flash_wgmmaILi80ELb1ELb0ELb0EE",
+                          "flash_wgmmaILi80ELb0ELb0ELb0EE",
+                          "decode_bulkILi128ELb0EE", "decode_bulkILi256ELb0EE"]
+    assert names[5:] == ["mlstm_wg_state", "mlstm_wg_scores", "mlstm_wg_out",
                          "rglru_ringIfE"]
 
     def libs(**broken):
         fns = dict(zip(names, counts.values()))
         for name, ops in broken.items():
             fns[name] = dict(fns[name], **ops)
-        return {"flash_attention": {names[0]: fns[names[0]]},
-                "decode_attention": {names[1]: fns[names[1]]},
-                "mlstm_chunk": {n: fns[n] for n in names[2:5]},
-                "rglru": {names[5]: fns[names[5]]}}
+        return {"flash_attention": {n: fns[n] for n in names[0:3]},
+                "decode_attention": {n: fns[n] for n in names[3:5]},
+                "mlstm_chunk": {n: fns[n] for n in names[5:8]},
+                "rglru": {names[8]: fns[names[8]]}}
 
     cs.check_sass(libs())
     with pytest.raises(cs.CheckFailed, match="HGMMA"):
         cs.check_sass(libs(**{names[0]: {"HGMMA": 0}}))
+    for name in names[1:3]:      # the D = 80 instance off the tensor cores
+        with pytest.raises(cs.CheckFailed, match=f"{name[:-1]} contains none of"):
+            cs.check_sass(libs(**{name: {"HGMMA": 0}}))
+        with pytest.raises(cs.CheckFailed, match="UTMALDG"):
+            cs.check_sass(libs(**{name: {"UTMALDG": 0}}))
     with pytest.raises(cs.CheckFailed, match="UBLKCP"):
-        cs.check_sass(libs(**{names[1]: {"UBLKCP": 0}}))
-    for name in names[2:5]:      # an mLSTM kernel on the CUDA cores
+        cs.check_sass(libs(**{names[3]: {"UBLKCP": 0}}))
+    with pytest.raises(cs.CheckFailed, match="decode_bulkILi256ELb0E contains "
+                       "none of .'LDGSTS'"):
+        cs.check_sass(libs(**{names[4]: {"LDGSTS": 0}}))
+    with pytest.raises(cs.CheckFailed, match="decode_bulkILi256ELb0E contains "
+                       "none of .'HMMA'"):   # D = 256 back on the CUDA cores
+        cs.check_sass(libs(**{names[4]: {"HMMA": 0}}))
+    for name in names[5:8]:      # an mLSTM kernel on the CUDA cores
         with pytest.raises(cs.CheckFailed, match=f"{name} contains none of"):
             cs.check_sass(libs(**{name: {"HGMMA": 0}}))
     with pytest.raises(cs.CheckFailed, match="rglru_ringIfE"):
         cs.check_sass(libs(rglru_ringIfE={"UTMALDG": 0}))
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Function properties for _ZN12_GLOBAL__N_16cappedEff
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111decode_bulkILi256ELb1EEEvPK13__nv_bfloat16' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_111decode_bulkILi256ELb1EEEvPK13__nv_bfloat16
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 118 registers, used 1 barriers, 432 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111decode_bulkILi128ELb0EEEvPK13__nv_bfloat16' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_111decode_bulkILi128ELb0EEEvPK13__nv_bfloat16
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 200 registers, used 1 barriers, 432 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111flash_wgmmaILi80ELb0ELb1ELb1EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_111flash_wgmmaILi80ELb0ELb1ELb1EEEvNS_6ParamsE
+    24 bytes stack frame, 20 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers, 912 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_names_the_new_instances():
+    """The build phase's registers and spills of ``PTXAS_REPORTED``, by
+    kernel: another kernel's numbers and a device function's properties
+    block are not taken for theirs."""
+    report = _chip_smoke().ptxas_report(PTXAS_LOG)
+    assert report == {
+        "decode_bulkILi256ELb1EE": {"spill_stores": 0, "spill_loads": 0,
+                                    "registers": 118},
+        "flash_wgmmaILi80ELb0ELb1ELb1EE": {"spill_stores": 20,
+                                           "spill_loads": 16,
+                                           "registers": 168}}
 
 
 @pytest.mark.parametrize("mangled,short", [

@@ -40,6 +40,9 @@ def main(argv) -> int:
     floors = [int(a) for a in argv] or [1, 2, 4, 8, 16, 32, 64, 128]
     compat.build(["decode_attention"])
     dev = torch.device("cuda")
+    print(json.dumps({"ctas_per_sm_D256": DA.bulk_ctas_per_sm(1, 256),
+                      "card_ctas_per_sm_D256": DA.card_bulk_residency(1, 256)}),
+          flush=True)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     default = DA.MIN_SPLIT_STAGES
     for rnd in range(2):
@@ -55,11 +58,15 @@ def main(argv) -> int:
                    "bound_ms": DA.gqa_decode_traffic(q, k, v, S)["total_bytes"]
                    / cs.PEAK_BYTES_PER_S * 1e3}
             path = DA.kernel_path(q.dtype, D)
-            ctas = (B * (Hkv // DA.heads_per_cta(Hkv, D)) * -(-(Hq // Hkv) // 16)
-                    if path == "bulk" else B * Hkv * -(-(Hq // Hkv) // 8))
+            if path == "bulk":
+                ctas = B * (Hkv // DA.heads_per_cta(Hkv, D)) * -(-(Hq // Hkv) // 16)
+                per_sm = DA.bulk_ctas_per_sm(Hkv, D)
+            else:
+                ctas, per_sm = B * Hkv * -(-(Hq // Hkv) // 8), DA.SIMT_CTAS_PER_SM
+            row["path"], row["ctas_per_sm"] = path, per_sm
             for f in floors:
                 DA.MIN_SPLIT_STAGES = f
-                n_split, _ = DA._plan(S, ctas, sms, DA._CTAS_PER_SM[path])
+                n_split, _ = DA._plan(S, ctas, sms, per_sm, fullest=path == "bulk")
                 err, _, ok = cs.compare(DA.gqa_decode(q, k, v, n), want,
                                         "bfloat16_card")
                 cs.check(ok, f"{name} floor {f}: off by {err}")

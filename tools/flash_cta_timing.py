@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where the wgmma flash attention kernel spends its time, per CTA, on one
-H100: ``python3 tools/flash_cta_timing.py``.
+H100: ``python3 tools/flash_cta_timing.py [label]``.
 
 Builds ``csrc/flash_attention.cu`` with ``-DFLASH_TIMING`` (each CTA records
 its start, end, kv tiles and SM), runs the qwen2-7b prefill case that
-``Session.validate`` times, and fits CTA time = fixed + per-tile * tiles by
-least squares; prints the fit, the mean CTA time at a few tile counts and
-the idle gap between consecutive CTAs on an SM.
+``Session.validate`` times (or the first flash attention card case of
+``chip_smoke.card_cases`` whose label holds ``label``, e.g. ``stablelm``),
+and fits CTA time = fixed + per-tile * tiles by least squares; prints the
+fit, the mean CTA time at a few tile counts and the idle gap between
+consecutive CTAs on an SM.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
-def main() -> int:
+def main(argv) -> int:
     import numpy as np
     import torch
 
@@ -31,8 +33,9 @@ def main() -> int:
         return 2
     compat.NVCC_FLAGS = compat.NVCC_FLAGS + ("-DFLASH_TIMING",)
     dev = torch.device("cuda")
-    case = next(c for c in cs.card_cases(dev)
-                if c["name"] == "flash_attention" and c["timed"])
+    case = next(c for c in cs.card_cases(dev) if c["name"] == "flash_attention"
+                and (argv[0] in c["label"] if argv else c["timed"]))
+    print(case["label"])
     print(cs.nvidia_smi())
     print("kernel ms", cs.time_ms(case["run"], dev))
     case["run"]()
@@ -46,6 +49,7 @@ def main() -> int:
     Hkv = case["args"][1].shape[2]
     n_cta = -(-S * (Hq // Hkv) // 128) * B * Hkv
     rec = buf.reshape(-1, 4)[:min(n_cta, 8192)].astype(np.float64)
+    rec = rec[rec[:, 0] > 0]  # a persistent grid holds fewer CTAs than items
     t0 = rec[:, 0].min()
     start, end = (rec[:, 0] - t0) / 1e3, (rec[:, 1] - t0) / 1e3
     tiles, sm = rec[:, 2], rec[:, 3]
@@ -69,4 +73,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -8,9 +8,10 @@ For each variant (a comma-separated list of ``nvcc`` flags, "" for none) it
 prints the compiler's registers and spills for the kernel functions of the
 card shape (``chip_smoke.SASS_REQUIRED``), their Hopper instructions in the
 SASS, each card case's error against its plain version as a share of
-``chip_smoke``'s bound, the timed case's time (beside the one PyTorch call
-that computes the same function, for the attention kernels), and each CUDA
-kernel's device time from ``torch.profiler``.  Compare variants only within
+``chip_smoke``'s bound, the timed case's time and the attention kernels'
+head-size cases' (beside their bound and the one PyTorch call that
+computes the same function), and each CUDA kernel's device time from
+``torch.profiler``.  Compare variants only within
 one run.  Writes each variant's ``-Xptxas -v`` log to ``chiprun_out/``.
 """
 from __future__ import annotations
@@ -24,7 +25,6 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 def main(argv) -> int:
     import torch
-    import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
 
     sys.path.insert(0, str(ROOT))
@@ -65,13 +65,11 @@ def main(argv) -> int:
             want = c["plain"]()
             err, of_bound, ok = cs.compare(got, want, c["tol"], cs.spread(c))
             print(f"   {c['label'][:48]} err {err:.3g} of_bound {of_bound:.3g} ok {ok}")
-        for c in (c for c in card if c["timed"]):
+        for c in (c for c in card if c["timed"] or c.get("head_size")):
             if attention:
-                qt, kt, vt = (t.transpose(1, 2) for t in c["args"][:3])
-                sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                    qt, kt, vt, is_causal=which == "flash_attention",
-                    enable_gqa=True)
-                print("   ms", cs.time_ms(c["run"], dev), "sdpa_ms", cs.time_ms(sdpa, dev))
+                t = cs._timing(c, dev)
+                print(f"   {c['label'][:48]} ms {t['ms']} sdpa_ms {t['library_ms']} "
+                      f"bound_ms {t['bound_ms']}")
             else:
                 print("   ms", cs.time_ms(c["run"], dev))
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
