@@ -167,15 +167,16 @@ def nvidia_smi() -> str:
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "HMMA", "LDGSTS")
 #: Kernel functions of the card shapes (mangled-name fragments), by library,
 #: and the SASS instructions each must contain: flash attention at qwen2-7b
-#: prefill (D = 128, causal, no window, no cap) and at D = 80 (stablelm-3b
-#: causal, hubert-xlarge not), decode attention at D = 128 (bulk copies) and
+#: prefill (D = 128, causal, no window, no cap), at D = 80 (stablelm-3b
+#: causal, hubert-xlarge not) and at recurrentgemma-9b's local attention
+#: (D = 256, causal, window), decode attention at D = 128 (bulk copies) and
 #: at recurrentgemma-9b's D = 256 (cp.async and mma.sync) without a cap,
 #: the three tensor-core mLSTM kernels of the xlstm-1.3b shape (bf16, dh
 #: 1024, chunk 256), and the RG-LRU's copy-ring scan (float32), so that
 #: none of them silently runs on the CUDA cores or without its copies.
 SASS_REQUIRED = {
-    "flash_attention": tuple((f"flash_wgmmaILi{d}ELb{c}ELb0ELb0E", (("HGMMA",), ("UTMALDG",)))
-                             for d, c in ((128, 1), (80, 1), (80, 0))),
+    "flash_attention": tuple((f"flash_wgmmaILi{d}ELb{c}ELb{w}ELb0E", (("HGMMA",), ("UTMALDG",)))
+                             for d, c, w in ((128, 1, 0), (80, 1, 0), (80, 0, 0), (256, 1, 1))),
     "decode_attention": (("decode_bulkILi128ELb0E", (("UBLKCP", "UTMALDG"),)),
                          ("decode_bulkILi256ELb0E", (("LDGSTS",), ("HMMA",)))),
     "mlstm_chunk": tuple((f"mlstm_wg_{k}", (("HGMMA",), ("UTMALDG",)))
@@ -249,20 +250,28 @@ def sass_counts(lib) -> dict:
 
 #: Kernel instances whose registers and spills the build phase reports by
 #: name (``ptxas_report``): this port's newest designs.
-PTXAS_REPORTED = ("decode_bulkILi256E", "flash_wgmmaILi80E")
+PTXAS_REPORTED = ("decode_bulkILi256E", "flash_wgmmaILi80E", "flash_wgmmaILi256E")
+#: Instances that must build with no spill and no ptxas performance note
+#: (``check_ptxas``): flash attention at D = 256, whose wgmmas ptxas
+#: serialized (C7512) while its registers did not suffice.
+PTXAS_CLEAN = "flash_wgmmaILi256E"
 
 
 def ptxas_report(log: str, fragments=PTXAS_REPORTED) -> dict:
-    """Kernel (``short_name``) -> registers and spill bytes, from an ``nvcc
-    -Xptxas -v`` log, for the kernels whose name holds one of
-    ``fragments``."""
+    """Kernel (``short_name``) -> registers, spill bytes and the codes of
+    ptxas's performance notes on it (``C7512``: wgmmas serialized for want
+    of registers), from an ``nvcc -Xptxas -v`` log, for the kernels whose
+    name holds one of ``fragments``."""
+    notes = {}
+    for m in re.finditer(r"\((C7\d+)\) Potential Performance Loss[^']*'(\w+)'", log):
+        notes.setdefault(short_name(m.group(2)), set()).add(m.group(1))
     out, entry, props = {}, None, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             entry = short_name(m.group(1))
             if any(f in entry for f in fragments):
-                out[entry] = {}
+                out[entry] = {"notes": sorted(notes.get(entry, ()))}
             continue
         m = re.search(r"Function properties for (\w+)", line)
         if m:
@@ -276,6 +285,19 @@ def ptxas_report(log: str, fragments=PTXAS_REPORTED) -> dict:
         if m and entry in out:
             out[entry]["registers"] = int(m.group(1))
     return out
+
+
+def check_ptxas(report: dict) -> None:
+    """Fail unless all eight ``PTXAS_CLEAN`` instances of ``report`` spill
+    nothing and draw no performance note."""
+    names = [n for n in report if PTXAS_CLEAN in n]
+    check(len(names) == 8, f"ptxas report of {PTXAS_CLEAN}: {sorted(names)}")
+    for name in names:
+        r = report[name]
+        check(r["spill_stores"] == r["spill_loads"] == 0,
+              f"{name} spills {r['spill_stores']} B (stores), "
+              f"{r['spill_loads']} B (loads)")
+        check(not r["notes"], f"ptxas notes {r['notes']} on {name}")
 
 
 def bulk_residency() -> dict:
@@ -595,7 +617,12 @@ def tiling_edge_cases(device) -> list[dict]:
     tile), a softcap of 30, and 2 kv heads (one CTA each).  flash_wgmma at
     D = 80 (a 64-column block and a 16-column tail): ragged Sq = Skv =
     4,000, a window of 1,024 with a cap of 50, not causal, and GQA with
-    groups of 2."""
+    groups of 2.  flash_wgmma at D = 256 (16 query heads over one kv head,
+    persistent CTAs, Q by TMA where a group's rows are one box): ragged Sq
+    = Skv = 4,000 with a window of 2,048, a window of 1,024 with a cap of
+    30, not causal, GQA with groups of 4, the model's B 2 x 4,096 (more
+    items than two rounds of SMs), and groups of 3 (Q by 16-byte loads) and
+    of 128 (half a position's heads a box)."""
     import torch
 
     from repro_torch.kernels.decode_attention import ops as DA
@@ -631,6 +658,23 @@ def tiling_edge_cases(device) -> list[dict]:
             lambda a=qkv, r=ref: r(*a), "flash_card",
             FA.flash_attention_traffic(*qkv, causal=causal, window=window), args=qkv,
             ref=ref, timed=False, fault=True))
+    for B, S, Hq, Hkv, causal, window, cap, seed in (
+            (1, 4000, 16, 1, True, 2048, 0.0, 241), (1, 4096, 16, 1, True, 1024, 30.0, 244),
+            (1, 2000, 16, 1, False, None, 0.0, 247), (1, 2048, 8, 2, True, None, 0.0, 250),
+            (2, 4096, 16, 1, True, 2048, 0.0, 253), (1, 1000, 12, 4, True, 512, 0.0, 256),
+            (1, 512, 128, 1, True, 256, 0.0, 259)):
+        qkv = tuple(randn((B, S, h, 256), seed + i, device, torch.bfloat16)
+                    for i, h in enumerate((Hq, Hkv, Hkv)))
+        ref = functools.partial(FA.attention_ref, causal=causal, window=window,
+                                softcap=cap)
+        out.append(_case(
+            "flash_attention", f"wgmma_D256_causal{int(causal)}_win{window}_cap{cap:g}_"
+            + _shapes(qkv),
+            lambda a=qkv, c=causal, w=window, cp=cap: FA.mha(*a, causal=c, window=w,
+                                                            softcap=cp),
+            lambda a=qkv, r=ref: r(*a), "flash_card",
+            FA.flash_attention_traffic(*qkv, causal=causal, window=window), args=qkv,
+            ref=ref, timed=False, fault=True))
     return out
 
 
@@ -646,7 +690,7 @@ def head_size_cases(device) -> list[dict]:
     4096, not causal); recurrentgemma-9b's local-attention decode (16
     query heads over one kv head of 256) at B 8 and at B 128 over its
     2,048-row ring; qwen3-moe-235b-a22b's decode at B 8 over 32,768 rows.
-    All but the first carry a fault check."""
+    Each carries a fault check."""
     import torch
 
     from repro_torch.kernels.decode_attention import ops as DA
@@ -660,7 +704,7 @@ def head_size_cases(device) -> list[dict]:
         + _shapes((q, k, v)), lambda: FA.mha(q, k, v, window=2048),
         lambda: local(q, k, v), "flash_card",
         FA.flash_attention_traffic(q, k, v, window=2048), args=(q, k, v),
-        ref=local, timed=False, head_size=True, window=2048)]
+        ref=local, timed=False, fault=True, head_size=True, window=2048)]
     qkv = tuple(randn((2, 2048, 32, 80), 81 + i, device, torch.bfloat16)
                 for i in range(3))
     out += [_case("flash_attention", "stablelm-3b_prefill_" + _shapes(qkv),
@@ -998,10 +1042,16 @@ def timed_runs(run, repeats: int = 3):
     return out, walls
 
 
+#: Name fragments of the port's own kernels, which a profile lists whatever
+#: their rank (``device_profile``'s ``port_kernels``).
+PORT_KERNELS = ("flash_wgmma", "flash_simt", "decode_", "rglru_", "mlstm_")
+
+
 def device_profile(run, top: int = 0) -> dict:
     """One ``run()`` under ``torch.profiler``: device kernel time over wall
-    time (``busy_share``, None when the trace holds no device time), and
-    the ``top`` kernels by device time (name, ms, calls).  The trace
+    time (``busy_share``, None when the trace holds no device time), the
+    ``top`` kernels by device time (name, ms, calls), and every kernel of
+    the port's (``port_kernels``, the same fields).  The trace
     records the device's own events only (host operators would slow the
     host the share is taken against, and their self device time repeats
     their kernels'), and its raw events are summed as they come: building
@@ -1030,7 +1080,9 @@ def device_profile(run, top: int = 0) -> dict:
     ranked = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
     return {"busy_share": busy_us * 1e-6 / wall if busy_us > 0 else None,
             "wall_ms": wall * 1e3, "device_ms": busy_us * 1e-3,
-            "top": [(name[:80], us * 1e-3, n) for name, (us, n) in ranked[:top]]}
+            "top": [(name[:80], us * 1e-3, n) for name, (us, n) in ranked[:top]],
+            "port_kernels": [(name[:100], us * 1e-3, n) for name, (us, n) in ranked
+                             if any(f in name for f in PORT_KERNELS)]}
 
 
 def phase_stream(device):
@@ -2559,7 +2611,8 @@ def main() -> int:
           "compiled": built, "ptxas": ptxas, "registers_and_spills": registers,
           "bulk_ctas_per_sm": residency, "sass": sass})
     check_sass(sass)
-    check(len(registers) == 2 + 8, f"ptxas report of {PTXAS_REPORTED}: {sorted(registers)}")
+    check(len(registers) == 2 + 8 + 8, f"ptxas report of {PTXAS_REPORTED}: {sorted(registers)}")
+    check_ptxas(registers)
     for shape, r in residency.items():
         check(r["predicted"] == r["card"], f"decode_bulk at {shape}: ops.bulk_ctas_per_sm "
               f"predicts {r['predicted']} CTAs an SM, the card holds {r['card']}")

@@ -75,6 +75,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t
       : "memory");
 }
 
+// 5-D TMA tile load, as tma_load_4d.
+__device__ __forceinline__ void tma_load_5d(void* dst, const void* map, uint64_t* bar, int c0,
+                                            int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
+      : "memory");
+}
+
 // 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
 // aligned) from global to shared memory, completing on `bar`.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
@@ -206,6 +217,24 @@ __device__ __forceinline__ void fence_operands(float (&d)[N]) {
 template <int N, int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
                                          int scale_d);
+
+// d (64 x 64, fp32) = A (64 x 16) B (16 x 64), both K-major bf16 in shared
+// memory: the first k step of a product, d written and not read, so that
+// d's earlier values are dead before it.
+__device__ __forceinline__ void wgmma_ss_first64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
+        "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]),
+        "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]),
+        "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
+}
 
 // d (64 x N, fp32) += A (64 x 16) B (16 x N): A bf16 in registers (the
 // m16n8k16 A fragment of each warp's 16 rows), B bf16 in shared memory,
@@ -408,26 +437,28 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Tensor map of a 4-D view: `dims` innermost first, the innermost
-// contiguous, `strides` the other three in elements (each a multiple of 16
-// bytes, the base 16-byte aligned); boxes of `box` elements, whose inner
-// extent is the swizzle's width (128 bytes under the 128-byte swizzle, 32
-// under the 32-byte one).  Elements outside the view read as zeros.
+// Tensor map of an N-D view (N = 4 or 5): `dims` innermost first, the
+// innermost contiguous, `strides` the other N - 1 in elements (each a
+// multiple of 16 bytes, the base 16-byte aligned); boxes of `box` elements,
+// whose inner extent is the swizzle's width (128 bytes under the 128-byte
+// swizzle, 32 under the 32-byte one).  Elements outside the view read as
+// zeros.
+template <int N>
 inline bool tile_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
-                     const void* base, const long long (&dims)[4],
-                     const long long (&strides)[3], const int (&box)[4],
+                     const void* base, const long long (&dims)[N],
+                     const long long (&strides)[N - 1], const int (&box)[N],
                      CUtensorMapSwizzle swizzle) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  cuuint64_t d[4], st[3];
-  cuuint32_t bx[4];
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  for (int i = 0; i < 4; ++i) {
+  cuuint64_t d[N], st[N - 1];
+  cuuint32_t bx[N], estr[N];
+  for (int i = 0; i < N; ++i) {
     d[i] = (cuuint64_t)dims[i];
     bx[i] = (cuuint32_t)box[i];
+    estr[i] = 1;
   }
-  for (int i = 0; i < 3; ++i) st[i] = (cuuint64_t)strides[i] * elem_bytes;
-  return encode(map, type, 4, const_cast<void*>(base), d, st, bx, estr,
+  for (int i = 0; i < N - 1; ++i) st[i] = (cuuint64_t)strides[i] * elem_bytes;
+  return encode(map, type, N, const_cast<void*>(base), d, st, bx, estr,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -189,6 +189,10 @@ SASS = """\
 \t\tFunction : _ZN12_GLOBAL__N_111flash_wgmmaILi80ELb0ELb0ELb0EEEvNS_6ParamsE
         /*0000*/                   UTMALDG.4D [UR8], [UR4] ;    /* 0x0000000000000000 */
         /*0010*/                   HGMMA.64x64x16.F32.BF16 R24, R4, gdesc[UR4], R24 ; /* 0x00 */
+\t\tFunction : _ZN12_GLOBAL__N_111flash_wgmmaILi256ELb1ELb1ELb0EEEvNS_6ParamsE
+        /*0000*/                   UTMALDG.5D [UR8], [UR4] ;    /* 0x0000000000000000 */
+        /*0010*/                   HGMMA.64x64x16.F32.BF16 R184, gdesc[UR4], RZ, !UPT, gsb0 ; /* 0x00 */
+        /*0020*/                   HGMMA.64x256x16.F32.BF16 R24, R152, gdesc[UR8].tnspB, R24, gsb0 ; /* 0x00 */
 \t\tFunction : _ZN12_GLOBAL__N_111decode_bulkILi128ELb0EEEvPK13__nv_bfloat16
         /*0000*/                   UBLKCP.S.G [UR4], [UR6], R2 ; /* 0x00 */
         /*0010*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ; /* 0x00 */
@@ -217,10 +221,10 @@ def test_sass_counts_and_required_instructions(tmp_path, monkeypatch):
     (tmp_path / "sass.txt").write_text(SASS)
     monkeypatch.setattr(cs, "cuobjdump", lambda: str(fake))
     counts = cs.sass_counts("lib.so")
-    flash, flash80, flash80nc, decode, decode256, state, scores, out, ring = \
-        counts.values()
-    assert flash == {"HGMMA": 2, "UTMALDG": 1, "UBLKCP": 0, "HMMA": 0,
-                     "LDGSTS": 0}
+    flash, flash80, flash80nc, flash256, decode, decode256, state, scores, \
+        out, ring = counts.values()
+    assert flash == flash256 == {"HGMMA": 2, "UTMALDG": 1, "UBLKCP": 0,
+                                 "HMMA": 0, "LDGSTS": 0}
     assert flash80 == flash80nc == {"HGMMA": 1, "UTMALDG": 1, "UBLKCP": 0,
                                     "HMMA": 0, "LDGSTS": 0}
     assert decode == {"HGMMA": 0, "UTMALDG": 0, "UBLKCP": 1, "HMMA": 1,
@@ -232,38 +236,41 @@ def test_sass_counts_and_required_instructions(tmp_path, monkeypatch):
     assert ring == {"HGMMA": 0, "UTMALDG": 1, "UBLKCP": 0, "HMMA": 0,
                     "LDGSTS": 0}
     names = list(counts)
-    assert names[1:5] == ["flash_wgmmaILi80ELb1ELb0ELb0EE",
+    assert names[1:6] == ["flash_wgmmaILi80ELb1ELb0ELb0EE",
                           "flash_wgmmaILi80ELb0ELb0ELb0EE",
+                          "flash_wgmmaILi256ELb1ELb1ELb0EE",
                           "decode_bulkILi128ELb0EE", "decode_bulkILi256ELb0EE"]
-    assert names[5:] == ["mlstm_wg_state", "mlstm_wg_scores", "mlstm_wg_out",
+    assert names[6:] == ["mlstm_wg_state", "mlstm_wg_scores", "mlstm_wg_out",
                          "rglru_ringIfE"]
 
     def libs(**broken):
         fns = dict(zip(names, counts.values()))
         for name, ops in broken.items():
             fns[name] = dict(fns[name], **ops)
-        return {"flash_attention": {n: fns[n] for n in names[0:3]},
-                "decode_attention": {n: fns[n] for n in names[3:5]},
-                "mlstm_chunk": {n: fns[n] for n in names[5:8]},
-                "rglru": {names[8]: fns[names[8]]}}
+        return {"flash_attention": {n: fns[n] for n in names[0:4]},
+                "decode_attention": {n: fns[n] for n in names[4:6]},
+                "mlstm_chunk": {n: fns[n] for n in names[6:9]},
+                "rglru": {names[9]: fns[names[9]]}}
 
     cs.check_sass(libs())
     with pytest.raises(cs.CheckFailed, match="HGMMA"):
         cs.check_sass(libs(**{names[0]: {"HGMMA": 0}}))
-    for name in names[1:3]:      # the D = 80 instance off the tensor cores
+    for name in names[1:4]:      # the D = 80 or 256 instance off the tensor cores
         with pytest.raises(cs.CheckFailed, match=f"{name[:-1]} contains none of"):
             cs.check_sass(libs(**{name: {"HGMMA": 0}}))
         with pytest.raises(cs.CheckFailed, match="UTMALDG"):
             cs.check_sass(libs(**{name: {"UTMALDG": 0}}))
+    with pytest.raises(cs.CheckFailed, match="flash_wgmmaILi256ELb1ELb1ELb0E not found"):
+        cs.check_sass({**libs(), "flash_attention": {n: counts[n] for n in names[0:3]}})
     with pytest.raises(cs.CheckFailed, match="UBLKCP"):
-        cs.check_sass(libs(**{names[3]: {"UBLKCP": 0}}))
+        cs.check_sass(libs(**{names[4]: {"UBLKCP": 0}}))
     with pytest.raises(cs.CheckFailed, match="decode_bulkILi256ELb0E contains "
                        "none of .'LDGSTS'"):
-        cs.check_sass(libs(**{names[4]: {"LDGSTS": 0}}))
+        cs.check_sass(libs(**{names[5]: {"LDGSTS": 0}}))
     with pytest.raises(cs.CheckFailed, match="decode_bulkILi256ELb0E contains "
                        "none of .'HMMA'"):   # D = 256 back on the CUDA cores
-        cs.check_sass(libs(**{names[4]: {"HMMA": 0}}))
-    for name in names[5:8]:      # an mLSTM kernel on the CUDA cores
+        cs.check_sass(libs(**{names[5]: {"HMMA": 0}}))
+    for name in names[6:9]:      # an mLSTM kernel on the CUDA cores
         with pytest.raises(cs.CheckFailed, match=f"{name} contains none of"):
             cs.check_sass(libs(**{name: {"HGMMA": 0}}))
     with pytest.raises(cs.CheckFailed, match="rglru_ringIfE"):
@@ -271,6 +278,7 @@ def test_sass_counts_and_required_instructions(tmp_path, monkeypatch):
 
 
 PTXAS_LOG = """\
+ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async instructions are serialized due to insufficient register resources for the function '_ZN12_GLOBAL__N_111flash_wgmmaILi256ELb1ELb1ELb0EEEvNS_6ParamsE'
 ptxas info    : 0 bytes gmem
 ptxas info    : Function properties for _ZN12_GLOBAL__N_16cappedEff
     8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
@@ -286,6 +294,14 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111flash_wgmmaILi80ELb
 ptxas info    : Function properties for _ZN12_GLOBAL__N_111flash_wgmmaILi80ELb0ELb1ELb1EEEvNS_6ParamsE
     24 bytes stack frame, 20 bytes spill stores, 16 bytes spill loads
 ptxas info    : Used 168 registers, used 16 barriers, 912 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111flash_wgmmaILi256ELb1ELb1ELb0EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_111flash_wgmmaILi256ELb1ELb1ELb0EEEvNS_6ParamsE
+    216 bytes stack frame, 228 bytes spill stores, 228 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers, 912 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111flash_wgmmaILi256ELb0ELb0ELb0EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_111flash_wgmmaILi256ELb0ELb0ELb0EEEvNS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 240 registers, used 3 barriers, 912 bytes cmem[0]
 """
 
 
@@ -296,10 +312,39 @@ def test_ptxas_report_names_the_new_instances():
     report = _chip_smoke().ptxas_report(PTXAS_LOG)
     assert report == {
         "decode_bulkILi256ELb1EE": {"spill_stores": 0, "spill_loads": 0,
-                                    "registers": 118},
+                                    "registers": 118, "notes": []},
         "flash_wgmmaILi80ELb0ELb1ELb1EE": {"spill_stores": 20,
                                            "spill_loads": 16,
-                                           "registers": 168}}
+                                           "registers": 168, "notes": []},
+        "flash_wgmmaILi256ELb1ELb1ELb0EE": {"spill_stores": 228,
+                                            "spill_loads": 228,
+                                            "registers": 168,
+                                            "notes": ["C7512"]},
+        "flash_wgmmaILi256ELb0ELb0ELb0EE": {"spill_stores": 0,
+                                            "spill_loads": 0,
+                                            "registers": 240, "notes": []}}
+
+
+def test_build_phase_requires_clean_d256_instances():
+    """The build phase fails unless all eight ``flash_wgmma<256, ...>``
+    instances are reported, none spills and ptxas notes none (C7512: its
+    wgmmas serialized)."""
+    cs = _chip_smoke()
+    clean = {"spill_stores": 0, "spill_loads": 0, "registers": 240, "notes": []}
+    report = {f"flash_wgmmaILi256ELb{c}ELb{w}ELb{k}EE": dict(clean)
+              for c in (0, 1) for w in (0, 1) for k in (0, 1)}
+    report["flash_wgmmaILi80ELb0ELb1ELb1EE"] = dict(clean, spill_stores=20)
+    cs.check_ptxas(report)
+    name = "flash_wgmmaILi256ELb1ELb1ELb0EE"
+    with pytest.raises(cs.CheckFailed, match=f"{name} spills 4 B"):
+        cs.check_ptxas({**report, name: dict(clean, spill_stores=4)})
+    with pytest.raises(cs.CheckFailed, match=f"{name} spills 0 B .stores., 8 B"):
+        cs.check_ptxas({**report, name: dict(clean, spill_loads=8)})
+    with pytest.raises(cs.CheckFailed, match=f"notes .'C7512'. on {name}"):
+        cs.check_ptxas({**report, name: dict(clean, notes=["C7512"])})
+    del report[name]
+    with pytest.raises(cs.CheckFailed, match="ptxas report of flash_wgmmaILi256E"):
+        cs.check_ptxas(report)
 
 
 @pytest.mark.parametrize("mangled,short", [

@@ -4,7 +4,8 @@ at the tolerances of tests/test_kernels.py (f32 2e-5, bf16 2e-2): decode
 attention at D = 256 with 16 query heads over one kv head (recurrentgemma-9b's
 local attention, ``decode_bulk<256>`` on the card), and flash attention at
 D = 80 (stablelm-3b, hubert-xlarge: ``flash_wgmma<80>``), causal with groups
-of 2 and not causal.  Inputs are made with numpy from a seed and handed to
+of 2 and not causal, and at D = 256 with 16 query heads over one kv head
+and a window (recurrentgemma-9b's local attention, ``flash_wgmma<256>``).  Inputs are made with numpy from a seed and handed to
 both; bfloat16 inputs round the same float32 values in both frameworks.
 The CUDA kernels themselves run only on the card (``chip_smoke.py``)."""
 import jax.numpy as jnp
@@ -80,3 +81,25 @@ def test_flash_at_head_size_80(Hq, Hkv, causal, dtype):
     plain = FA.attention_ref(tq, tk, tv, causal=causal)
     torch.testing.assert_close(got, plain, rtol=0, atol=0)
 
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_at_recurrentgemma_head_size(causal, dtype):
+    """D = 256, 16 query heads over one kv head, Sq = Skv = 200 and a
+    window of 72: no whole 64-key tile of the card's kernel in the
+    sequence, and each row's window across two or three of them.  Not
+    causal, the window still bounds each row from below only."""
+    B, S, Hq, Hkv, D, window = 1, 200, 16, 1, 256, 72
+    rng = np.random.default_rng(13)
+    arrs = [rng.standard_normal(s).astype(np.float32)
+            for s in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))]
+    (jq, jk, jv), (tq, tk, tv) = _both(arrs, dtype)
+    kw = dict(causal=causal, window=window)
+    want = ref_mha(jq, jk, jv, block_q=64, block_kv=40, **kw)
+    got = FA.mha(tq, tk, tv, block_q=64, block_kv=40, **kw)
+    assert got.shape == (B, S, Hq, D) and got.dtype == tq.dtype
+    np.testing.assert_allclose(_np(got), _np(want), rtol=_tol(dtype),
+                               atol=_tol(dtype))
+    plain = FA.attention_ref(tq, tk, tv, **kw)
+    torch.testing.assert_close(got, plain, rtol=0, atol=0)
