@@ -26,7 +26,12 @@ as one chip's share of its expert-parallel deployment (8 of 128 experts,
 32,768 rows, the MoE routing recorded), hubert-xlarge (non-causal flash
 attention on its feature rows; an encoder, prefill only) and
 internvl2-2b (flash attention over patch rows and text, decode attention
-at B 16).  It times each kernel beside its bound, its plain version
+at B 16).  Then ``train``: stablelm-3b trained on the card through
+``make_train_step`` and ``train_loop`` on the plain path (the card held to
+the CPU at ``reduced_config``, five steps at full width and depth, resume
+and a bf16 checkpoint; no kernel launches), and the trained model served
+through K5 and K4 by the model phase's checks.  It times each kernel
+beside its bound, its plain version
 and, where one exists, the one PyTorch call that computes the same
 function.  Four phases without kernels follow: ``workload`` (whole-model
 estimation: qwen2-7b's train, prefill and decode captured at full width
@@ -43,8 +48,8 @@ reference's results in ``tests/data/torch_hlo/``).
 
 Prints one JSON object per phase (env, build with each kernel function's
 counts of Hopper instructions in its SASS, parity, head_sizes, estimator,
-stream, optimize, validate, model once per arch, launches, workload,
-serve, paper, predict);
+stream, optimize, validate, model once per arch, train and the trained
+model, launches, workload, serve, paper, predict);
 then the ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -1917,8 +1922,8 @@ def _prefill_batch(cfg, B: int, S: int, rng, device) -> dict:
     return batch
 
 
-def phase_model(device, wrappers: dict, arch: str, runs: dict | None = None
-                ) -> dict:
+def phase_model(device, wrappers: dict, arch: str, runs: dict | None = None,
+                model=None) -> dict:
     """One arch of the zoo served on the card through its entry points:
     (a) ``make_prefill_step`` (K5 once an attention layer, K6 once an
     RG-LRU layer, K7 once an mLSTM layer), (b) one ``make_decode_step`` at
@@ -1936,8 +1941,10 @@ def phase_model(device, wrappers: dict, arch: str, runs: dict | None = None
     rows the held experts keep and read the held experts that kept one.
     The checks and timings launch more and are not counted; with
     ``time_plain`` the plain path's prefill and decode step are timed too.
-    ``runs`` defaults to ``MODEL_RUNS[arch]``.  Returns the counts by part
-    and the parts' results (with ``init``)."""
+    ``runs`` defaults to ``MODEL_RUNS[arch]``; ``server=False`` in it
+    leaves (c) out.  ``model``: parameters to serve (the train phase's
+    trained model, cast here) in place of the seed-0 draw.  Returns the
+    counts by part and the parts' results (with ``init``)."""
     import dataclasses
 
     import numpy as np
@@ -1988,12 +1995,15 @@ def phase_model(device, wrappers: dict, arch: str, runs: dict | None = None
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     held = runs.get("experts")
-    model = TF.init_params(cfg, seed=0, device=device, experts=held)
+    weights = "trained (train phase)" if model is not None else "seed 0"
+    if model is None:
+        model = TF.init_params(cfg, seed=0, device=device, experts=held)
     built_bytes = sum(p.numel() * p.element_size()
                       for p in model.parameters())
     model = to_serving(model)
     torch.cuda.synchronize()
-    init = {"seconds": time.perf_counter() - t0, "layers": cfg.n_layers,
+    init = {"weights": weights,
+            "seconds": time.perf_counter() - t0, "layers": cfg.n_layers,
             "param_bytes_as_built": built_bytes,
             "peak_bytes": torch.cuda.max_memory_allocated(),
             "serving_bytes": sum(p.numel() * p.element_size()
@@ -2199,7 +2209,7 @@ def phase_model(device, wrappers: dict, arch: str, runs: dict | None = None
         parts["long"] = decode_part("long", *runs["long"])
 
     # (c) the batched server, the reference CLI's traffic
-    if "decode" in runs:
+    if "decode" in runs and runs.get("server", True):
         sv = MODEL_SERVE
         torch.cuda.reset_peak_memory_stats()
         server = SERVE.BatchedServer(cfg, batch_slots=sv["batch_slots"],
@@ -2246,6 +2256,245 @@ def phase_model(device, wrappers: dict, arch: str, runs: dict | None = None
     torch.cuda.empty_cache()
     check(not deferred, "; ".join(deferred))
     return launches, {"init": init, **parts}
+
+
+#: The train phase: stablelm-3b, whose f32 parameters, gradients and AdamW
+#: moments (16 bytes a parameter, 44.8 GB at 2.80 B) fit on one card with
+#: room for activations; qwen2-7b (122 GB) and recurrentgemma-9b (153 GB)
+#: do not.  (b) runs it at full width and depth, the batch cut from the
+#: reference mesh's 16 x 4,096 a shard to 4 x 4,096: at 16 the f32 logits
+#: and their gradient (~33 GB) do not fit beside the 44.8 GB of state.
+TRAIN_ARCH = "stablelm-3b"
+TRAIN_FULL = dict(batch=4, seq=4096, steps=5, lr=3e-4, warmup_steps=1,
+                  seed=0)
+#: (a) and (c) at ``reduced_config`` in f32: the reference e2e tests'
+#: optimizer (lr 5e-3, warmup 2), decay 0.1 in (a).
+TRAIN_SMALL = dict(batch=4, seq=64, steps=3, lr=5e-3, warmup_steps=2)
+TRAIN_RESUME_ARCH = "xlstm-1.3b"
+#: (d) serves the trained model: prefill at B 2 x 4,096, one decode step at
+#: B 8 over 4,096 rows (at 32,768 its KV cache would take 86 GB).
+TRAIN_SERVE = dict(prefill=(2, 4096), decode=(8, 4096), server=False)
+#: card against CPU: losses and each parameter (relative L2 a leaf).
+TRAIN_TOL = 1e-4
+
+
+def _leaf_rel_l2(got: dict, want: dict) -> dict:
+    import torch
+
+    return {k: float(torch.linalg.vector_norm(got[k].float().cpu()
+                                              - want[k].float().cpu())
+                     / torch.linalg.vector_norm(want[k].float().cpu()))
+            for k in want}
+
+
+def phase_train(device, wrappers: dict) -> tuple[dict, dict]:
+    """Training on the card (``make_train_step``, ``train_loop``,
+    ``CheckpointManager``), on the plain path: the kernels have no
+    backward, so a train step launches none, which the phase checks.
+    (a) ``reduced_config(stablelm-3b)`` in f32, the same seed-0 weights
+    (drawn on the CPU and copied) and three ``SyntheticDataset`` batches on
+    the card and on the CPU: losses and final parameters to rtol
+    ``TRAIN_TOL``.  (b) stablelm-3b at full width and depth (2.80 B f32
+    parameters, bf16 activations, remat, f32 moments), ``TRAIN_FULL``'s
+    fixed batch for five steps: every loss finite and the last below the
+    first; ms a step beside the products' bound, tokens/s, peak memory,
+    and the device's share of a sixth step under the profiler.  (c)
+    ``train_loop`` at ``reduced_config(xlstm-1.3b)``: ten steps equal
+    five, a stop and five resumed (rel 1e-4), and a checkpoint of bf16
+    moments restored bit for bit.  (d) the trained model, its optimizer
+    state freed, cast once and served by ``phase_model`` (K5 on prefill,
+    K4 on decode).  Returns (d)'s launch counts by part and its parts."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.launch import train as TRAIN
+    from repro_torch.launch.steps import (TrainConfig, batch_to_device,
+                                          build_step, make_train_step)
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.convert import load
+    from repro_torch.optim.adamw import OptimizerConfig, adamw_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    for fn in wrappers.values():
+        fn.launches = 0
+    out = {"arch": TRAIN_ARCH}
+
+    # (a) the card against the CPU
+    t0 = time.perf_counter()
+    sm = TRAIN_SMALL
+    cfg = dataclasses.replace(reduced_config(get_config(TRAIN_ARCH)),
+                              dtype="float32", use_kernels=False)
+    tcfg = TrainConfig(optimizer=OptimizerConfig(
+        lr=sm["lr"], warmup_steps=sm["warmup_steps"], total_steps=30))
+    ds = SyntheticDataset(cfg, DataConfig(seq_len=sm["seq"],
+                                          batch_size=sm["batch"], seed=1))
+    weights = TF.init_params(cfg, seed=0, device="cpu").state_dict()
+    runs = []
+    for where in (device, torch.device("cpu")):
+        model = load(cfg, {k: v.clone() for k, v in weights.items()},
+                     device=where)
+        opt = adamw_init(dict(model.named_parameters()), tcfg.optimizer)
+        step = make_train_step(cfg, tcfg)
+        losses = []
+        for i in range(sm["steps"]):
+            model, opt, m = step(model, opt, ds.get_batch(i))
+            losses.append(float(m["loss"]))
+        runs.append((losses, {k: p.detach() for k, p in
+                              model.named_parameters()}))
+    (card_loss, card_p), (cpu_loss, cpu_p) = runs
+    loss_err = max(abs(a / b - 1) for a, b in zip(card_loss, cpu_loss))
+    leaf_err = _leaf_rel_l2(card_p, cpu_p)
+    worst = max(leaf_err, key=leaf_err.get)
+    out["card_vs_cpu"] = {
+        "config": cfg.name, "dtype": cfg.dtype, "batch": sm["batch"],
+        "seq": sm["seq"], "steps": sm["steps"], "losses_card": card_loss,
+        "losses_cpu": cpu_loss, "loss_rel_err": loss_err,
+        "param_rel_l2_worst": [worst, leaf_err[worst]], "tol": TRAIN_TOL,
+        "seconds": time.perf_counter() - t0}
+    check(loss_err <= TRAIN_TOL and leaf_err[worst] <= TRAIN_TOL,
+          f"train (a): the card's losses {card_loss} or parameter {worst} "
+          f"({leaf_err[worst]:.3g}) differ from the CPU's beyond "
+          f"{TRAIN_TOL}")
+    del runs, card_p, cpu_p, model, opt
+
+    # (b) full width and depth
+    t0 = time.perf_counter()
+    fw = TRAIN_FULL
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), use_kernels=False)
+    tcfg = TrainConfig(optimizer=OptimizerConfig(
+        lr=fw["lr"], warmup_steps=fw["warmup_steps"],
+        total_steps=fw["steps"]))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = TF.init_params(cfg, seed=0, device=device)
+    opt = adamw_init(dict(model.named_parameters()), tcfg.optimizer)
+    n_params = sum(p.numel() for p in model.parameters())
+    state_bytes = torch.cuda.memory_allocated()
+    batch = batch_to_device(SyntheticDataset(cfg, DataConfig(
+        seq_len=fw["seq"], batch_size=fw["batch"], seed=fw["seed"]
+    )).get_batch(0), device)
+    step = make_train_step(cfg, tcfg)
+    metrics, walls = [], []
+    for _ in range(fw["steps"]):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model, opt, m = step(model, opt, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        metrics.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in metrics]
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"train (b): losses {losses} not finite or not falling")
+    profile = device_profile(lambda: step(model, opt, batch), top=8)
+    tokens = fw["batch"] * fw["seq"]
+    layer_bf16, _ = _product_params(model)
+    head = cfg.d_model * cfg.padded_vocab
+    pairs = FA.live_pairs(fw["seq"], fw["seq"], window=None, causal=True)
+    # forward, remat recompute and backward (twice the forward) of every
+    # layer product; forward and backward of the head; the causal
+    # attention's two products the same four times
+    flops = tokens * (8.0 * layer_bf16 + 6.0 * head) + 16.0 * fw["batch"] \
+        * cfg.n_heads * cfg.head_dim * pairs * cfg.n_layers
+    # each parameter read and written, its gradient written and read, both
+    # moments read and written (f32), the batch read once
+    nbytes = 4.0 * n_params * (2 + 2 + 4) + 2 * tokens * 4
+    steady = walls[1:]
+    ms = sorted(w * 1e3 for w in steady)
+    med = ms[len(ms) // 2] if len(ms) % 2 else sum(ms[len(ms) // 2 - 1:
+                                                   len(ms) // 2 + 1]) / 2
+    out["full_width"] = {
+        "config": cfg.name, "params": n_params, "dtype": cfg.dtype,
+        "param_dtype": cfg.param_dtype, "remat": cfg.remat,
+        "state_dtype": tcfg.optimizer.state_dtype, "batch": fw["batch"],
+        "seq": fw["seq"], "lr": fw["lr"], "warmup_steps": fw["warmup_steps"],
+        "total_steps": fw["steps"], "losses": losses,
+        "lr_by_step": [m["lr"] for m in metrics],
+        "grad_norm_by_step": [m["grad_norm"] for m in metrics],
+        "step_ms": [w * 1e3 for w in walls],
+        "ms_per_step_median_steps_2_to_5": med,
+        "ms_per_step_min_max_steps_2_to_5": [ms[0], ms[-1]],
+        "tok_per_s": tokens / med * 1e3,
+        "state_bytes_before_step": state_bytes, "peak_bytes": peak,
+        **_bound(nbytes, flops),
+        "profile_step_6": profile,
+        "device_share_of_step": profile["device_ms"] / med,
+        "seconds": time.perf_counter() - t0}
+    del opt, batch, step
+    torch.cuda.empty_cache()
+
+    # (c) the loop: resume and bf16 moments
+    t0 = time.perf_counter()
+    rcfg = dataclasses.replace(reduced_config(get_config(TRAIN_RESUME_ARCH)),
+                               use_kernels=False)
+    rt = TrainConfig(optimizer=OptimizerConfig(
+        lr=sm["lr"], warmup_steps=sm["warmup_steps"], total_steps=10,
+        weight_decay=0.0))
+    built = build_step(rcfg, ShapeSpec("t", 32, 4, "train"), rt,
+                       device=device)
+    data_cfg = DataConfig(seq_len=32, batch_size=4, seed=3)
+    kw = dict(data_cfg=data_cfg, ckpt_every=100, log_every=100)
+    with tempfile.TemporaryDirectory() as tmp:
+        m1 = TRAIN.train_loop(rcfg, built, rt, steps=10,
+                              ckpt_dir=f"{tmp}/whole",
+                              preemption=TRAIN.PreemptionHandler(), **kw)
+        TRAIN.train_loop(rcfg, built, rt, steps=5, ckpt_dir=f"{tmp}/split",
+                         preemption=TRAIN.PreemptionHandler(), **kw)
+        m2 = TRAIN.train_loop(rcfg, built, rt, steps=10,
+                              ckpt_dir=f"{tmp}/split",
+                              preemption=TRAIN.PreemptionHandler(), **kw)
+        resume_err = abs(m2["loss"] / m1["loss"] - 1)
+        check(m1["final_step"] == m2["final_step"] == 10
+              and resume_err <= 1e-4,
+              f"train (c): resumed loss {m2['loss']} against "
+              f"{m1['loss']} uninterrupted")
+        bt = dataclasses.replace(rt, optimizer=dataclasses.replace(
+            rt.optimizer, state_dtype="bfloat16"))
+        bbuilt = build_step(rcfg, ShapeSpec("t", 32, 4, "train"), bt,
+                            device=device)
+        TRAIN.train_loop(rcfg, bbuilt, bt, steps=2, ckpt_dir=f"{tmp}/bf16",
+                         preemption=TRAIN.PreemptionHandler(), **kw)
+        p = TF.init_params(rcfg, seed=0, device=device)
+        like = TRAIN.train_state(p, adamw_init(dict(p.named_parameters()),
+                                               bt.optimizer))
+        state, at = CheckpointManager(f"{tmp}/bf16").restore(like)
+        mgr = CheckpointManager(f"{tmp}/again")
+        mgr.save(at, state)
+        again, _ = mgr.restore(like)
+        moments = [(again["opt"][g][k], t) for g in ("m", "v")
+                   for k, t in state["opt"][g].items()]
+        exact = all(a.dtype == t.dtype == torch.bfloat16
+                    and a.device.type == device.type
+                    and torch.equal(a.view(torch.int16), t.view(torch.int16))
+                    for a, t in moments)
+        check(at == 2 and exact and any(bool(t.any()) for _, t in moments),
+              "train (c): bf16 moments did not come back bit for bit")
+    out["loop"] = {"config": rcfg.name, "loss_uninterrupted": m1["loss"],
+                   "loss_resumed": m2["loss"], "rel_err": resume_err,
+                   "median_step_s": m1["median_step_s"],
+                   "bf16_moments_bit_exact": exact,
+                   "bf16_leaves": len(moments),
+                   "seconds": time.perf_counter() - t0}
+    train_launches = {name: fn.launches for name, fn in wrappers.items()}
+    check(not any(train_launches.values()),
+          f"train: a train step launched a kernel: {train_launches}")
+    out["train_launches"] = train_launches
+    out["seconds_train"] = time.perf_counter() - t_phase
+    emit({"phase": "train", **out})
+
+    # (d) serve what was trained
+    return phase_model(device, wrappers, TRAIN_ARCH, runs=TRAIN_SERVE,
+                       model=model)
 
 
 #: The workload phase captures the arch of the model phase's first run at
@@ -2643,6 +2892,13 @@ def main() -> int:
         launches[f"model_path/{arch}"] = {
             name: sum(part[name] for part in by_part[arch].values())
             for name in wrappers}
+    # Training: its steps launch no kernel; the trained model is served
+    # through K5 and K4 like the model paths.
+    by_part[f"trained/{TRAIN_ARCH}"], _ = phase_train(device, wrappers)
+    launches[f"trained_model_path/{TRAIN_ARCH}"] = {
+        name: sum(part[name] for part in
+                  by_part[f"trained/{TRAIN_ARCH}"].values())
+        for name in wrappers}
     emit({"phase": "launches", **launches, "model_path_by_part": by_part})
 
     # Whole-model estimation of the first arch's phases launches no kernel.

@@ -63,8 +63,20 @@ def check_real(what: str, *tensors: torch.Tensor) -> None:
     the ``meta`` device, fake tensors, or under an active fake mode (a
     capture of :mod:`repro_torch.workload`).  A kernel must not launch on
     fake data pointers, and its plain version must not stand in for it
-    unseen."""
+    unseen.
+
+    Raise too where autograd records and an input requires grad, on the
+    CPU as on the card: a kernel launched on raw data pointers returns a
+    tensor cut off from the graph, which would silently drop the gradients
+    of everything before it.  The kernels have no backward; a train step
+    runs the plain path (``use_kernels=False``)."""
     from torch._subclasses.fake_tensor import FakeTensor
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: a kernel wrapper was reached on tensors that require "
+            "grad; the kernels have no backward, so differentiate the plain "
+            "path (use_kernels=False)")
 
     if any(t.device.type == "meta" or isinstance(t, FakeTensor)
            for t in tensors) or torch._C._get_dispatch_mode(

@@ -74,7 +74,7 @@ def mlstm_chunk_ref(q, k, v, li, lf, *, chunk: int = 256):
     C = q.new_zeros((B, H, dh, dh), dtype=torch.float32)
     n = q.new_zeros((B, H, dh), dtype=torch.float32)
     causal = torch.ones(c, c, dtype=torch.bool, device=q.device).tril()
-    out = torch.empty((B, H, S, dh), dtype=torch.float32, device=q.device)
+    outs = []   # one tensor a chunk, no slice writes: autograd records it
     for j in range(S // c):
         rows = slice(j * c, (j + 1) * c)
         qc, kc, vc = qf[:, :, rows], kf[:, :, rows], vf[:, :, rows]
@@ -89,12 +89,13 @@ def mlstm_chunk_ref(q, k, v, li, lf, *, chunk: int = 256):
         s = (qc @ kc.transpose(-1, -2)) * w
         intra = s @ vc
         n_intra = w @ kc
-        den = n_inter + (qc * n_intra).sum(-1)
-        out[:, :, rows] = (inter + intra) / torch.clamp(den.abs(), min=1.0)[..., None]
+        den = n_inter + torch.einsum("bhcd,bhcd->bhc", qc, n_intra)
+        outs.append((inter + intra)
+                    / torch.clamp(den.abs(), min=1.0)[..., None])
         kw = kc * torch.exp(total - cum + lic)[..., None]
         C = C * torch.exp(total)[..., None] + kw.transpose(-1, -2) @ vc
         n = n * torch.exp(total) + kw.sum(-2)
-    return out.to(q.dtype)
+    return torch.cat(outs, 2).to(q.dtype)
 
 
 def _staged(q, k, v, li, lf, c: int, rounded: bool):

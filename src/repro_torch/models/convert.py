@@ -71,6 +71,18 @@ def from_reference(params: dict, cfg: ModelConfig, experts=None
     return sd
 
 
+def reference_ndim(cfg: ModelConfig, name: str, tensor: torch.Tensor) -> int:
+    """The rank of the leaf ``name`` in the reference's tree: one more than
+    the port's for a layer of the scanned pattern groups, which the
+    reference stacks over their repeats on a leading axis (its optimizer's
+    ``ndim >= 2`` rule therefore decays those layers' norms and biases)."""
+    if name.startswith("layers."):
+        layer = int(name.split(".", 2)[1])
+        if layer < cfg.pattern_repeats * len(cfg.block_pattern):
+            return tensor.ndim + 1
+    return tensor.ndim
+
+
 def load(cfg: ModelConfig, state_dict: dict, *, device=None,
          experts=None) -> Transformer:
     """A ``Transformer`` (holding ``experts`` of each MoE layer, default

@@ -293,9 +293,11 @@ def associative_scan(a: torch.Tensor, b: torch.Tensor
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor | None = None,
                   z_loss: float = 1e-4) -> torch.Tensor:
-    """Mean token cross-entropy with z-loss, in f32."""
+    """Mean token cross-entropy with z-loss, in f32.  The max is a constant
+    to autograd, as the reference's ``stop_gradient`` makes it (its
+    gradient cancels in exact arithmetic)."""
     lf = logits.float()
-    m = lf.amax(-1, keepdim=True)
+    m = lf.amax(-1, keepdim=True).detach()
     shifted = lf - m
     lse = torch.log(torch.exp(shifted).sum(-1)) + m[..., 0]
     ll = shifted.gather(-1, labels.long()[..., None])[..., 0] + m[..., 0]

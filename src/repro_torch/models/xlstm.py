@@ -200,11 +200,10 @@ def _input_gates(p: SLSTM, u: torch.Tensor) -> torch.Tensor:
     return g.unflatten(-1, (4, -1))
 
 
-def _slstm_cell(r: torch.Tensor, gates: torch.Tensor, state: tuple,
-                out: torch.Tensor | None = None):
+def _slstm_cell(r: torch.Tensor, gates: torch.Tensor, state: tuple):
     """One sLSTM step.  ``r`` (4, d) f32; ``gates`` (B, 4, d): the input
-    projection of this step; ``state`` (c, n, h, m).  Returns the new state;
-    its h is written to ``out`` when given."""
+    projection of this step; ``state`` (c, n, h, m).  Returns the new
+    state."""
     c, n, h, m = state
     gi, gf, gz, go = torch.addcmul(gates, r, h[:, None, :]).unbind(1)
     gfm = gf + m
@@ -213,7 +212,7 @@ def _slstm_cell(r: torch.Tensor, gates: torch.Tensor, state: tuple,
     f = torch.exp(gfm - m_new)
     c = torch.addcmul(f * c, i, torch.tanh(gz))
     n = torch.addcmul(i, f, n)
-    h = torch.div(torch.sigmoid(go) * c, torch.clamp(n, min=1e-6), out=out)
+    h = torch.sigmoid(go) * c / torch.clamp(n, min=1e-6)
     return c, n, h, m_new
 
 
@@ -225,10 +224,11 @@ def slstm_forward(p: SLSTM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     st = slstm_init_state(cfg, B, device=x.device)
     state = (st["c"], st["n"], st["h"], st["m"])
     r = p.r.float()
-    hs = torch.empty((S, B, d), dtype=torch.float32, device=x.device)
+    hs = []     # each step's h, stacked once (autograd records no out= write)
     for t in range(S):
-        state = _slstm_cell(r, gates[t], state, out=hs[t])
-    return hs.transpose(0, 1).to(x.dtype)
+        state = _slstm_cell(r, gates[t], state)
+        hs.append(state[2])
+    return torch.stack(hs, 1).to(x.dtype)
 
 
 def slstm_decode_step(p: SLSTM, cfg: ModelConfig, x: torch.Tensor,

@@ -7,11 +7,18 @@ and dequantized to float32 for the arithmetic, parameters updated in
 float32 and cast back to their own dtype, decoupled weight decay on
 matrices only.  ``torch.optim.AdamW`` is not used: its schedule and
 clipping are not these.
+
+:func:`adamw_update` returns new dicts; :func:`adamw_update_` is its
+in-place counterpart for the trainer (the reference donates its parameters
+and state to the jitted step instead): the same arithmetic leaf by leaf,
+written into the parameters and moments, each gradient dropped once used,
+so a step never holds a second copy of the parameters and moments.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from collections.abc import Collection
 
 import torch
 
@@ -87,3 +94,40 @@ def adamw_update(grads: dict[str, torch.Tensor], state: dict,
         new_v[k] = vf.to(dt)
     metrics = {"grad_norm": gnorm, "lr": lr}
     return new_p, {"step": step, "m": new_m, "v": new_v}, metrics
+
+
+def adamw_update_(grads: dict[str, torch.Tensor], state: dict,
+                  params: dict[str, torch.Tensor], cfg: OptimizerConfig,
+                  decayed: Collection[str] | None = None,
+                  ) -> tuple[dict, torch.Tensor]:
+    """:func:`adamw_update` in place: writes the new parameters into
+    ``params``' tensors and the moments into ``state["m"]``/``state["v"]``,
+    sets ``state["step"]``, and pops each gradient from ``grads`` once it
+    has been used.  ``decayed`` names the leaves that take weight decay
+    (default: those of two or more dimensions, as :func:`adamw_update`).
+    Returns ``(metrics, new step)``; with the default every value is the
+    one :func:`adamw_update` computes, bit for bit."""
+    with torch.no_grad():
+        step = state["step"] + 1
+        gnorm = global_norm(grads)
+        scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                            max=1.0)
+        lr = lr_schedule(cfg, step)
+        b1, b2 = cfg.b1, cfg.b2
+        bc1 = 1 - b1 ** step.to(torch.float32)
+        bc2 = 1 - b2 ** step.to(torch.float32)
+        dt = _DTYPES[cfg.state_dtype]
+        for k, p in params.items():
+            g = grads.pop(k).to(torch.float32) * scale
+            m, v = state["m"][k], state["v"][k]
+            mf = b1 * m.to(torch.float32) + (1 - b1) * g
+            vf = b2 * v.to(torch.float32) + (1 - b2) * torch.square(g)
+            del g
+            delta = (mf / bc1) / (torch.sqrt(vf / bc2) + cfg.eps)
+            if (p.ndim >= 2 if decayed is None else k in decayed):
+                delta = delta + cfg.weight_decay * p.to(torch.float32)
+            p.copy_((p.to(torch.float32) - lr * delta).to(p.dtype))
+            m.copy_(mf.to(dt))
+            v.copy_(vf.to(dt))
+        state["step"] = step
+    return {"grad_norm": gnorm, "lr": lr}, step

@@ -207,13 +207,14 @@ class _Recorder(TorchDispatchMode):
 
     def _tag_pending(self) -> None:
         """Leave each forward op's scope on the autograd node that autograd
-        attached to its outputs once the op returned."""
-        for outs, scope in self._pending:
+        attached to its outputs once the op returned.  The list is taken
+        first: reading a view's ``grad_fn`` may dispatch again."""
+        pending, self._pending = self._pending, []
+        for outs, scope in pending:
             for t in outs:
                 node = t.grad_fn
                 if node is not None and _SCOPE_KEY not in node.metadata:
                     node.metadata[_SCOPE_KEY] = scope
-        self._pending.clear()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}

@@ -75,6 +75,29 @@ def test_whole_model_estimation_loads_neither_jax_nor_repro():
     assert out.stdout.strip() == "[]"
 
 
+def test_training_loads_neither_jax_nor_repro(tmp_path):
+    """The trainer's modules, and two CPU steps of its loop, stay clear of
+    both."""
+    out = _run("import sys, dataclasses, repro_torch.launch.train as T, "
+               "repro_torch.checkpoint, repro_torch.data, "
+               "repro_torch.runtime\n"
+               "from repro_torch.configs import ARCHS, reduced_config\n"
+               "from repro_torch.configs.shapes import ShapeSpec\n"
+               "from repro_torch.data import DataConfig\n"
+               "cfg = dataclasses.replace(reduced_config(ARCHS['stablelm-3b']),"
+               " use_kernels=False)\n"
+               "built = T.build_step(cfg, ShapeSpec('t', 16, 2, 'train'), "
+               "T.TrainConfig(), device='cpu')\n"
+               f"m = T.train_loop(cfg, built, T.TrainConfig(), steps=2, "
+               f"ckpt_dir={str(tmp_path)!r}, data_cfg=DataConfig(16, 2), "
+               "preemption=T.PreemptionHandler())\n"
+               "assert m['final_step'] == 2\n"
+               "print(sorted(m for m in sys.modules if m.split('.')[0] "
+               "in ('jax', 'jaxlib', 'repro')))")
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
 def test_sources_import_neither_jax_nor_repro():
     pattern = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)(?:[\s.,]|$)",
                          re.MULTILINE)

@@ -36,6 +36,8 @@ from repro_torch import workload as wl
 from repro_torch.configs import ARCHS, reduced_config
 from repro_torch.core import hlo_counter as HC
 from repro_torch.core import stream as ST
+from repro_torch.kernels.mlstm_chunk import ops as ML
+from repro_torch.models import moe as MOE
 from repro_torch.workload import steps
 
 DATA = pathlib.Path(__file__).resolve().parent / "data" / "torch_hlo"
@@ -79,31 +81,36 @@ def _matmul_flops(records) -> float:
     return sum(r.flops for r in records if r.op_class == "matmul")
 
 
-def _hlo_dot_flops(text: str) -> float:
+def _hlo_dots(text: str) -> collections.Counter:
     """Every ``dot`` of a module (inside fusions and called computations
-    too) times its loop trips."""
+    too) by its FLOPs, counted as many times as its loops run it."""
     an = HC.Analyzer(text)
+    dots = collections.Counter()
 
     def comp(c, mult):
-        total = 0.0
         for ins in c.instrs:
             if ins.opcode == "dot":
-                total += mult * HC._dot_flops(ins, c)
+                dots[HC._dot_flops(ins, c)] += mult
             elif ins.opcode == "while":
                 body = an.comps.get(HC._called(ins.rest, "body") or "")
                 cond = an.comps.get(HC._called(ins.rest, "condition") or "")
                 if body is not None:
-                    total += comp(body, mult * (HC._while_trips(cond)
-                                                if cond else 1))
+                    comp(body, mult * (HC._while_trips(cond)
+                                       if cond else 1))
             else:
                 for key in ("calls", "to_apply", "true_computation",
                             "false_computation", "branch_computations"):
                     callee = HC._called(ins.rest, key)
                     if callee in an.comps:
-                        total += comp(an.comps[callee], mult)
-        return total
+                        comp(an.comps[callee], mult)
 
-    return comp(an.entry_comp(), 1.0)
+    comp(an.entry_comp(), 1)
+    return dots
+
+
+def _hlo_dot_flops(text: str) -> float:
+    """Every ``dot`` of a module times its loop trips."""
+    return sum(f * n for f, n in _hlo_dots(text).items())
 
 
 # ---------------------------------------------------------------------------
@@ -330,6 +337,63 @@ def test_matmul_flops_equal_reference_dots(texts, captured, phase):
     dots: the same FLOPs, at 1e-6."""
     assert _matmul_flops(captured[phase]) == pytest.approx(
         _hlo_dot_flops(texts[phase]), rel=1e-6)
+
+
+def _expected_product_differences(cfg, phase: str) -> tuple[dict, dict]:
+    """(products of the reference's dots the port's capture lacks, products
+    the capture has beyond them), by FLOPs: {flops: count}.
+
+    * MoE (einsum semantics): the reference dispatches and combines with
+      one-hot einsums, dots of 2 T E C d FLOPs each (T = B S tokens), two a
+      layer forward and three more backward (the dispatch into x, the
+      combine into the experts' outputs and into its weights); the port
+      gathers instead.  The expert products are the same.
+    * mLSTM (train only): the reference's backward of its chunk scan runs
+      one body for every chunk; autograd skips what reaches no parameter:
+      the gradient into chunk 0's zero state through q C (2 B H c dh^2)
+      and into its n through q n (2 B H c dh), and the last chunk's state
+      update, whose result is never read (two products of 2 B H c dh^2).
+      The backward of the two per-row dots q n and q n_intra (n_inter and
+      the denominator) forms outer products: XLA multiplies, the port runs
+      them as batched matrix products with an inner size of 1, one a chunk
+      for q n, two for q n_intra (2 B H c dh FLOPs each).
+    """
+    missing, extra = collections.Counter(), collections.Counter()
+    kinds = cfg.block_kinds
+    if cfg.is_moe:
+        g, n, C = MOE.groups(cfg, B, S, "einsum")
+        per_layer = 2 if phase == "prefill" else 5
+        missing[2.0 * g * n * cfg.n_experts * C * cfg.d_model] += \
+            per_layer * sum(k in ("attn", "local") for k in kinds)
+    if phase == "train" and "mlstm" in kinds:
+        layers = kinds.count("mlstm")
+        H = cfg.n_heads
+        dh = int(cfg.d_model * cfg.mlstm_proj_factor) // H
+        c = ML.chunk_size(S, cfg.chunk_size)
+        missing[2.0 * B * H * c * dh * dh] += 3 * layers
+        extra[2.0 * B * H * c * dh] += (3 * (S // c) - 1) * layers
+    return dict(missing), dict(extra)
+
+
+@pytest.mark.parametrize("phase", ["train", "prefill"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-1.3b",
+                                  "qwen3-moe-235b-a22b"])
+def test_non_dense_products_against_reference_dots(arch, phase):
+    """The recurrent and MoE families at ``reduced_config``: every product
+    of the port's captured phase against the reference's dots, FLOPs by
+    FLOPs.  The RG-LRU, the sLSTM and every prefill but MoE's match
+    exactly; the differences are listed and explained in
+    ``_expected_product_differences``."""
+    cfg = reduced_config(ARCHS[arch])
+    port = collections.Counter(
+        r.flops for r in steps.phase_records(cfg, phase, batch=B, seq_len=S,
+                                             device="cpu")
+        if r.op_class == "matmul")
+    ref = _hlo_dots(ref_steps.phase_hlo(ref_reduced(REF_ARCHS[arch]), phase,
+                                        batch=B, seq_len=S))
+    missing, extra = _expected_product_differences(cfg, phase)
+    assert dict(ref - port) == missing
+    assert dict(port - ref) == extra
 
 
 def test_remat_adds_the_recomputed_forward(cfg, ref_cfg):
