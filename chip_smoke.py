@@ -44,12 +44,19 @@ serial one), ``paper`` (Table IV through the scalar model and the card's
 torch backend, Table V and Fig. 5 with the port's DRAM simulator and
 baselines) and ``predict`` (``Session.predict``, ``Design.from_hlo`` and
 ``Session.roofline`` on the committed HLO fixtures, held to the
-reference's results in ``tests/data/torch_hlo/``).
+reference's results in ``tests/data/torch_hlo/``).  Last, ``mesh`` (the
+plain path; no kernel launches): the dry-run of qwen2-7b and grok-1-314b
+at ``decode_32k`` and stablelm-3b at ``train_4k`` (cut to 4 layers) on
+the 16x16 pod mesh, one rank captured under a fake 256-rank group;
+qwen2-7b (4 layers) and reduced stablelm-3b's train step sharded on a
+2x2 mesh of four threaded ranks on the card, held to the unsharded
+model; ``Session(device="cuda").autotune`` on the qwen2-7b cell; and
+the 2x2 checkpoint resumed on 4x1.
 
 Prints one JSON object per phase (env, build with each kernel function's
 counts of Hopper instructions in its SASS, parity, head_sizes, estimator,
 stream, optimize, validate, model once per arch, train and the trained
-model, launches, workload, serve, paper, predict);
+model, launches, workload, serve, paper, predict, mesh);
 then the ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -2726,6 +2733,377 @@ def phase_workload(device, wrappers: dict, model_parts: dict,
           "seconds": time.perf_counter() - t_phase})
 
 
+# ---------------------------------------------------------------------------
+# mesh: the dry-run, sharded steps on the card, autotune, elastic resume
+# ---------------------------------------------------------------------------
+
+#: (a) the dry-run cells on the 16x16 pod mesh, full width: (arch, shape,
+#: layers kept); stablelm-3b's train_4k is cut to 4 of its 32 layers
+#: (per-layer counts are read from one layer's records).
+MESH_DRYRUN = (("qwen2-7b", "decode_32k", None),
+               ("grok-1-314b", "decode_32k", None),
+               ("stablelm-3b", "train_4k", 4))
+#: (b) qwen2-7b at full width cut to 4 layers on a 2x2 mesh of threaded
+#: ranks on the one card: one prefill at B 2 x 1,024 and one decode step
+#: at B 8 over 4,096 rows; reduced stablelm-3b's train step in f32.
+MESH_LAYOUT = ((2, 2), ("data", "model"))
+MESH_ARCH, MESH_LAYERS = "qwen2-7b", 4
+MESH_PREFILL = (2, 1024)
+MESH_DECODE = (8, 4096)
+MESH_TRAIN = (4, 64)            # B x S of the reduced train step
+#: the loss, each first moment ((1 - b1) times the clipped gradient) and
+#: each update (after - before, beside one f32 rounding of the parameter),
+#: relative L2; AdamW's eps 1e-3 keeps the first step linear in the
+#: gradient and N(0, 0.02^2) on the weights leaves no leaf zero
+MESH_TRAIN_TOL = 1e-5
+#: (d) the 2x2 checkpoint restored on 4x1
+MESH_ELASTIC = ((4, 1), ("data", "model"))
+CARD_BYTES = 80e9
+
+
+def _mesh_dryrun(arch: str, shape_name: str, layers) -> dict:
+    """One dry-run cell on the 16x16 pod mesh: rank 0's counts, its
+    parameter (and state, cache) bytes against the card's 80 GB, the
+    capture's seconds, and with ``layers`` the config cut to that depth
+    and one layer's counts."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import POD, POD_AXES, fake_world, init_mesh
+
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    shape = SHAPES[shape_name]
+    tcfg = DR.default_train_config(get_config(arch))
+    t0 = time.perf_counter()
+    with fake_world(256):
+        mesh = init_mesh(POD, POD_AXES, device_type="cpu")
+        records, mem = DR.capture_step(cfg, shape, tcfg, mesh)
+        from repro_torch.launch import sharding as SH
+        plan = SH.make_plan(cfg, mesh, global_batch=shape.global_batch,
+                            kv_shard=tcfg.kv_shard, kind=shape.kind,
+                            fsdp_decode=tcfg.fsdp_decode)
+    dt = time.perf_counter() - t0
+    hc = DR.summarize(records)
+    check(hc["flops"] > 0 and hc["n_collectives"] > 0,
+          f"dry-run {arch} {shape_name}: no products or no collectives")
+    row = {"arch": arch, "shape": shape_name, "mesh": "16x16",
+           "mesh_device": "cpu", "layers": cfg.n_layers,
+           "of_layers": get_config(arch).n_layers,
+           "capture_s": dt, "n_ops": len(records),
+           "flops_per_rank": hc["flops"],
+           "bytes_by_class": hc["bytes_by_class"],
+           "collective_by_kind": hc["collective_by_kind"],
+           "collective_wire_bytes": hc["collective_wire_bytes"],
+           "n_collectives": hc["n_collectives"],
+           "memory": mem, "param_bytes_of_80GB": mem["param_bytes"] / CARD_BYTES,
+           "plan": dataclasses.asdict(plan)}
+    if layers:
+        one = [r for r in records if r.scope.startswith("layers.1.")
+               or r.scope == "layers.1"]
+        row["layer_1"] = {"flops": sum(r.flops for r in one),
+                          "bytes": sum(r.total_bytes for r in one),
+                          "n_ops": len(one)}
+    if arch == "grok-1-314b":
+        # the stated deployment: each rank's slice of every expert's FFN
+        row["expert_ff_slice"] = {"axis": plan.expert_ff_axes,
+                                  "d_ff": cfg.d_ff,
+                                  "per_rank": cfg.d_ff // POD[1],
+                                  "experts_per_rank": cfg.n_experts}
+    return row
+
+
+def _mesh_param_bytes(params, cfg, plan, mesh) -> tuple[int, int]:
+    """(bytes this rank holds, bytes the plan gives it): each parameter's
+    local extent from its placements by DTensor's chunking."""
+    import math
+
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models.pspec import local_extent
+
+    named = dict(params.named_parameters())
+    held = SH.local_bytes(named)
+    want = sum(math.prod(local_extent(named[k].shape, mesh, place)[0])
+               * named[k].to_local().element_size()
+               for k, place in SH.param_shardings(params, cfg, plan,
+                                                  mesh).items())
+    return held, want
+
+
+def phase_mesh(device, wrappers: dict) -> dict:
+    """The mesh layer (``repro_torch.launch.mesh``, ``sharding``,
+    ``dryrun``, ``models.pspec``, ``runtime.elastic``, ``Session.autotune``):
+    (a) the dry-run of ``MESH_DRYRUN`` on a fake 256-rank group (rank 0
+    captured under FakeTensorMode, nothing launched); (b) ``MESH_ARCH``
+    sharded on a 2x2 mesh of threaded ranks on the card, its prefill and
+    decode logits held to the unsharded model's (plain path both; bound:
+    ``TOL["model_logits"]["of_floor"]`` times the unsharded bf16 logits'
+    distance from the f32-activation run), each rank's parameter bytes to
+    the plan's, and reduced stablelm-3b's f32 train step held to the
+    unsharded step by its loss, updates and first moments
+    (``MESH_TRAIN_TOL``); (c) ``Session(device="cuda")
+    .autotune`` on (a)'s qwen2-7b cell: kv-heads a ``TrialFailure`` (4 kv
+    heads over 16), the ranking, and a second call served from the cache;
+    (d) (b)'s 2x2 train state checkpointed and resumed on 4x1 through
+    ``resume_on_mesh``, bit for bit.  The mesh path is the plain path: no
+    kernel launches, which the phase checks."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch import Session
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.shapes import SHAPES, ShapeSpec
+    from repro_torch.core.autotune import default_candidates
+    from repro_torch.core.cache import HloAnalysisCache
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import init_mesh, threaded_ranks
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.convert import to_serving
+    from repro_torch.optim.adamw import OptimizerConfig, adamw_init
+    from repro_torch.runtime.elastic import resume_on_mesh
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    t_phase = time.perf_counter()
+    out: dict = {"phase": "mesh"}
+
+    # (a) the dry-run
+    out["dryrun"] = [_mesh_dryrun(*cell) for cell in MESH_DRYRUN]
+
+    # (b) sharded steps on the card
+    cfg = dataclasses.replace(get_config(MESH_ARCH), n_layers=MESH_LAYERS,
+                              use_kernels=False)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    g = torch.Generator().manual_seed(5)
+    Bp, Sp = MESH_PREFILL
+    Bd, Sd = MESH_DECODE
+    prompt = torch.randint(0, cfg.vocab_size, (Bp, Sp), generator=g)
+    dtok = torch.randint(0, cfg.vocab_size, (Bd, 1), generator=g)
+    index = Sd - 1
+    pshape = ShapeSpec("mesh_prefill", Sp, Bp, "prefill")
+    dshape = ShapeSpec("mesh_decode", Sd, Bd, "decode")
+
+    def filled_caches(c, mesh=None, plan=None):
+        caches = TF.init_caches(c, Bd, Sd, device=device)
+        gen = torch.Generator(device=device).manual_seed(7)
+        for layer in caches:
+            for t in layer.values():
+                t.copy_(torch.randn(t.shape, generator=gen, device=device,
+                                    dtype=torch.float32).to(t.dtype))
+        return caches if mesh is None else ST.place_caches(caches, plan,
+                                                           mesh)
+
+    def run_steps(c, mesh=None):
+        """Prefill and decode logits (whole), ms of each (a warm call
+        first), and the rank's parameter bytes against the plan's."""
+        row = {}
+        for kind, shape in (("prefill", pshape), ("decode", dshape)):
+            built = ST.build_step(c, shape, mesh=mesh, device=device)
+            params = to_serving(TF.init_params(c, seed=0, device=device))
+            if mesh is not None:
+                ST.place_params(params, c, built.plan, mesh)
+                if kind == "prefill":
+                    row["param_bytes"] = _mesh_param_bytes(
+                        params, c, built.plan, mesh)
+            if kind == "prefill":
+                batch = {"tokens": prompt.to(device)}
+
+                def call():
+                    return built.fn(params, batch)
+            else:
+                caches = filled_caches(c, mesh, built.plan)
+                tok, idx = dtok.to(device), torch.tensor([index],
+                                                          device=device)
+
+                def call():
+                    return built.fn(params, tok, caches, idx)[1]
+            logits = call()                 # warm: DTensor's first dispatch
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = call()
+            torch.cuda.synchronize()
+            row[f"{kind}_ms"] = (time.perf_counter() - t0) * 1e3
+            if hasattr(logits, "full_tensor"):
+                logits = logits.full_tensor()
+            row[kind] = logits.reshape(-1, logits.shape[-1]).float().cpu()
+            del params, built
+        return row
+
+    plain = run_steps(cfg)
+    exact = run_steps(cfg32)
+
+    def mesh_rank(rank):
+        return run_steps(cfg, init_mesh(*MESH_LAYOUT, device_type="cuda"))
+    t0 = time.perf_counter()
+    ranks = threaded_ranks(4, mesh_rank)
+    out["sharded_s"] = time.perf_counter() - t0
+    steps_row = {}
+    v = cfg.vocab_size
+    for kind in ("prefill", "decode"):
+        got, want, f32 = (r[kind][:, :v] for r in (ranks[0], plain, exact))
+        floor = _rel_l2(want, f32)
+        dist = _rel_l2(got, want)
+        bound = TOL["model_logits"]["of_floor"] * floor
+        steps_row[kind] = {
+            "rel_l2_sharded_vs_unsharded": dist,
+            "rel_l2_unsharded_vs_f32": floor, "bound": bound,
+            "max_abs": float((got - want).abs().max()),
+            "greedy_agreement": float((got.argmax(-1) == want.argmax(-1))
+                                      .float().mean()),
+            "sharded_ms": ranks[0][f"{kind}_ms"],
+            "unsharded_ms": plain[f"{kind}_ms"]}
+        check(all(bool(torch.equal(r[kind], ranks[0][kind])) for r in ranks),
+              f"mesh {kind}: the ranks' logits differ")
+        check(0.0 < floor and dist <= bound,
+              f"mesh {kind}: sharded logits {dist:.3g} from the unsharded "
+              f"ones, bound {bound:.3g}")
+    for r, row in enumerate(ranks):
+        held, want = row["param_bytes"]
+        check(held == want, f"mesh rank {r}: holds {held} parameter bytes, "
+              f"the plan gives {want}")
+    steps_row["param_bytes_by_rank"] = [r["param_bytes"][0] for r in ranks]
+    out["steps"] = steps_row
+
+    # (b) the train step, and (d) its state resumed on 4x1
+    tcfg32 = dataclasses.replace(reduced_config(get_config("stablelm-3b")),
+                                 dtype="float32", use_kernels=False)
+    tB, tS = MESH_TRAIN
+    ttok = torch.randint(0, tcfg32.vocab_size, (tB, tS), generator=g)
+    tbatch = {"tokens": ttok, "labels": torch.roll(ttok, -1, 1)}
+    tshape = ShapeSpec("mesh_train", tS, tB, "train")
+    topt = ST.TrainConfig(optimizer=OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                                    eps=1e-3))
+    gen = torch.Generator().manual_seed(11)
+    tnoise = {k: 0.02 * torch.randn(w.shape, generator=gen)
+              for k, w in TF.init_params(tcfg32, seed=0, device="cpu")
+              .named_parameters()}
+
+    def fresh():
+        params = TF.init_params(tcfg32, seed=0, device=device)
+        with torch.no_grad():
+            for k, w in params.named_parameters():
+                w.add_(tnoise[k].to(device))
+        return params
+
+    def train(mesh=None, ckpt_dir=None):
+        built = ST.build_step(tcfg32, tshape, topt, mesh=mesh, device=device)
+        params = fresh()
+        opt = adamw_init(dict(params.named_parameters()), topt.optimizer)
+        if mesh is not None:
+            ST.place_params(params, tcfg32, built.plan, mesh)
+            opt = ST.place_opt_state(opt, params, tcfg32, built.plan, mesh)
+        built.fn(params, opt, tbatch)       # warm
+        params = fresh()
+        opt = adamw_init(dict(params.named_parameters()), topt.optimizer)
+        if mesh is not None:
+            ST.place_params(params, tcfg32, built.plan, mesh)
+            opt = ST.place_opt_state(opt, params, tcfg32, built.plan, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = built.fn(params, opt, tbatch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        state = {"params": dict(params.named_parameters()), "opt": opt}
+        if ckpt_dir is not None:
+            CheckpointManager(ckpt_dir).save(1, state)
+        whole = SH.gather_tree({k: v for k, v in state["params"].items()})
+        return float(m["loss"]), {k: v.detach().cpu() for k, v in
+                                  whole.items()}, ms, SH.gather_tree(opt)
+
+    def update_err(p1, p0, before) -> float:
+        """The gap of two updates over ``MESH_TRAIN_TOL`` of the update's
+        norm plus one f32 rounding of the parameter."""
+        nrm = torch.linalg.vector_norm
+        allowed = (MESH_TRAIN_TOL * nrm(p0 - before)
+                   + torch.finfo(torch.float32).eps * nrm(p0))
+        return float(nrm(p1 - p0) / allowed)
+
+    before = {k: w.detach().cpu() for k, w in fresh().named_parameters()}
+    loss0, p0, ms0, opt0 = train()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        res = threaded_ranks(4, lambda r: train(
+            init_mesh(*MESH_LAYOUT, device_type="cuda"), ckpt_dir))
+        loss1, p1, ms1, opt1 = res[0]
+        upd = {k: update_err(p1[k], p0[k], before[k]) for k in p0}
+        mom = _leaf_rel_l2(opt1["m"], opt0["m"])
+        wu, wm = max(upd, key=upd.get), max(mom, key=mom.get)
+        out["train"] = {"loss_sharded": loss1, "loss_unsharded": loss0,
+                        "loss_rel": abs(loss1 - loss0) / abs(loss0),
+                        "worst_update": wu,
+                        "worst_update_of_allowed": upd[wu],
+                        "worst_moment": wm, "worst_moment_rel_l2": mom[wm],
+                        "sharded_ms": ms1, "unsharded_ms": ms0}
+        check(abs(loss1 - loss0) <= MESH_TRAIN_TOL * abs(loss0)
+              and upd[wu] <= 1.0 and mom[wm] <= MESH_TRAIN_TOL,
+              f"mesh train: loss {loss1} vs {loss0}, update {wu} "
+              f"{upd[wu]:.3g} of allowed, moment {wm} {mom[wm]:.3g}")
+
+        def resume(rank):
+            mesh = init_mesh(*MESH_ELASTIC, device_type="cuda")
+            built = ST.build_step(tcfg32, tshape, topt, mesh=mesh,
+                                  device=device)
+            params = TF.init_params(tcfg32, seed=1, device=device)
+            opt = adamw_init(dict(params.named_parameters()), topt.optimizer)
+            like = {"params": dict(params.named_parameters()), "opt": opt}
+            place = {"params": built.shardings["params"],
+                     "opt": dict(built.shardings["opt"], step=None)}
+            state, step = resume_on_mesh(CheckpointManager(ckpt_dir), like,
+                                         mesh, place)
+            leaves = state["params"]
+            return step, {k: v.full_tensor().cpu() for k, v in leaves.items()}, \
+                [tuple(v.placements) for v in leaves.values()][:2], \
+                SH.gather_tree(state["opt"])
+        step, p4, place4, opt4 = threaded_ranks(4, resume)[0]
+    same = all(torch.equal(p4[k], p1[k]) for k in p1) and all(
+        torch.equal(opt4[g_][k].cpu(), opt1[g_][k].cpu())
+        for g_ in ("m", "v") for k in opt1[g_])
+    out["elastic"] = {"from": "2x2", "to": "4x1", "step": step,
+                      "bit_equal": same,
+                      "placements": [str(p) for p in place4]}
+    check(step == 1 and same, "elastic: the 4x1 restore differs from the "
+          "2x2 state")
+
+    # (c) autotune on (a)'s qwen2-7b cell, scored on the card
+    cell_cfg, cell_shape = get_config("qwen2-7b"), SHAPES["decode_32k"]
+    layout = ((16, 16), ("data", "model"))
+    with tempfile.TemporaryDirectory() as cache_dir:
+        cache = HloAnalysisCache(cache_dir)
+        sess = Session(device="cuda")
+        t0 = time.perf_counter()
+        rep = sess.autotune(cell_cfg, cell_shape, layout, cache=cache)
+        t_first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = sess.autotune(cell_cfg, cell_shape, layout, cache=cache)
+        t_again = time.perf_counter() - t0
+    names = [c.name for c in default_candidates("decode")]
+    out["autotune"] = {"candidates": names, "ranking": rep.rows(),
+                       "first_s": t_first, "cached_s": t_again,
+                       "all_cached": all(t.cached for t in again)}
+    check([f.candidate.name for f in rep.failures] == ["kv-heads"]
+          and "kv heads not divisible" in rep.failures[0].error_msg,
+          f"autotune: kv-heads should fail as the reference's does: "
+          f"{[f.summary() for f in rep.failures]}")
+    check(len(rep) == len(names) - 1 and all(t.cached for t in again)
+          and [t.candidate.name for t in again] ==
+          [t.candidate.name for t in rep],
+          "autotune: the second call was not served from the cache")
+
+    out["launches"] = {name: fn.launches for name, fn in wrappers.items()}
+    check(not any(out["launches"].values()),
+          f"the mesh path launched kernels: {out['launches']}")
+
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 def time_ms(fn, device, iters=20, warmup=3) -> float:
     from repro_torch.core.validate import time_callable
 
@@ -2908,6 +3286,9 @@ def main() -> int:
     phase_serve(device)
     phase_paper(device)
     phase_predict(device)
+
+    # The mesh layer runs the plain path: no kernel launches.
+    phase_mesh(device, wrappers)
 
     kernels = phase_kernels(device, card, launches, card_err)
     emit({"kernels": kernels})

@@ -42,6 +42,7 @@ from repro_torch.api import (
     Space,
     SweepPlan,
     SweepReport,
+    AutotuneReport,
     ValidateReport,
 )
 from repro_torch.core.fpga import BspParams, DramParams
@@ -78,7 +79,8 @@ __version__ = "0.9.0"
 
 __all__ = [
     "Design", "Session", "Space", "Estimate", "Report", "SweepPlan",
-    "SweepReport", "ValidateReport", "RooflineReport", "BACKENDS",
+    "SweepReport", "AutotuneReport", "ValidateReport", "RooflineReport",
+    "BACKENDS",
     "EXECUTORS", "DEFAULT_CHUNK", "ResourceEnvelope", "Constraint", "within",
     "OptimizeReport",
     "ModelReport", "PhaseReport", "OpEstimate", "OpRecord",

@@ -584,6 +584,38 @@ def _stream_report(outcome, tables: Mapping[str, list], *,
         reducers=outcome.reducers, profile=profile)
 
 
+class AutotuneReport(Report):
+    """Ranked autotune results as a Report (wraps ``AutotuneResults``)."""
+
+    kind = "autotune"
+
+    def __init__(self, results):
+        self.results = list(results)
+        self.failures = list(getattr(results, "failures", []))
+
+    def __iter__(self):
+        return iter(self.results)
+
+    def __len__(self) -> int:
+        return len(self.results)
+
+    def __getitem__(self, i):
+        return self.results[i]
+
+    @property
+    def best(self):
+        return self.results[0] if self.results else None
+
+    def rows(self) -> list[dict]:
+        return ([t.summary() for t in self.results]
+                + [f.summary() for f in self.failures])
+
+    def summary(self) -> dict:
+        return {"kind": self.kind, "candidates": len(self.results),
+                "failures": len(self.failures),
+                "best": self.best.candidate.name if self.best else None}
+
+
 class ValidateReport(Report):
     """Measured-vs-predicted validation as a Report (wraps
     :class:`repro_torch.core.validate.ValidationReport`)."""
@@ -1091,6 +1123,23 @@ class Session:
         return ValidateReport(rep)
 
     # -- HLO predictor and roofline ----------------------------------------
+
+    def autotune(self, cfg, shape, mesh, candidates=None, *,
+                 cache=True, gather_row_bytes: float = 512.0,
+                 ) -> AutotuneReport:
+        """Model-guided candidate ranking: each candidate's sharded step is
+        captured as one rank of ``mesh`` runs it (a ``DeviceMesh``, or a
+        layout ``(shape, axis names)`` captured over a fake group of its
+        size: no launch), then all are scored in one pass on the session's
+        device.  The session's hardware spec is part of every on-disk
+        cache key, so rankings made under one memory system are never
+        reused under another."""
+        from repro_torch.core import autotune as _at
+
+        return AutotuneReport(_at._autotune(
+            cfg, shape, mesh, candidates, self.hardware or self.hw,
+            cache=cache, gather_row_bytes=gather_row_bytes,
+            device=self.device))
 
     def roofline(self, design: Design) -> RooflineReport:
         """Place one design on the roofline: the Eqs. 1-10 memory time (on

@@ -14,7 +14,13 @@ Port of ``repro.checkpoint.manager``, with the same layout::
 
 A tree is the port's own nesting of dicts with tensor leaves (a model's
 state dict beside the optimizer state); a leaf's name is its keys joined
-by ``/``.  The manifest lists every leaf's name, dtype and shape.  numpy
+by ``/``.
+
+On a mesh the checkpoint stays mesh-independent: ``save`` gathers every
+DTensor leaf to the whole tensor (a collective: every rank calls it) and
+rank 0 alone writes; ``restore(..., shardings=, mesh=)`` places each
+leaf by the new mesh's placements (``launch/sharding.py``), which is how
+a run resumes on another mesh (``runtime/elastic.py``).  The manifest lists every leaf's name, dtype and shape.  numpy
 has no bfloat16, so a bf16 leaf is stored as its ``uint16`` view with
 ``"bfloat16"`` in the manifest, and restored bit for bit.
 """
@@ -29,6 +35,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 #: dtypes stored as the bits of an unsigned integer view.
 _VIEWS = {torch.bfloat16: torch.uint16}
@@ -54,13 +61,22 @@ def _unflatten(like: Any, leaves: dict[str, torch.Tensor], prefix: str = ""):
             for key, val in like.items()}
 
 
+def _writer() -> bool:
+    """Whether this process (or thread rank) writes: rank 0 of the group in
+    force, or the only one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _dtype_name(dt: torch.dtype) -> str:
     return str(dt).removeprefix("torch.")
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
     """A host copy of ``t`` (a copy even of a CPU tensor: the caller may
-    write into ``t`` while a thread writes the file)."""
+    write into ``t`` while a thread writes the file); a DTensor gathered
+    whole first."""
+    if hasattr(t, "full_tensor"):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype in _VIEWS:
         t = t.view(_VIEWS[t.dtype])
@@ -77,21 +93,34 @@ class CheckpointManager:
     # ------------------------------------------------------------- save
     def save(self, step: int, tree: Any, *, blocking: bool = True) -> None:
         """Write ``tree`` as step ``step``; with ``blocking=False`` the leaves
-        are copied to the host here and written on a thread (``wait``)."""
+        are copied to the host here and written on a thread (``wait``).  On
+        a group of several ranks, rank 0 writes and a blocking save returns
+        on every rank once the write is done."""
         self.wait()
         leaves = [(name, _dtype_name(t.dtype), _to_host(t))
                   for name, t in _flatten(tree)]
-        if blocking:
+        if not _writer():
+            pass
+        elif blocking:
             self._write(step, leaves)
         else:
             self._thread = threading.Thread(
                 target=self._write, args=(step, leaves), daemon=True)
             self._thread.start()
+        if blocking:
+            self.barrier()
 
     def wait(self) -> None:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+
+    def barrier(self) -> None:
+        """Wait for rank 0's write to finish on every rank of the group in
+        force (nothing without one)."""
+        self.wait()
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dist.barrier()
 
     def _write(self, step: int, leaves: list) -> None:
         final = os.path.join(self.dir, f"step_{step:08d}")
@@ -135,10 +164,14 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, like: Any, *, step: int | None = None,
-                device=None) -> tuple[Any, int]:
+                device=None, shardings: Any = None,
+                mesh=None) -> tuple[Any, int]:
         """Restore step ``step`` (default: the latest) into the structure of
         ``like``: each leaf at the ``like`` leaf's dtype, on its device (or
-        on ``device`` where given).  Returns ``(tree, step)``."""
+        on ``device`` where given).  With ``shardings`` (placements in
+        ``like``'s structure) and ``mesh``, each leaf becomes a DTensor of
+        its placements on ``mesh`` (every rank reads the whole leaf and
+        keeps its shard).  Returns ``(tree, step)``."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -161,4 +194,8 @@ class CheckpointManager:
                                  f"expected {list(ref.shape)}")
             out[name] = t.to(device=ref.device if device is None else device,
                              dtype=ref.dtype)
-        return _unflatten(like, out), step
+        tree = _unflatten(like, out)
+        if shardings is not None:
+            from repro_torch.launch.sharding import distribute_tree
+            tree = distribute_tree(tree, shardings, mesh)
+        return tree, step

@@ -71,7 +71,9 @@ def mlstm_chunk_ref(q, k, v, li, lf, *, chunk: int = 256):
     c = chunk_size(S, chunk)
     qf, kf, vf = q.float(), k.float(), v.float()
     lif, lff = li.float(), lf.float()
-    C = q.new_zeros((B, H, dh, dh), dtype=torch.float32)
+    # C is (key dh, value dh): under a mesh v may hold a slice of the
+    # value dim (``models.xlstm``'s local region), the rest is unchanged
+    C = q.new_zeros((B, H, dh, v.shape[-1]), dtype=torch.float32)
     n = q.new_zeros((B, H, dh), dtype=torch.float32)
     causal = torch.ones(c, c, dtype=torch.bool, device=q.device).tril()
     outs = []   # one tensor a chunk, no slice writes: autograd records it

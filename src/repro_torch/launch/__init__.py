@@ -1,3 +1,2 @@
-"""Step functions and the batched server on one card (port of
-``repro.launch``; the mesh, sharding and training parts are later
-slices)."""
+"""Step functions, the batched server, the trainer, meshes, the sharding
+plan and the dry-run (port of ``repro.launch``)."""

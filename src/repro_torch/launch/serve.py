@@ -32,7 +32,9 @@ import torch
 
 from repro_torch import compat
 from repro_torch.configs import get_config, list_archs, reduced_config
-from repro_torch.launch.steps import make_decode_step
+from repro_torch.launch import sharding as SH
+from repro_torch.launch.steps import (make_decode_step, place_caches,
+                                      place_params)
 from repro_torch.models import transformer as TF
 from repro_torch.models.convert import to_serving
 
@@ -51,12 +53,17 @@ class BatchedServer:
 
     ``params`` defaults to the reference's seed-0 random weights made on
     ``device`` and cast once for serving (``convert.to_serving``);
-    ``device`` defaults to the CUDA card and raises without one.
+    ``device`` defaults to the CUDA card and raises without one.  With a
+    ``mesh`` (a ``DeviceMesh``; every rank runs the server) the plan is
+    the reference's (``make_plan(cfg, mesh, global_batch=batch_slots)``),
+    the weights and caches are DTensors placed by it and the decode step
+    is the sharded one; the config must take the plain path.
     """
 
-    def __init__(self, cfg, *, batch_slots: int = 4, max_len: int = 256,
-                 params=None, device=None):
+    def __init__(self, cfg, mesh=None, *, batch_slots: int = 4,
+                 max_len: int = 256, params=None, device=None):
         self.cfg = cfg
+        self.mesh = mesh
         self.device = compat.resolve_device(device)
         self.max_len = max_len
         self.slots = batch_slots
@@ -64,7 +71,12 @@ class BatchedServer:
             TF.init_params(cfg, seed=0, device=self.device))
         self.caches = TF.init_caches(cfg, batch_slots, max_len,
                                      device=self.device)
-        self._decode = make_decode_step(cfg)
+        self.plan = None
+        if mesh is not None:
+            self.plan = SH.make_plan(cfg, mesh, global_batch=batch_slots)
+            place_params(self.params, cfg, self.plan, mesh)
+            self.caches = place_caches(self.caches, self.plan, mesh)
+        self._decode = make_decode_step(cfg, mesh, self.plan)
         # per-slot position counters; -1 = free slot
         self.pos = np.full((batch_slots,), -1, np.int64)
         self.active: dict[int, Request] = {}
@@ -110,6 +122,8 @@ class BatchedServer:
         next_tok, _, self.caches = self._decode(
             self.params, torch.from_numpy(tokens).to(self.device), self.caches,
             torch.tensor([index], device=self.device))
+        if hasattr(next_tok, "full_tensor"):
+            next_tok = next_tok.full_tensor()
         next_np = next_tok.cpu().numpy()
         n_new = 0
         for slot, req in list(self.active.items()):

@@ -13,6 +13,13 @@ The step runs the plain path (``use_kernels=False``): the kernels have no
 backward (``launch/steps.py``).  ``python -m repro_torch.launch.train
 --arch stablelm-3b --local --device cpu`` trains a ``reduced_config`` on
 the CPU; without ``--device`` it runs on the CUDA card.
+
+The mesh, as the reference chooses it: a run of one process trains on
+one card; under ``torchrun`` (``WORLD_SIZE`` > 1; the group is NCCL on
+cards, gloo on the CPU) ``--local`` trains on the host mesh of the ranks
+that exist and otherwise on the production mesh, 16x16, or 2x16x16 with
+``--multi-pod``, which raises when the world holds fewer ranks than the
+mesh.  Multi-card NCCL runs are written and not verified here.
 """
 from __future__ import annotations
 
@@ -22,12 +29,16 @@ import os
 import tempfile
 
 import torch
+import torch.distributed as dist
 
+from repro_torch import compat
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, list_archs, reduced_config
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.data import make_dataset
 from repro_torch.data.pipeline import DataConfig
+from repro_torch.launch import steps as ST
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.launch.steps import BuiltStep, TrainConfig, build_step
 from repro_torch.models import transformer as TF
 from repro_torch.optim.adamw import OptimizerConfig, adamw_init
@@ -55,9 +66,18 @@ def train_loop(cfg, built: BuiltStep, tcfg: TrainConfig, *,
 
     params = TF.init_params(cfg, seed=0, device=built.device)
     opt_state = adamw_init(dict(params.named_parameters()), tcfg.optimizer)
+    place = {}
+    if built.mesh is not None:
+        ST.place_params(params, cfg, built.plan, built.mesh)
+        opt_state = ST.place_opt_state(opt_state, params, cfg, built.plan,
+                                       built.mesh)
+        opt = dict(built.shardings["opt"], step=None)
+        place = dict(shardings={"params": built.shardings["params"],
+                                "opt": opt}, mesh=built.mesh)
     start_step = 0
     if ckpt.latest_step() is not None:
-        state, start_step = ckpt.restore(train_state(params, opt_state))
+        state, start_step = ckpt.restore(train_state(params, opt_state),
+                                         **place)
         with torch.no_grad():
             for name, p in params.named_parameters():
                 p.copy_(state["params"][name])
@@ -92,6 +112,32 @@ def train_loop(cfg, built: BuiltStep, tcfg: TrainConfig, *,
     }
 
 
+def choose_mesh(*, local: bool, multi_pod: bool, device=None):
+    """The reference's mesh choice over the ranks this run has: None (one
+    card) for a run of one process, but for the production mesh it asks
+    for (``multi_pod`` without ``local``); else the host
+    mesh (``local``) or the production mesh, which raises when the world
+    is smaller than it.  Under ``torchrun`` the group is made here and
+    left to the process: the run ends with it."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1 and (local or not multi_pod):
+        return None                     # the 1x1 host mesh: one card
+    device_type = compat.resolve_device(device).type
+    if world > 1 and not dist.is_initialized():
+        if device_type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl" if device_type == "cuda" else "gloo")
+    if local:
+        return make_host_mesh(device_type=device_type)
+    need = 512 if multi_pod else 256
+    if world < need:
+        raise RuntimeError(
+            f"the {'2x16x16' if multi_pod else '16x16'} mesh needs {need} "
+            f"ranks; this run has {world} (launch it with torchrun on "
+            f"{need} cards, or use launch.dryrun to capture one rank)")
+    return make_production_mesh(multi_pod=multi_pod, device_type=device_type)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=list_archs())
@@ -110,21 +156,23 @@ def main() -> None:
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args()
-    if args.multi_pod:
-        ap.error("--multi-pod needs the mesh and sharding modules, which are "
-                 "not yet ported; the port trains on one card")
 
     cfg = get_config(args.arch)
     if args.local:
         cfg = reduced_config(cfg)
     cfg = dataclasses.replace(cfg, use_kernels=False)
+    try:
+        mesh = choose_mesh(local=args.local, multi_pod=args.multi_pod,
+                           device=args.device)
+    except RuntimeError as e:
+        ap.error(str(e))
     tcfg = TrainConfig(
         optimizer=OptimizerConfig(lr=args.lr, total_steps=args.steps,
                                   warmup_steps=max(1, args.steps // 20),
                                   state_dtype=args.opt_state_dtype),
         grad_compression=args.grad_compression)
     shape = ShapeSpec("cli", args.seq_len, args.batch, "train")
-    built = build_step(cfg, shape, tcfg, device=args.device)
+    built = build_step(cfg, shape, tcfg, mesh=mesh, device=args.device)
     data_cfg = DataConfig(seq_len=args.seq_len, batch_size=args.batch)
     out = train_loop(cfg, built, tcfg, steps=args.steps,
                      ckpt_dir=args.ckpt_dir, data_cfg=data_cfg,

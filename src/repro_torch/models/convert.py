@@ -71,16 +71,25 @@ def from_reference(params: dict, cfg: ModelConfig, experts=None
     return sd
 
 
+def reference_path(cfg: ModelConfig, name: str) -> tuple[str, bool]:
+    """(the path of the port's parameter ``name`` in the reference's tree,
+    joined by ``/`` with the layer container left out, as the reference's
+    sharding rules match it; whether the reference stacks that leaf over
+    the scanned pattern groups' repeats)."""
+    parts = name.split(".")
+    if parts[0] != "layers":
+        return "/".join(parts), False
+    layer = int(parts[1])
+    return ("/".join(parts[2:]),
+            layer < cfg.pattern_repeats * len(cfg.block_pattern))
+
+
 def reference_ndim(cfg: ModelConfig, name: str, tensor: torch.Tensor) -> int:
     """The rank of the leaf ``name`` in the reference's tree: one more than
     the port's for a layer of the scanned pattern groups, which the
     reference stacks over their repeats on a leading axis (its optimizer's
     ``ndim >= 2`` rule therefore decays those layers' norms and biases)."""
-    if name.startswith("layers."):
-        layer = int(name.split(".", 2)[1])
-        if layer < cfg.pattern_repeats * len(cfg.block_pattern):
-            return tensor.ndim + 1
-    return tensor.ndim
+    return tensor.ndim + reference_path(cfg, name)[1]
 
 
 def load(cfg: ModelConfig, state_dict: dict, *, device=None,

@@ -10,8 +10,9 @@ Port of ``repro.models.layers``.  Conventions, as in the reference:
   matmul weights once instead, which gives every product the same inputs;
 * the XLA-path attention (:func:`blocked_attention`) walks the reference's
   static schedule of (q-block, kv-block) pairs with an online softmax, so
-  causal and local masks skip whole blocks.  The reference's sharding tags
-  are mesh-only and have no counterpart on one card.
+  causal and local masks skip whole blocks.  Under a mesh it runs on each
+  rank's shards (``attention.py``'s local region), whose placements are
+  the reference's tags on q, k, v and the softmax state.
 """
 from __future__ import annotations
 
@@ -21,6 +22,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.models.pspec import (is_dtensor, settled, vocab_pick,
+                                     whole_last_dim)
 
 NEG_INF = -1e30
 
@@ -77,6 +81,8 @@ def apply_norm(p: Norm, x: torch.Tensor, kind: str = "rmsnorm",
     result in x's dtype (one fused PyTorch norm each, for fewer launches
     than the reference's formula written out)."""
     d = (x.shape[-1],)
+    if type(x) is not torch.Tensor:     # a DTensor (or another subclass)
+        x = whole_last_dim(x)
     if kind == "rmsnorm":
         out = F.rms_norm(x.float(), d, p.scale, eps=eps)
     elif kind == "layernorm":
@@ -297,10 +303,16 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     to autograd, as the reference's ``stop_gradient`` makes it (its
     gradient cancels in exact arithmetic)."""
     lf = logits.float()
-    m = lf.amax(-1, keepdim=True).detach()
+    m = settled(lf.amax(-1, keepdim=True)).detach()
     shifted = lf - m
     lse = torch.log(torch.exp(shifted).sum(-1)) + m[..., 0]
-    ll = shifted.gather(-1, labels.long()[..., None])[..., 0] + m[..., 0]
+    if is_dtensor(shifted):
+        picked = vocab_pick(shifted, labels, shifted.ndim - 1,
+                            lambda t, i, inside: t.gather(
+                                -1, i[..., None])[..., 0] * inside)
+    else:
+        picked = shifted.gather(-1, labels.long()[..., None])[..., 0]
+    ll = picked + m[..., 0]
     loss = lse - ll
     if z_loss:
         loss = loss + z_loss * lse.square()

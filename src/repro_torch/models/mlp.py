@@ -6,6 +6,7 @@ from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.pspec import shard
 
 
 class MLP(nn.Module):
@@ -30,4 +31,5 @@ def forward(p: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         h = L.activate(L.dense(p.wg, x), cfg.act) * h
     else:
         h = L.activate(h, cfg.act)
+    h = shard(h, "batch", "seq", "ff")
     return L.dense(p.wo, h)

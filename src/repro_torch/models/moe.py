@@ -32,6 +32,17 @@ the exchange.  The router, the top-k, the capacity and every pair's
 position stay over all ``n_experts``; the layer computes the rows of its
 own experts, a slot routed elsewhere adds zero, and the aux loss is the
 whole layer's.  The default holds every expert and is the reference layer.
+
+Under a mesh the experts' weights are DTensors split as the plan splits
+them (expert-parallel over ``experts``, or tensor-parallel inside each
+expert over ``expert_ff``) and so are the expert products: the dispatched
+rows, the hidden activations and the expert outputs carry the
+reference's tags (``experts``, ``expert_cap``, ``expert_ff``).  The
+routing, the capacity assignment and the dispatch and combine gathers run
+on every rank on the whole token set (the layer's input taken whole,
+``_whole``): DTensor has no sharding rule for the stable sort, the
+scatter and the index gathers, and these cost a few ops on (T, k) ids
+beside the products.  This is the MoE layer's replication site.
 """
 from __future__ import annotations
 
@@ -41,7 +52,9 @@ import torch
 from torch import nn
 
 from repro_torch.models import layers as L
+from repro_torch.models import pspec
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.pspec import shard
 
 
 def capacity(cfg: ModelConfig, n_tokens: int) -> int:
@@ -95,9 +108,30 @@ def forward(p: MoE, cfg: ModelConfig, x: torch.Tensor,
     impl = cfg.moe_impl
     if decode and impl == "einsum":
         impl = "sort"
-    if impl == "einsum":
-        return forward_einsum(p, cfg, x)
-    return forward_sort(p, cfg, x)
+    run = forward_einsum if impl == "einsum" else forward_sort
+    if not pspec.is_dtensor(x):
+        return run(p, cfg, x)
+    mesh = x.device_mesh
+    out, aux = run(p, cfg, _whole(x))
+    from torch.distributed.tensor import DTensor
+    # both back on the mesh (whole on every rank): a plain tensor met by a
+    # DTensor would hand autograd a DTensor gradient on the local graph
+    return tuple(DTensor.from_local(t, mesh, _replicated(mesh),
+                                    run_check=False) for t in (out, aux))
+
+
+def _replicated(mesh) -> tuple:
+    from torch.distributed.tensor import Replicate
+    return (Replicate(),) * mesh.ndim
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value on this rank (gathered; its gradient whole
+    on every rank); a plain tensor as it is."""
+    if not pspec.is_dtensor(t):
+        return t
+    return t.redistribute(t.device_mesh, _replicated(t.device_mesh)) \
+        .to_local()
 
 
 def _router(p: MoE, cfg: ModelConfig, xt: torch.Tensor):
@@ -106,7 +140,7 @@ def _router(p: MoE, cfg: ModelConfig, xt: torch.Tensor):
     go to the lower expert, as ``jax.lax.top_k`` gives them (a stable
     descending sort; ``torch.topk`` promises no order)."""
     k, E = cfg.experts_per_token, cfg.n_experts
-    logits = xt.float() @ p.router.w.float()
+    logits = xt.float() @ _whole(p.router.w).float()
     probs = torch.softmax(logits, dim=-1)
     weights, experts = probs.sort(dim=-1, descending=True, stable=True)
     weights, experts = weights[..., :k], experts[..., :k]
@@ -159,9 +193,19 @@ def _expert_ffn(p: MoE, cfg: ModelConfig, x: torch.Tensor, slot,
     xpad = torch.cat([x, x.new_zeros(1, d)])
     held = p.experts[1] - p.experts[0]
     xe = xpad.index_select(0, src[:rows]).reshape(held, rows // held, d)
+    mesh = p.wi.device_mesh if pspec.is_dtensor(p.wi) else None
+    if mesh is not None:
+        # the dispatched rows enter the mesh: every rank holds them whole,
+        # so taking the plan's split is a local slice
+        from torch.distributed.tensor import DTensor
+        xe = DTensor.from_local(xe, mesh, _replicated(mesh), run_check=False)
+        xe = shard(xe, "experts", "expert_cap", None)
     h = torch.bmm(xe, p.wi.to(x.dtype))
     a = torch.bmm(xe, p.wg.to(x.dtype))
-    y = torch.bmm(L.activate(a, cfg.act) * h, p.wo.to(x.dtype))
+    h = shard(L.activate(a, cfg.act) * h, "experts", "expert_cap",
+              "expert_ff")
+    y = shard(torch.bmm(h, p.wo.to(x.dtype)), "experts", "expert_cap", None)
+    y = _whole(y)
     return torch.cat([y.reshape(rows, d), y.new_zeros(1, d)])
 
 

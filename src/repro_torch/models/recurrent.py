@@ -14,7 +14,9 @@ The full sequence runs the scan K6 (``kernels.rglru.ops.scan``) when
 ``cfg.use_kernels``, else the log-depth ``layers.associative_scan``; decode
 is the O(1) update, written into the state in place.  The temporal conv is
 four shifted adds in the activation dtype, the last three inputs carried as
-decode state.
+decode state.  Under a mesh the block carries the reference's two tags
+(``rnn`` on the conv output and on the gated scan output) and the scan
+runs on each rank's shards (``pspec.local_call``).
 """
 from __future__ import annotations
 
@@ -26,7 +28,9 @@ from torch import nn
 
 from repro_torch.kernels.rglru.ops import scan as rglru_scan
 from repro_torch.models import layers as L
+from repro_torch.models import pspec
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.pspec import shard
 
 _C = 8.0  # Griffin's fixed gate sharpness
 
@@ -91,12 +95,23 @@ def forward(p: Recurrent, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     u = L.dense(p.wx, x)
     gate = L.activate(L.dense(p.wgate, x), "gelu")
     u, _ = _conv(p.conv, u)
+    u = shard(u, "batch", "seq", "rnn")
     a, b = _decay_and_input(p, u)
     if cfg.use_kernels:
+        if pspec.is_dtensor(a) and a.device_mesh.size() > 1:
+            raise ValueError("the kernels run on one card: a mesh runs the "
+                             "plain path (use_kernels=False)")
         h = rglru_scan(a, b)
     else:
-        _, h = L.associative_scan(a, b)
-    return L.dense(p.wo, h.to(x.dtype) * gate)
+        # the scan is per (row, channel): each rank scans its shards, where
+        # DTensor would run the log-depth recursion's strided slices op by
+        # op
+        place = pspec.even_placements(a, a.placements) \
+            if pspec.is_dtensor(a) else ()
+        h = pspec.local_call(lambda a, b: L.associative_scan(a, b)[1],
+                             (a, b), place)
+    h = shard(h.to(x.dtype) * gate, "batch", "seq", "rnn")
+    return L.dense(p.wo, h)
 
 
 def init_state(cfg: ModelConfig, batch: int, *, device=None) -> dict:

@@ -29,6 +29,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import recurrent as REC
 from repro_torch.models import xlstm as XL
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.pspec import is_dtensor, shard, vocab_pick
 
 
 class FFN(nn.Module):
@@ -134,7 +135,10 @@ def _attn_ffn(p: Block, cfg: ModelConfig, x: torch.Tensor,
 def _block_forward(p: Block, cfg: ModelConfig, kind: str, x: torch.Tensor,
                    rot) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One full-sequence layer; ``rot``: the RoPE tables of attention.
-    Returns (x, the MoE aux loss or None)."""
+    Returns (x, the MoE aux loss or None).  Under a mesh the block takes
+    its input whole over the sequence (the boundary's ``act_seq`` split is
+    gathered on entry, as the reference's blocks gather it)."""
+    x = shard(x, "batch", "seq", None)
     h = L.apply_norm(p.ln1, x, cfg.norm)
     if kind in ("attn", "local"):
         x = x + ATT.forward(p.attn, cfg, h, local=(kind == "local"), rot=rot)
@@ -191,8 +195,14 @@ def embed_inputs(params: Transformer, cfg: ModelConfig, *,
         parts.append(L.dense(params.frontend,
                              features.to(cfg.activation_dtype)))
     if tokens is not None:
-        parts.append(params.embed[tokens.long()].to(cfg.activation_dtype))
-    return parts[0] if len(parts) == 1 else torch.cat(parts, 1)
+        if is_dtensor(params.embed):
+            emb = vocab_pick(params.embed, tokens, 0, lambda t, i, inside:
+                             t[i] * inside[..., None].to(t.dtype))
+        else:
+            emb = params.embed[tokens.long()]
+        parts.append(emb.to(cfg.activation_dtype))
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, 1)
+    return shard(x, "batch", "act_seq", None)
 
 
 def _rotary(cfg: ModelConfig, positions: torch.Tensor):
@@ -230,6 +240,8 @@ def forward_hidden(params: Transformer, cfg: ModelConfig, x: torch.Tensor
     def group(g, x, aux):
         for i, kind in enumerate(cfg.block_pattern):
             x, aux = block(params.layers[g * n_pat + i], kind, x, aux)
+            # seq-shard the saved boundary activation (Megatron-SP)
+            x = shard(x, "batch", "act_seq", None)
         return x, aux
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -246,7 +258,9 @@ def forward_hidden(params: Transformer, cfg: ModelConfig, x: torch.Tensor
 
 def logits_fn(params: Transformer, cfg: ModelConfig,
               x: torch.Tensor) -> torch.Tensor:
-    """Final norm and head; the vocabulary's padding columns are -1e30."""
+    """Final norm and head; the vocabulary's padding columns are -1e30.
+    Under a mesh the head takes x whole over the sequence."""
+    x = shard(x, "batch", "seq", None)
     x = L.apply_norm(params.ln_f, x, cfg.norm)
     if cfg.tie_embeddings:
         logits = x @ params.embed.to(x.dtype).T
@@ -255,7 +269,7 @@ def logits_fn(params: Transformer, cfg: ModelConfig,
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, L.NEG_INF)
-    return logits
+    return shard(logits, "batch", "seq", "vocab")
 
 
 def loss_fn(params: Transformer, cfg: ModelConfig, batch: dict

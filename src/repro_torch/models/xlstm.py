@@ -17,6 +17,18 @@ place; :func:`mlstm_sequential` is the step-by-step oracle.
 sLSTM, scalar memory with exponential gating and a normalizer: its gates
 read h_{t-1}, so the sequence is a Python loop over time (the reference's
 ``lax.scan``), after one f32 input projection for the whole sequence.
+
+Under a mesh the blocks carry the reference's tags: the mLSTM's head
+features ``dh`` carry the tensor-parallel axis (``mlstm_dh``) on the
+value side, q and k stay whole over it; the sLSTM's four gate inputs are
+split and each taken on ``rnn``.  Both recurrences run on each rank's
+shards (``pspec.local_call``): the mLSTM's chunkwise recurrence splits
+exactly over the value dim (the state C is (key dh, value dh/ranks) on a
+rank, the normalizer reads only q and k), and the sLSTM's cell is
+elementwise over its channels, so a rank runs the loop over its own;
+DTensor would dispatch every step's ops one by one.  The reference's tags
+inside its chunk scan (v, C, h and the initial C, all on ``mlstm_dh``) and
+on the cell's c and h (``rnn``) are these regions' placements.
 """
 from __future__ import annotations
 
@@ -28,7 +40,9 @@ from torch import nn
 
 from repro_torch.kernels.mlstm_chunk import ops as ML
 from repro_torch.models import layers as L
+from repro_torch.models import pspec
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.pspec import shard
 from repro_torch.models.recurrent import _conv
 
 
@@ -73,10 +87,24 @@ def _mlstm_qkvif(p: MLSTM, cfg: ModelConfig, x: torch.Tensor):
     gate = F.silu(L.dense(p.up_gate, x))
     dh = u.shape[-1] // H
     uh = u.reshape(B, S, H, dh)
+    uh = shard(uh, "batch", "seq", None, "mlstm_dh")
     q = torch.einsum("bshd,hde->bshe", uh, p.wq.to(x.dtype))
     k = torch.einsum("bshd,hde->bshe", uh, p.wk.to(x.dtype)) / math.sqrt(dh)
     v = torch.einsum("bshd,hde->bshe", uh, p.wv.to(x.dtype))
+    q = shard(q, "batch", "seq", None, None)        # whole dh
+    k = shard(k, "batch", "seq", None, None)
+    v = shard(v, "batch", "seq", None, "mlstm_dh")  # split value dim
     gates = L.dense(p.wif, x).float()                  # (B, S, 2H)
+    if pspec.is_dtensor(gates):
+        # DTensor has no rule for logsigmoid's backward: each rank takes
+        # its rows of the gates, whole over the 2H gate columns
+        from torch.distributed.tensor import Replicate, Shard
+        gates = pspec.settled(gates)
+        place = tuple(pl if pl == Shard(0) else Replicate() for pl in
+                      pspec.even_placements(gates, gates.placements))
+        return (q, k, v, *pspec.local_call(
+            lambda g: (F.logsigmoid(g[..., :H]), F.logsigmoid(g[..., H:])),
+            (gates,), place, n_out=2), gate)
     li = F.logsigmoid(gates[..., :H])                  # log i_t (<= 0)
     lf = F.logsigmoid(gates[..., H:])                  # log f_t (<= 0)
     return q, k, v, li, lf, gate
@@ -88,6 +116,7 @@ def _mlstm_out(p: MLSTM, x: torch.Tensor, h: torch.Tensor,
     B, S, H, dh = h.shape
     h = L.apply_norm(p.ln_heads, h, "rmsnorm").to(x.dtype)
     h = h * gate.reshape(B, S, H, dh)
+    h = shard(h, "batch", "seq", None, "mlstm_dh")
     return torch.einsum("bshd,hde->bse", h, p.down.w.to(x.dtype))
 
 
@@ -96,9 +125,32 @@ def mlstm_forward(p: MLSTM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     (B, H, S, dh) views of the projections; the chunk is the reference's
     (``ops.chunk_size``)."""
     q, k, v, li, lf, gate = _mlstm_qkvif(p, cfg, x)
-    mlstm = ML.chunked_mlstm if cfg.use_kernels else ML.chunked_mlstm_ref
-    h = mlstm(q, k, v, li, lf, chunk=cfg.chunk_size)
+    if cfg.use_kernels:
+        if pspec.is_dtensor(q) and q.device_mesh.size() > 1:
+            raise ValueError("the kernels run on one card: a mesh runs the "
+                             "plain path (use_kernels=False)")
+        h = ML.chunked_mlstm(q, k, v, li, lf, chunk=cfg.chunk_size)
+    else:
+        def chunks(q, k, v, li, lf):
+            return ML.chunked_mlstm_ref(q, k, v, li, lf, chunk=cfg.chunk_size)
+        h = pspec.local_call(chunks, (q, k, v, li, lf),
+                             *_mlstm_placements(v))
     return _mlstm_out(p, x, h, gate)
+
+
+def _mlstm_placements(v) -> tuple:
+    """(per-argument placements of q, k, v, li, lf; h's) for the chunk
+    recurrence's local region: every input keeps v's batch split, v and
+    h also its value-dim split; () without a mesh."""
+    if not pspec.is_dtensor(v):
+        return ((),)
+    from torch.distributed.tensor import Replicate, Shard
+    pv = pspec.even_placements(v, v.placements)
+    pv = tuple(p if isinstance(p, Shard) and p.dim in (0, 3) else Replicate()
+               for p in pv)
+    whole = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                  for p in pv)
+    return [whole, whole, pv, whole, whole], pv
 
 
 def mlstm_init_state(cfg: ModelConfig, batch: int, *, device=None) -> dict:
@@ -216,19 +268,51 @@ def _slstm_cell(r: torch.Tensor, gates: torch.Tensor, state: tuple):
     return c, n, h, m_new
 
 
-def slstm_forward(p: SLSTM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """Sequential full-sequence sLSTM.  x: (B, S, d)."""
-    B, S, d = x.shape
-    u, _ = _conv(p.conv, x)
-    gates = _input_gates(p, u).transpose(0, 1)         # (S, B, 4, d)
-    st = slstm_init_state(cfg, B, device=x.device)
-    state = (st["c"], st["n"], st["h"], st["m"])
-    r = p.r.float()
+def _slstm_loop(r: torch.Tensor, gates: torch.Tensor, state: tuple
+                ) -> torch.Tensor:
+    """The cell over the sequence: ``gates`` (S, B, 4, w) time-major, ``r``
+    (4, w) f32, ``state`` (c, n, h, m) -> the hidden states (B, S, w) f32."""
     hs = []     # each step's h, stacked once (autograd records no out= write)
-    for t in range(S):
+    for t in range(gates.shape[0]):
         state = _slstm_cell(r, gates[t], state)
         hs.append(state[2])
-    return torch.stack(hs, 1).to(x.dtype)
+    return torch.stack(hs, 1)
+
+
+def _slstm_scan(gates: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """:func:`_slstm_loop` from the zero state (m = -10) on gates (B, S, 4,
+    w) of any width w: one rank's channels under a mesh."""
+    B, _, _, w = gates.shape
+
+    def z():
+        return torch.zeros((B, w), dtype=torch.float32, device=gates.device)
+    return _slstm_loop(r.float(), gates.transpose(0, 1),
+                       (z(), z(), z(), z() - 10.0))
+
+
+def slstm_forward(p: SLSTM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Sequential full-sequence sLSTM.  x: (B, S, d)."""
+    B, _, d = x.shape
+    u, _ = _conv(p.conv, x)
+    if not pspec.is_dtensor(u):
+        gates = _input_gates(p, u).transpose(0, 1)     # (S, B, 4, d)
+        st = slstm_init_state(cfg, B, device=x.device)
+        state = (st["c"], st["n"], st["h"], st["m"])
+        return _slstm_loop(p.r.float(), gates, state).to(x.dtype)
+    # the four gate inputs split and each taken on "rnn" (a slice of the
+    # rnn-split (B, S, 4d) projection inside the loop would gather every
+    # step), then the loop on each rank's channels
+    from torch.distributed.tensor import Replicate, Shard
+    g = u.float() @ p.w.w.float() + p.b.float()
+    gates = torch.stack([shard(g[..., j * d:(j + 1) * d], "batch", "seq",
+                               "rnn") for j in range(4)], 2)
+    pg = tuple(pl if isinstance(pl, Shard) and pl.dim in (0, 3)
+               else Replicate()
+               for pl in pspec.even_placements(gates, gates.placements))
+    pr = tuple(Shard(1) if pl == Shard(3) else Replicate() for pl in pg)
+    ph = tuple(Shard(2) if pl == Shard(3) else pl for pl in pg)
+    h = pspec.local_call(_slstm_scan, (gates, p.r), [pg, pr], ph)
+    return h.to(x.dtype)
 
 
 def slstm_decode_step(p: SLSTM, cfg: ModelConfig, x: torch.Tensor,

@@ -66,6 +66,17 @@ module take the callable's ``__name__``.
 A kernel wrapper reached under capture raises (``compat.check_real``):
 the phases of :mod:`repro_torch.workload.steps` run with
 ``use_kernels=False``.
+
+On a mesh (a step whose tensors are DTensors, ``launch/dryrun.py``) the
+recorder sits beneath DTensor: an op on DTensors passes through to
+DTensor's dispatch, which runs it on this rank's shards, and those local
+ops are recorded at their local shapes.  The collectives DTensor issues
+(``_c10d_functional``) are charged by ``core/hlo.py``'s rules
+(``_collective_from``): all-gather, reduce-scatter, all-reduce and
+all-to-all, the group size from the op's group, operand and wire bytes
+from the result; ``wait_tensor`` is free.  DTensor's own shape
+propagation (global-shape fakes, on a cache miss) is not recorded.
+Captures with no DTensor are unchanged.
 """
 from __future__ import annotations
 
@@ -79,6 +90,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode, is_fake
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_map
 
+from repro_torch.core.hlo import _collective_from
 from repro_torch.workload.walker import OpRecord
 
 __all__ = ["walk_callable"]
@@ -108,6 +120,16 @@ _REDUCE = {"sum", "mean", "amax", "amin", "max", "min", "prod", "var", "std",
 _TRANSCENDENTAL = {"exp", "log", "tanh", "pow", "sigmoid", "expm1", "log1p",
                    "erf", "silu", "gelu", "silu_backward", "gelu_backward",
                    "_softmax", "_log_softmax"}
+
+#: ``_c10d_functional`` collectives: (HLO kind, the group argument's index)
+_COLLECTIVES = {"all_gather_into_tensor": ("all-gather", 2),
+                "reduce_scatter_tensor": ("reduce-scatter", 3),
+                "all_reduce": ("all-reduce", 2),
+                "all_to_all_single": ("all-to-all", 3),
+                "broadcast": ("collective-broadcast", 2)}
+_FREE_COLLECTIVE = {"wait_tensor"}
+#: DTensor's sharding propagation: its fakes at global shapes.
+_SHARDING_PROP = os.path.join("distributed", "tensor", "_sharding_prop.py")
 
 #: Frames of the autograd engine: the backward's Python stack ends here.
 _AUTOGRAD_DIR = os.path.dirname(torch.autograd.__file__) + os.sep
@@ -180,10 +202,15 @@ def _charge(name: str, func, args, kwargs, outs: list[torch.Tensor]
 class _Recorder(TorchDispatchMode):
     """One :class:`OpRecord` per ATen op, scoped by the module stack."""
 
-    def __init__(self, names: dict[int, str], root: str):
+    def __init__(self, names: dict[int, str], root: str,
+                 beneath_dtensor: bool = False):
         super().__init__()
         self.names = names
         self.root = root
+        self.beneath_dtensor = beneath_dtensor
+        if beneath_dtensor:
+            from torch.distributed.tensor import DTensor
+            self._dtensor = DTensor
         self.records: list[OpRecord] = []
         self._pending: list[tuple[list[torch.Tensor], str]] = []
         self._last_backward = root
@@ -216,12 +243,46 @@ class _Recorder(TorchDispatchMode):
                 if node is not None and _SCOPE_KEY not in node.metadata:
                     node.metadata[_SCOPE_KEY] = scope
 
+    def _in_sharding_prop(self) -> bool:
+        frame = sys._getframe(2)
+        while frame is not None:
+            if frame.f_code.co_filename.endswith(_SHARDING_PROP):
+                return True
+            frame = frame.f_back
+        return False
+
+    def _collective(self, name: str, args, outs) -> None:
+        kind, at = _COLLECTIVES[name]
+        from torch.distributed.distributed_c10d import _resolve_process_group
+        g = _resolve_process_group(args[at]).size()
+        operand, wire = _collective_from(kind, sum(map(_nbytes, outs)), g)
+        scope = self._frame_scope(
+            in_backward=torch._C._current_autograd_node() is not None) \
+            or self.root
+        self.records.append(OpRecord(
+            path=f"{scope}/{kind}.{len(self.records)}", opcode=kind,
+            op_class="collective", scope=scope, trips=1.0, flops=0.0,
+            bytes_by_class={}, collective_operand_bytes=operand,
+            collective_wire_bytes=wire, n_collectives=1.0))
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if self.beneath_dtensor and any(issubclass(t, self._dtensor)
+                                        for t in types):
+            return NotImplemented       # DTensor runs it on local shards
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         outs = _tensors(out)
         if not outs:        # metadata queries (a fake tensor's device, ...)
             return out
+        if self.beneath_dtensor:
+            ns = func.namespace
+            name = func.overloadpacket.__name__
+            if ns == "_c10d_functional":
+                if name in _COLLECTIVES:
+                    self._collective(name, args, outs)
+                return out
+            if self._in_sharding_prop():
+                return out
         if self._pending:
             self._tag_pending()
         name = func.overloadpacket.__name__
@@ -264,12 +325,25 @@ def _module_names(modules, root: str) -> dict[int, str]:
     return names
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard; any other tensor itself."""
+    return getattr(t, "_local_tensor", t)
+
+
+def _has_dtensor(leaves) -> bool:
+    if "torch.distributed.tensor" not in sys.modules:
+        return False
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(t, DTensor) for t in leaves)
+
+
 def walk_callable(fn, *args) -> list[OpRecord]:
     """Per-op records of one call of ``fn(*args)``, captured under
     ``FakeTensorMode``: no parameter or activation is allocated and no
     kernel is launched.
 
-    ``args`` may hold fake tensors (a phase of
+    ``args`` may hold DTensors on a mesh (recorded per rank, beneath
+    DTensor, with their collectives), fake tensors (a phase of
     :mod:`repro_torch.workload.steps` builds its model and inputs in a
     fake mode, which the capture joins), real tensors (read as fakes of
     their shapes, dtypes and devices), modules (whose module paths scope
@@ -277,13 +351,14 @@ def walk_callable(fn, *args) -> list[OpRecord]:
     """
     modules = [a for a in args if isinstance(a, nn.Module)]
     leaves = _tensors(args) + [p for m in modules for p in m.parameters()]
-    mode = next((t.fake_mode for t in leaves if is_fake(t)), None) \
-        or fake_mode()
+    mode = next((_local(t).fake_mode for t in leaves
+                 if is_fake(_local(t))), None) or fake_mode()
     fake_args = tree_map(
         lambda t: t if not isinstance(t, torch.Tensor) or is_fake(t)
         else mode.from_tensor(t), args)
     root = getattr(fn, "__name__", "step")
-    recorder = _Recorder(_module_names(modules, root), root)
+    recorder = _Recorder(_module_names(modules, root), root,
+                         beneath_dtensor=_has_dtensor(leaves))
     with mode, recorder:
         fn(*fake_args)
     return recorder.records

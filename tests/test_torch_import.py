@@ -75,6 +75,31 @@ def test_whole_model_estimation_loads_neither_jax_nor_repro():
     assert out.stdout.strip() == "[]"
 
 
+def test_mesh_layer_loads_neither_jax_nor_repro():
+    """The mesh modules, a dry-run cell on a fake 4x2 mesh and
+    ``Session.autotune`` over it stay clear of both."""
+    out = _run("import sys, repro_torch.launch.mesh, "
+               "repro_torch.launch.sharding, repro_torch.launch.dryrun as DR, "
+               "repro_torch.models.pspec, repro_torch.runtime.elastic, "
+               "repro_torch.core.autotune\n"
+               "from repro_torch import Session\n"
+               "from repro_torch.configs import ARCHS, reduced_config\n"
+               "from repro_torch.configs.shapes import ShapeSpec\n"
+               "cfg = reduced_config(ARCHS['qwen2-7b'])\n"
+               "shape = ShapeSpec('d', 16, 8, 'decode')\n"
+               "layout = ((4, 2), ('data', 'model'))\n"
+               "rec = DR.run_cell('qwen2-7b', shape, layout=layout, cfg=cfg, "
+               "save=False)\n"
+               "assert rec['status'] == 'ok', rec\n"
+               "rep = Session(device='cpu').autotune(cfg, shape, layout, "
+               "cache=False)\n"
+               "assert len(rep) == 3, rep.rows()\n"
+               "print(sorted(m for m in sys.modules if m.split('.')[0] "
+               "in ('jax', 'jaxlib', 'repro')))")
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_training_loads_neither_jax_nor_repro(tmp_path):
     """The trainer's modules, and two CPU steps of its loop, stay clear of
     both."""
