@@ -2310,7 +2310,8 @@ def phase_train(device, wrappers: dict) -> tuple[dict, dict]:
     five, a stop and five resumed (rel 1e-4), and a checkpoint of bf16
     moments restored bit for bit.  (d) the trained model, its optimizer
     state freed, cast once and served by ``phase_model`` (K5 on prefill,
-    K4 on decode).  Returns (d)'s launch counts by part and its parts."""
+    K4 on decode).  Returns (d)'s launch counts by part, its parts, and
+    (b)'s step measured for the mesh phase's (e) (``live_bytes``)."""
     import dataclasses
     import tempfile
 
@@ -2322,8 +2323,8 @@ def phase_train(device, wrappers: dict) -> tuple[dict, dict]:
     from repro_torch.data import DataConfig, SyntheticDataset
     from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.launch import train as TRAIN
-    from repro_torch.launch.steps import (TrainConfig, batch_to_device,
-                                          build_step, make_train_step)
+    from repro_torch.launch.steps import (TrainConfig, build_step,
+                                          make_train_step)
     from repro_torch.models import transformer as TF
     from repro_torch.models.convert import load
     from repro_torch.optim.adamw import OptimizerConfig, adamw_init
@@ -2376,21 +2377,12 @@ def phase_train(device, wrappers: dict) -> tuple[dict, dict]:
     # (b) full width and depth
     t0 = time.perf_counter()
     fw = TRAIN_FULL
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), use_kernels=False)
-    tcfg = TrainConfig(optimizer=OptimizerConfig(
-        lr=fw["lr"], warmup_steps=fw["warmup_steps"],
-        total_steps=fw["steps"]))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    model = TF.init_params(cfg, seed=0, device=device)
-    opt = adamw_init(dict(model.named_parameters()), tcfg.optimizer)
+    cfg, tcfg, model, opt, batch, step = _train_full(device)
     n_params = sum(p.numel() for p in model.parameters())
     state_bytes = torch.cuda.memory_allocated()
-    batch = batch_to_device(SyntheticDataset(cfg, DataConfig(
-        seq_len=fw["seq"], batch_size=fw["batch"], seed=fw["seed"]
-    )).get_batch(0), device)
-    step = make_train_step(cfg, tcfg)
     metrics, walls = [], []
     for _ in range(fw["steps"]):
         torch.cuda.synchronize()
@@ -2404,6 +2396,9 @@ def phase_train(device, wrappers: dict) -> tuple[dict, dict]:
     check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
           f"train (b): losses {losses} not finite or not falling")
     profile = device_profile(lambda: step(model, opt, batch), top=8)
+    # the mesh phase's (e): a seventh step's peak rise against its capture
+    live = live_bytes("train", step, (model, opt, batch),
+                      lambda: _train_fakes(cfg, tcfg, batch, device))
     tokens = fw["batch"] * fw["seq"]
     layer_bf16, _ = _product_params(model)
     head = cfg.d_model * cfg.padded_vocab
@@ -2436,6 +2431,7 @@ def phase_train(device, wrappers: dict) -> tuple[dict, dict]:
         **_bound(nbytes, flops),
         "profile_step_6": profile,
         "device_share_of_step": profile["device_ms"] / med,
+        "live_bytes_step_7": live,
         "seconds": time.perf_counter() - t0}
     del opt, batch, step
     torch.cuda.empty_cache()
@@ -2500,8 +2496,8 @@ def phase_train(device, wrappers: dict) -> tuple[dict, dict]:
     emit({"phase": "train", **out})
 
     # (d) serve what was trained
-    return phase_model(device, wrappers, TRAIN_ARCH, runs=TRAIN_SERVE,
-                       model=model)
+    return (*phase_model(device, wrappers, TRAIN_ARCH, runs=TRAIN_SERVE,
+                         model=model), live)
 
 
 #: The workload phase captures the arch of the model phase's first run at
@@ -2759,6 +2755,99 @@ MESH_TRAIN_TOL = 1e-5
 #: (d) the 2x2 checkpoint restored on 4x1
 MESH_ELASTIC = ((4, 1), ("data", "model"))
 CARD_BYTES = 80e9
+#: (e) the dry-run's memory accounting against the card, on plain-path
+#: steps: the predicted rise (``total_bytes`` less the arguments: the peak
+#: of the storages the step creates) within this share of the measured
+#: one (``max_memory_allocated`` after the step less the bytes allocated
+#: before it); the train phase measures its full-width stablelm-3b step,
+#: the mesh phase the unsharded prefill of (b)
+LIVE_TOL = 0.10
+
+
+def live_bytes(label: str, step, args: tuple, fakes) -> dict:
+    """(e) for one step: ``step(*args)`` once on the card, its peak rise
+    measured, against ``capture_call(step, *fakes())`` (fake tensors of
+    the same shapes, dtypes and device: the dry-run's accounting).  A
+    warm call must precede it: cuBLAS's workspace of each thread's handle
+    is allocated at its first product and held from then on, so it lies
+    outside the rise, as it lies outside the capture."""
+    import torch
+
+    from repro_torch.workload.capture import capture_call
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    result = step(*args)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - before
+    after = torch.cuda.memory_allocated() - before
+    del result
+    t0 = time.perf_counter()
+    records, call = capture_call(step, *fakes())
+    predicted = call.total_bytes - call.argument_bytes
+    row = {"step": label, "measured_rise_bytes": rise,
+           "predicted_rise_bytes": predicted,
+           "predicted_over_measured": predicted / rise,
+           "measured_held_after_bytes": after,
+           "argument_bytes": call.argument_bytes,
+           "output_bytes": call.output_bytes,
+           "alias_bytes": call.alias_bytes, "temp_bytes": call.temp_bytes,
+           "total_bytes": call.total_bytes, "n_ops": len(records),
+           "capture_s": time.perf_counter() - t0, "tol": LIVE_TOL}
+    check(abs(predicted / rise - 1) <= LIVE_TOL,
+          f"live bytes ({label}): the capture predicts a rise of "
+          f"{predicted:.4g} bytes, the card rose {rise:.4g}")
+    return row
+
+
+def _train_fakes(cfg, tcfg, batch: dict, device):
+    """Fake arguments of the full-width train step: a model, its AdamW
+    state and the batch's shapes, as the dry-run builds them."""
+    import torch
+
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.workload.capture import fake_mode
+    with fake_mode():
+        model = TF.Transformer(cfg, device=device)
+        opt = adamw_init(dict(model.named_parameters()), tcfg.optimizer)
+        fb = {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
+              for k, v in batch.items()}
+    return model, opt, fb
+
+
+def _train_full(device):
+    """(cfg, train config, model, AdamW state, batch, step) of the train
+    phase's full-width stablelm-3b step (``TRAIN_FULL``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.launch.steps import (TrainConfig, batch_to_device,
+                                          make_train_step)
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim.adamw import OptimizerConfig, adamw_init
+
+    fw = TRAIN_FULL
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), use_kernels=False)
+    tcfg = TrainConfig(optimizer=OptimizerConfig(
+        lr=fw["lr"], warmup_steps=fw["warmup_steps"],
+        total_steps=fw["steps"]))
+    model = TF.init_params(cfg, seed=0, device=device)
+    opt = adamw_init(dict(model.named_parameters()), tcfg.optimizer)
+    batch = batch_to_device(SyntheticDataset(cfg, DataConfig(
+        seq_len=fw["seq"], batch_size=fw["batch"], seed=fw["seed"]
+    )).get_batch(0), device)
+    return cfg, tcfg, model, opt, batch, make_train_step(cfg, tcfg)
+
+
+def live_bytes_train(device) -> dict:
+    """(e)'s train step alone (``tools/mesh_phase.py``): the full-width
+    state built, one warm step, then :func:`live_bytes`."""
+    cfg, tcfg, model, opt, batch, step = _train_full(device)
+    step(model, opt, batch)
+    return live_bytes("train", step, (model, opt, batch),
+                      lambda: _train_fakes(cfg, tcfg, batch, device))
 
 
 def _mesh_dryrun(arch: str, shape_name: str, layers) -> dict:
@@ -2790,6 +2879,9 @@ def _mesh_dryrun(arch: str, shape_name: str, layers) -> dict:
     hc = DR.summarize(records)
     check(hc["flops"] > 0 and hc["n_collectives"] > 0,
           f"dry-run {arch} {shape_name}: no products or no collectives")
+    check(all(k in mem for k in DR.MEMORY_KEYS) and mem["peak_live_bytes"]
+          == mem["total_bytes"] > mem["argument_size_in_bytes"] > 0,
+          f"dry-run {arch} {shape_name}: memory_analysis {mem}")
     row = {"arch": arch, "shape": shape_name, "mesh": "16x16",
            "mesh_device": "cpu", "layers": cfg.n_layers,
            "of_layers": get_config(arch).n_layers,
@@ -2800,7 +2892,19 @@ def _mesh_dryrun(arch: str, shape_name: str, layers) -> dict:
            "collective_wire_bytes": hc["collective_wire_bytes"],
            "n_collectives": hc["n_collectives"],
            "memory": mem, "param_bytes_of_80GB": mem["param_bytes"] / CARD_BYTES,
+           "total_bytes_of_80GB": mem["total_bytes"] / CARD_BYTES,
            "plan": dataclasses.asdict(plan)}
+    if shape.kind == "decode" and cfg.n_heads:
+        # the q, k and v products: each rank its share of their columns,
+        # so the ranks' shares add up to the whole products once
+        qkv = sum(r.flops for r in records if r.op_class == "matmul"
+                  and r.scope.rsplit(".", 1)[-1] in ("wq", "wk", "wv"))
+        whole = 2.0 * shape.global_batch * cfg.d_model * cfg.n_layers * (
+            cfg.q_dim + 2 * cfg.kv_dim)
+        row["qkv_products_ranks_over_whole"] = qkv * 256 / whole
+        check(abs(qkv * 256 / whole - 1) < 1e-9,
+              f"dry-run {arch}: the ranks' q, k and v products add up to "
+              f"{qkv * 256 / whole:.4g} of the whole")
     if layers:
         one = [r for r in records if r.scope.startswith("layers.1.")
                or r.scope == "layers.1"]
@@ -2833,7 +2937,7 @@ def _mesh_param_bytes(params, cfg, plan, mesh) -> tuple[int, int]:
     return held, want
 
 
-def phase_mesh(device, wrappers: dict) -> dict:
+def phase_mesh(device, wrappers: dict, live_train: dict) -> dict:
     """The mesh layer (``repro_torch.launch.mesh``, ``sharding``,
     ``dryrun``, ``models.pspec``, ``runtime.elastic``, ``Session.autotune``):
     (a) the dry-run of ``MESH_DRYRUN`` on a fake 256-rank group (rank 0
@@ -2848,8 +2952,11 @@ def phase_mesh(device, wrappers: dict) -> dict:
     .autotune`` on (a)'s qwen2-7b cell: kv-heads a ``TrialFailure`` (4 kv
     heads over 16), the ranking, and a second call served from the cache;
     (d) (b)'s 2x2 train state checkpointed and resumed on 4x1 through
-    ``resume_on_mesh``, bit for bit.  The mesh path is the plain path: no
-    kernel launches, which the phase checks."""
+    ``resume_on_mesh``, bit for bit; (e) the dry-run's memory accounting
+    on the card (``live_bytes``): (b)'s unsharded prefill here, beside the
+    train phase's full-width step (``live_train``), each captured peak
+    rise within ``LIVE_TOL`` of the measured one.  The mesh path is the
+    plain path: no kernel launches, which the phase checks."""
     import dataclasses
     import tempfile
 
@@ -2970,6 +3077,24 @@ def phase_mesh(device, wrappers: dict) -> dict:
               f"the plan gives {want}")
     steps_row["param_bytes_by_rank"] = [r["param_bytes"][0] for r in ranks]
     out["steps"] = steps_row
+
+    # (e) the dry-run's memory accounting against the card: the unsharded
+    # prefill of (b) here, the train phase's full-width step there
+    built = ST.build_step(cfg, pshape, device=device)
+    params = to_serving(TF.init_params(cfg, seed=0, device=device))
+    batch = {"tokens": prompt.to(device)}
+    built.fn(params, batch)                 # warm
+
+    def prefill_fakes():
+        from repro_torch.workload.capture import fake_mode
+        with fake_mode():
+            return (to_serving(TF.Transformer(cfg, device=device)),
+                    {"tokens": torch.zeros(prompt.shape, dtype=prompt.dtype,
+                                           device=device)})
+    live = {"prefill": live_bytes("prefill", built.fn, (params, batch),
+                                  prefill_fakes)}
+    del params, built, batch
+    out["live_bytes"] = {**live, "train": live_train}
 
     # (b) the train step, and (d) its state resumed on 4x1
     tcfg32 = dataclasses.replace(reduced_config(get_config("stablelm-3b")),
@@ -3272,7 +3397,8 @@ def main() -> int:
             for name in wrappers}
     # Training: its steps launch no kernel; the trained model is served
     # through K5 and K4 like the model paths.
-    by_part[f"trained/{TRAIN_ARCH}"], _ = phase_train(device, wrappers)
+    by_part[f"trained/{TRAIN_ARCH}"], _, live_train = phase_train(device,
+                                                                  wrappers)
     launches[f"trained_model_path/{TRAIN_ARCH}"] = {
         name: sum(part[name] for part in
                   by_part[f"trained/{TRAIN_ARCH}"].values())
@@ -3288,7 +3414,7 @@ def main() -> int:
     phase_predict(device)
 
     # The mesh layer runs the plain path: no kernel launches.
-    phase_mesh(device, wrappers)
+    phase_mesh(device, wrappers, live_train)
 
     kernels = phase_kernels(device, card, launches, card_err)
     emit({"kernels": kernels})

@@ -55,6 +55,9 @@ class TrialResult:
     candidate: Candidate
     prediction: _pred.StepPrediction
     compile_s: float           # the capture's seconds
+    #: the rank's argument + output + temp - alias bytes (the dry-run's
+    #: ``memory_analysis["total_bytes"]``: the eager peak), as the
+    #: reference's compiled ``memory_analysis`` totals them
     memory_bytes: float | None
     cached: bool = False
 

@@ -12,21 +12,43 @@ and a ``FakeTensorMode`` (no tensor is allocated, nothing is launched):
     mesh    = make_production_mesh(multi_pod=...)      16x16 or 2x16x16
     built   = build_step(cfg, shape, tcfg, mesh=mesh)  the sharded step
     params, state, batch, caches placed by the plan    DTensors
-    records = walk_callable(built.fn, ...)             rank 0's local ops
-                                                       and collectives
+    records = capture_call(built.fn, ...)              rank 0's local ops,
+                                                       collectives, memory
 
 and the records give the reference's record keys: ``hlo_flops_per_chip``,
 ``hlo_bytes_per_chip``, ``bytes_by_class``, ``collective_*`` and
 ``n_collectives`` (charged by ``core/hlo_counter``'s rules,
-``workload/capture.py``).  ``memory_analysis`` holds the rank's
-parameter, optimizer-state, batch and cache bytes (its shards of the
-placed trees); ``peak_live_bytes`` is None: fake tensors have no
-allocator, and the capture does not follow tensor lifetimes.  There is no
-HLO, so no archive is written.
+``workload/capture.py``).  ``memory_analysis`` has the reference's keys
+(``hlo.memory_analysis_stats``), from the storages the capture follows
+(``workload.capture.capture_call``), at the rank's local shapes:
+
+    argument_size_in_bytes  everything the step takes (parameters,
+                            optimizer state, batch; on decode the tokens,
+                            the caches and the int32 position)
+    output_size_in_bytes    everything it returns
+    alias_size_in_bytes     what it returns that it took and updated in
+                            place (parameters and optimizer state on
+                            train, caches on decode: the reference's
+                            donated buffers)
+    temp_size_in_bytes      the peak of the live storages the step
+                            created, less the outputs it created
+    total_bytes             argument + output + temp - alias: the eager
+                            peak; ``peak_live_bytes`` is the same number
+    generated_code_size_in_bytes, host_*   0 (no compiled code, nothing
+                            held on the host)
+
+beside the rank's bytes of each input tree (``param_bytes``,
+``opt_bytes``, ``batch_bytes``, ``cache_bytes``).  The temporaries are
+eager execution's, each op's result materialized, where the reference's
+are XLA's buffer assignment of its fused program.  There is no HLO, so
+no archive is written.
 
 The mesh is a CPU mesh by default (``--device-type``): on it DTensor
-runs an all-to-all as an all-gather and a chunk, so such a redistribution
-is charged as an all-gather; the record names the mesh's device type.
+runs an all-to-all as an all-gather and a chunk, which the capture
+records as the all-to-all it stands for; the record names the mesh's
+device type.  The mesh's consecutive dims are flattened
+(``launch.mesh.init_mesh``), so a reduction over several of them is one
+collective, as the reference's.
 
 Results are cached as JSON under ``results/dryrun_torch/``.
 
@@ -55,7 +77,7 @@ from repro_torch.launch.mesh import (MULTI_POD, MULTI_POD_AXES, POD, POD_AXES,
 from repro_torch.launch.steps import TrainConfig, build_step
 from repro_torch.models import transformer as TF
 from repro_torch.optim.adamw import OptimizerConfig, adamw_init
-from repro_torch.workload.capture import fake_mode, walk_callable
+from repro_torch.workload.capture import capture_call, fake_mode
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "results", "dryrun_torch")
@@ -100,48 +122,76 @@ def summarize(records) -> dict:
     return out
 
 
+#: ``memory_analysis``'s keys of the reference (``hlo.memory_analysis_stats``
+#: of a compiled program)
+MEMORY_KEYS = ("argument_size_in_bytes", "output_size_in_bytes",
+               "temp_size_in_bytes", "alias_size_in_bytes",
+               "generated_code_size_in_bytes", "host_argument_size_in_bytes",
+               "host_output_size_in_bytes", "host_temp_size_in_bytes",
+               "total_bytes")
+
+
+def memory_analysis(call, trees: dict) -> dict:
+    """The reference's ``memory_analysis`` keys from a captured call
+    (``workload.capture.CallMemory``; an eager step runs no generated code
+    and holds nothing on the host: those keys are 0), beside the rank's
+    bytes of each input tree (``param_bytes``, ``opt_bytes``,
+    ``batch_bytes``, ``cache_bytes``).  ``peak_live_bytes`` is the eager
+    peak, the arguments and the peak of what the call created:
+    ``total_bytes``."""
+    got = {"argument_size_in_bytes": call.argument_bytes,
+           "output_size_in_bytes": call.output_bytes,
+           "temp_size_in_bytes": call.temp_bytes,
+           "alias_size_in_bytes": call.alias_bytes,
+           "total_bytes": call.total_bytes}
+    mem = {k: float(SH.local_bytes(v)) for k, v in trees.items()}
+    mem.update({k: got.get(k, 0.0) for k in MEMORY_KEYS})
+    mem["peak_live_bytes"] = call.total_bytes
+    return mem
+
+
 def capture_step(cfg, shape: ShapeSpec, tcfg: TrainConfig, mesh,
                  device="cpu") -> tuple[list, dict]:
     """(records, memory) of one rank of the sharded step of (cfg, shape)
-    on ``mesh``, captured under a fake mode: the step's parameters,
-    optimizer state, batch and caches are placed by the plan, then the
-    step runs once.  ``memory`` holds the rank's bytes of each."""
+    on ``mesh`` (None: the step on one device), captured under a fake
+    mode: the step's parameters, optimizer state, batch and caches are
+    placed by the plan, then the step runs once.  ``memory`` is
+    :func:`memory_analysis` of the call."""
     cfg = dataclasses.replace(cfg, use_kernels=False)
     built = build_step(cfg, shape, tcfg, mesh=mesh, device=device)
     plan = built.plan
+
+    def placed(tree, place):
+        return tree if mesh is None else place(tree, plan, mesh)
     with fake_mode():
         params = TF.Transformer(cfg, device=device)
-        ST.place_params(params, cfg, plan, mesh)
-        mem = {"param_bytes": SH.local_bytes(dict(params.named_parameters()))}
+        if mesh is not None:
+            ST.place_params(params, cfg, plan, mesh)
+        trees = {"param_bytes": dict(params.named_parameters())}
         if shape.kind == "train":
-            opt = ST.place_opt_state(
-                adamw_init(dict(params.named_parameters()), tcfg.optimizer),
-                params, cfg, plan, mesh)
-            batch = ST.place_batch(_fake_tree(built.args[2], device),
-                                   plan, mesh)
-            mem["opt_bytes"] = SH.local_bytes(opt)
-            mem["batch_bytes"] = SH.local_bytes(batch)
+            opt = adamw_init(dict(params.named_parameters()), tcfg.optimizer)
+            if mesh is not None:
+                opt = ST.place_opt_state(opt, params, cfg, plan, mesh)
+            batch = placed(_fake_tree(built.args[2], device), ST.place_batch)
+            trees.update(opt_bytes=opt, batch_bytes=batch)
             args = (params, opt, batch)
         elif shape.kind == "prefill":
-            batch = ST.place_batch(_fake_tree(built.args[1], device),
-                                   plan, mesh)
-            mem["batch_bytes"] = SH.local_bytes(batch)
+            batch = placed(_fake_tree(built.args[1], device), ST.place_batch)
+            trees["batch_bytes"] = batch
             args = (params, batch)
         else:
-            caches = ST.place_caches(_fake_tree(built.args[2], device),
-                                     plan, mesh)
-            tokens = ST.place_batch({"t": torch.zeros(
-                tuple(built.args[1].shape), dtype=torch.int32,
-                device=device)}, plan, mesh)["t"]
-            index = torch.full((1,), shape.seq_len - 1, dtype=torch.int64,
+            caches = placed(_fake_tree(built.args[2], device),
+                            ST.place_caches)
+            tokens = placed({"t": _fake_tree(built.args[1], device)},
+                            ST.place_batch)["t"]
+            # the position, as the reference takes it: an int32 scalar
+            index = torch.full((), shape.seq_len - 1, dtype=torch.int32,
                                device=device)
-            mem["cache_bytes"] = SH.local_bytes(caches)
+            trees.update(cache_bytes=caches, batch_bytes={"tokens": tokens,
+                                                          "index": index})
             args = (params, tokens, caches, index)
-    mem["total_bytes"] = float(sum(mem.values()))
-    mem["peak_live_bytes"] = None
-    step = built.fn
-    records = walk_callable(step, *args)
-    return records, mem
+    records, call = capture_call(built.fn, *args)
+    return records, memory_analysis(call, trees)
 
 
 def _fake_tree(tree, device):

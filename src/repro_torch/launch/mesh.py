@@ -15,6 +15,10 @@ import), over the process group in force:
   so; autograd's device threads are off while it runs, so each rank's
   backward runs on its own thread.
 
+Every mesh has its runs of consecutive dims flattened (``init_mesh``), so
+DTensor issues one collective over several dims where it would issue one
+a dim.
+
 A process group is process-global: :func:`fake_world` and
 :func:`threaded_ranks` destroy the group they make before they return.
 :func:`make_production_mesh` and :func:`make_host_mesh` leave the group
@@ -61,8 +65,16 @@ def init_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
     if world != n:
         raise RuntimeError(f"a {'x'.join(map(str, shape))} mesh needs {n} "
                            f"ranks; the process group has {world}")
-    return init_device_mesh(_device_type(device_type), shape,
+    mesh = init_device_mesh(_device_type(device_type), shape,
                             mesh_dim_names=axes)
+    # every run of two or more consecutive dims flattened, so a reduction
+    # over several dims (a replicated leaf's gradient, a partial sum over
+    # data and model) is one collective over their ranks, as the
+    # reference's, where DTensor would issue one a dim
+    for i in range(len(axes)):
+        for j in range(i + 2, len(axes) + 1):
+            mesh[tuple(axes[i:j])]._flatten()
+    return mesh
 
 
 def make_production_mesh(*, multi_pod: bool = False,

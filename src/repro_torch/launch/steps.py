@@ -17,7 +17,8 @@ mesh of more than one rank runs the plain path: ``use_kernels=True``
 raises, as the reference's dry-run keeps XLA.
 
 The train step takes its gradients with ``torch.autograd.grad`` through
-``TF.loss_fn`` on the plain path only: the kernels have no backward (the
+``TF.loss_fn`` (on a mesh each gradient reduced once to its parameter's
+placements) on the plain path only: the kernels have no backward (the
 reference's Pallas kernels have none either, and its ``jax.grad``
 through ``use_pallas=True`` raises), so ``make_train_step`` refuses a
 config with ``use_kernels=True`` and every kernel wrapper refuses a tensor
@@ -79,6 +80,17 @@ def _whole(tree):
             for k, v in tree.items()}
 
 
+def _as_param(grad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A gradient in its parameter's placements: autograd hands a mesh
+    parameter's gradient back partial over the dims its uses were split
+    on, and each later use of a partial value reduces it again (the norm,
+    the first and the second moment: three reductions of one gradient);
+    reduced once here, as the reference reduces each gradient once."""
+    if is_dtensor(grad) and tuple(grad.placements) != tuple(w.placements):
+        return grad.redistribute(w.device_mesh, w.placements)
+    return grad
+
+
 def batch_to_device(batch: dict, device) -> dict[str, torch.Tensor]:
     """A batch of numpy arrays or tensors as tensors on ``device`` (a
     DTensor, already placed, as it is)."""
@@ -120,7 +132,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
         finally:
             for w in weights:
                 w.requires_grad_(False)
-        grads = {k: torch.zeros_like(w) if g is None else g
+        grads = {k: torch.zeros_like(w) if g is None else _as_param(g, w)
                  for (k, w), g in zip(named.items(), grads)}
         with _rules(mesh, plan):
             if tcfg.grad_compression != "none":

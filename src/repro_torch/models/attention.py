@@ -16,7 +16,11 @@ each rank's shards (``pspec.local_call``): attention is independent per
 would run the blocked schedule op by op and cannot split the (Hkv, G)
 grouping of an unevenly split head dim.  Where q's and the kv heads'
 splits differ the core takes them whole on that axis (each rank there
-attends every head: the site that replicates).  Decode over a
+attends every head: the site that replicates).  Where the plan leaves
+the q, k and v weights whole over ``model`` (the kv heads do not divide
+it) each rank computes its own columns of their products
+(``_project``), as the reference's partitioner splits them, and the
+heads are gathered from them.  Decode over a
 sequence-split cache is flash-decoding: each rank attends its rows and
 the softmax states merge across the axis (``_partial_decode``).  The cache row
 is written into each rank's shard (``_write_row``: DTensor has no rule
@@ -90,6 +94,40 @@ class Attention(nn.Module):
             self.k_norm = L.Norm(cfg.head_dim, "rmsnorm", device=device)
 
 
+def _project(p: L.Dense, x: torch.Tensor) -> torch.Tensor:
+    """``L.dense(p, x)``; on a mesh, where the weight is whole over a mesh
+    dim of the ``heads`` rule on which x is whole too (the plan leaves
+    the q, k and v weights whole over ``model`` where the kv heads do not
+    divide it), its columns are split over that dim first, a local slice:
+    each rank computes its own columns of the product, as the reference's
+    partitioner splits it, where it would compute them all."""
+    w = p.w
+    if not pspec.is_dtensor(w):
+        return L.dense(p, x)
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = w.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    axes = pspec.axes_of(pspec.logical_to_spec(("heads",))[0])
+    split, ranks = [], 1
+    for a in axes:
+        i = names.index(a)
+        if w.placements[i] == Replicate() and (
+                not pspec.is_dtensor(x) or x.placements[i] == Replicate()):
+            split.append(i)
+            ranks *= mesh.size(i)
+    if not split or w.shape[1] % ranks:
+        return L.dense(p, x)
+
+    def cut(t, dim):
+        return t.redistribute(mesh, tuple(
+            Shard(dim) if i in split else pl
+            for i, pl in enumerate(t.placements)))
+    y = x @ cut(w, 1).to(x.dtype)
+    if p.b is not None:
+        y = y + cut(p.b, 0).to(x.dtype)
+    return y
+
+
 def _heads(y: torch.Tensor, n: int, d: int) -> torch.Tensor:
     """(B, S, n*d) -> (B, S, n, d) of a DTensor.  One split on its last
     dim into chunks that are not whole heads (28 heads over 16 ranks: 224
@@ -106,8 +144,9 @@ def _heads(y: torch.Tensor, n: int, d: int) -> torch.Tensor:
             Replicate() if p == last else p for p in y.placements))
     # each rank cuts its own columns (DTensor's view rules would meet the
     # gradient's split in the backward)
+    y = pspec.settled(y)
     return pspec.local_call(lambda t: t.unflatten(-1, (-1, d)), (y,),
-                            tuple(pspec.settled(y).placements))
+                            tuple(y.placements))
 
 
 def _merge_heads(out: torch.Tensor) -> torch.Tensor:
@@ -131,13 +170,14 @@ def _qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor, rot):
     positions, where the reference takes the positions).  The tags and
     the head split of a DTensor are taken only under a mesh: one card's
     decode step is host-bound, and runs no helper it does not need."""
-    q, k, v = L.dense(p.wq, x), L.dense(p.wk, x), L.dense(p.wv, x)
-    on_mesh = pspec.is_dtensor(q)
+    on_mesh = pspec.is_dtensor(x) or pspec.is_dtensor(p.wq.w)
     if on_mesh:
+        q, k, v = _project(p.wq, x), _project(p.wk, x), _project(p.wv, x)
         q = _heads(q, cfg.n_heads, cfg.head_dim)
         k = _heads(k, cfg.n_kv_heads, cfg.head_dim)
         v = _heads(v, cfg.n_kv_heads, cfg.head_dim)
     else:
+        q, k, v = L.dense(p.wq, x), L.dense(p.wk, x), L.dense(p.wv, x)
         B, S, _ = x.shape
         q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
         k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)

@@ -37,12 +37,17 @@ Under a mesh the experts' weights are DTensors split as the plan splits
 them (expert-parallel over ``experts``, or tensor-parallel inside each
 expert over ``expert_ff``) and so are the expert products: the dispatched
 rows, the hidden activations and the expert outputs carry the
-reference's tags (``experts``, ``expert_cap``, ``expert_ff``).  The
-routing, the capacity assignment and the dispatch and combine gathers run
-on every rank on the whole token set (the layer's input taken whole,
-``_whole``): DTensor has no sharding rule for the stable sort, the
-scatter and the index gathers, and these cost a few ops on (T, k) ids
-beside the products.  This is the MoE layer's replication site.
+reference's tags (``experts``, ``expert_cap``, ``expert_ff``).  DTensor
+has no sharding rule for the stable sort, the scatter and the index
+gathers, so routing and dispatch run on local tensors.  The einsum
+semantics' groups split over every rank where they divide evenly
+(``_forward_einsum_split``): each rank routes its own groups, as the
+reference's partitioner splits them, and an all-to-all hands the rows to
+the experts' ranks and back.  Otherwise (the sort semantics of a decode
+step, whose one group is every token) the routing, the capacity
+assignment and the dispatch and combine gathers run on every rank on the
+whole token set (the layer's input taken whole, ``_whole``): the MoE
+layer's replication site.
 """
 from __future__ import annotations
 
@@ -111,6 +116,8 @@ def forward(p: MoE, cfg: ModelConfig, x: torch.Tensor,
     run = forward_einsum if impl == "einsum" else forward_sort
     if not pspec.is_dtensor(x):
         return run(p, cfg, x)
+    if impl == "einsum" and _group_split(cfg, x):
+        return _forward_einsum_split(p, cfg, x)
     mesh = x.device_mesh
     out, aux = run(p, cfg, _whole(x))
     from torch.distributed.tensor import DTensor
@@ -134,13 +141,14 @@ def _whole(t: torch.Tensor) -> torch.Tensor:
         .to_local()
 
 
-def _router(p: MoE, cfg: ModelConfig, xt: torch.Tensor):
+def _router(p: MoE, cfg: ModelConfig, xt: torch.Tensor, w=None):
     """Shared routing over all experts, in f32: (probs, top-k weights
-    renormalized, top-k experts, aux).  xt: (..., d).  Ties in the top-k
-    go to the lower expert, as ``jax.lax.top_k`` gives them (a stable
-    descending sort; ``torch.topk`` promises no order)."""
+    renormalized, top-k experts, aux).  xt: (..., d); ``w`` the router's
+    weight as a local tensor (default: ``p.router.w`` whole).  Ties in the
+    top-k go to the lower expert, as ``jax.lax.top_k`` gives them (a
+    stable descending sort; ``torch.topk`` promises no order)."""
     k, E = cfg.experts_per_token, cfg.n_experts
-    logits = xt.float() @ _whole(p.router.w).float()
+    logits = xt.float() @ (_whole(p.router.w) if w is None else w).float()
     probs = torch.softmax(logits, dim=-1)
     weights, experts = probs.sort(dim=-1, descending=True, stable=True)
     weights, experts = weights[..., :k], experts[..., :k]
@@ -177,12 +185,10 @@ def _slots(p: MoE, experts, pos, live, C: int) -> torch.Tensor:
     return torch.where(held, rows, spare.reshape(g, n, k))
 
 
-def _expert_ffn(p: MoE, cfg: ModelConfig, x: torch.Tensor, slot,
-                rows: int) -> torch.Tensor:
-    """The held experts' FFN on the dispatched rows: x (N, d) and each
-    pair's ``slot`` (``_slots``, over N * k pairs) -> y (rows + 1, d) for
-    the ``rows`` of the held experts' buffer, its last row zero (where
-    the pairs not dispatched here gather)."""
+def _dispatch(x: torch.Tensor, slot, rows: int, held: int) -> torch.Tensor:
+    """The held experts' buffer (held, rows / held, d) of the dispatched
+    token rows: x (N, d) and each pair's ``slot`` (``_slots``, over N * k
+    pairs); a row no pair fills is zero."""
     N, d = x.shape
     k = slot.shape[-1]
     # src[r]: the token in buffer row r (N: none, a zero row)
@@ -191,8 +197,28 @@ def _expert_ffn(p: MoE, cfg: ModelConfig, x: torch.Tensor, slot,
     src.scatter_(0, slot.reshape(-1),
                  torch.arange(slot.numel(), device=x.device) // k)
     xpad = torch.cat([x, x.new_zeros(1, d)])
-    held = p.experts[1] - p.experts[0]
-    xe = xpad.index_select(0, src[:rows]).reshape(held, rows // held, d)
+    return xpad.index_select(0, src[:rows]).reshape(held, rows // held, d)
+
+
+def _ffn(p: MoE, cfg: ModelConfig, xe: torch.Tensor) -> torch.Tensor:
+    """The experts' FFN on their buffer (a DTensor on a mesh: split as the
+    plan splits the experts, ``experts``/``expert_cap``/``expert_ff``)."""
+    dt = xe.dtype
+    h = torch.bmm(xe, p.wi.to(dt))
+    a = torch.bmm(xe, p.wg.to(dt))
+    h = shard(L.activate(a, cfg.act) * h, "experts", "expert_cap",
+              "expert_ff")
+    return shard(torch.bmm(h, p.wo.to(dt)), "experts", "expert_cap", None)
+
+
+def _expert_ffn(p: MoE, cfg: ModelConfig, x: torch.Tensor, slot,
+                rows: int) -> torch.Tensor:
+    """The held experts' FFN on the dispatched rows: x (N, d) and each
+    pair's ``slot`` (``_slots``, over N * k pairs) -> y (rows + 1, d) for
+    the ``rows`` of the held experts' buffer, its last row zero (where
+    the pairs not dispatched here gather)."""
+    d = x.shape[1]
+    xe = _dispatch(x, slot, rows, p.experts[1] - p.experts[0])
     mesh = p.wi.device_mesh if pspec.is_dtensor(p.wi) else None
     if mesh is not None:
         # the dispatched rows enter the mesh: every rank holds them whole,
@@ -200,12 +226,7 @@ def _expert_ffn(p: MoE, cfg: ModelConfig, x: torch.Tensor, slot,
         from torch.distributed.tensor import DTensor
         xe = DTensor.from_local(xe, mesh, _replicated(mesh), run_check=False)
         xe = shard(xe, "experts", "expert_cap", None)
-    h = torch.bmm(xe, p.wi.to(x.dtype))
-    a = torch.bmm(xe, p.wg.to(x.dtype))
-    h = shard(L.activate(a, cfg.act) * h, "experts", "expert_cap",
-              "expert_ff")
-    y = shard(torch.bmm(h, p.wo.to(x.dtype)), "experts", "expert_cap", None)
-    y = _whole(y)
+    y = _whole(_ffn(p, cfg, xe))
     return torch.cat([y.reshape(rows, d), y.new_zeros(1, d)])
 
 
@@ -259,6 +280,87 @@ def forward_einsum(p: MoE, cfg: ModelConfig, x: torch.Tensor
     y = _expert_ffn(p, cfg, xg.reshape(-1, x.shape[-1]), slot, rows)
     out = (_combine_rows(y, slot).float() * w.float()[..., None]).sum(-2)
     return out.to(x.dtype).reshape(x.shape), aux
+
+
+def _group_split(cfg: ModelConfig, x: torch.Tensor) -> bool:
+    """Whether the einsum semantics' groups of ``x`` (a DTensor whose
+    batch is split or whole on each mesh dim) split evenly over every
+    rank, each batch shard holding whole groups."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    B, S, _ = x.shape
+    g, n, _ = groups(cfg, B, S, "einsum")
+    split = 1
+    for i, pl in enumerate(x.placements):
+        if pl == Shard(0):
+            split *= mesh.size(i)
+        elif pl != Replicate():
+            return False
+    return g % mesh.size() == 0 and B % split == 0 \
+        and (B // split) * S % n == 0
+
+
+def _forward_einsum_split(p: MoE, cfg: ModelConfig, x: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`forward_einsum` on a mesh with the groups split over every
+    rank, as the reference's partitioner splits them: each rank routes its
+    own groups (the capacity applies within a group, so a group's routing
+    needs none of the others), fills its groups' rows of every expert's
+    buffer, and an all-to-all over each dim that splits the experts hands
+    the rows to the ranks holding their experts (the ``experts`` and
+    ``expert_cap`` tags), and back for the combine.  The aux loss is the
+    layer's: the per-expert sums of the top choices and of the
+    probabilities add up over the ranks (a partial sum) before their
+    product.  Returns the output in x's placements."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    B, S, d = x.shape
+    k, E = cfg.experts_per_token, cfg.n_experts
+    g, n, C = groups(cfg, B, S, "einsum")
+    xp = tuple(x.placements)
+    whole = [i for i, pl in enumerate(xp) if pl == Replicate()]
+    ranks = 1
+    for i in whole:
+        ranks *= mesh.size(i)
+    coord = mesh.get_coordinate()
+    mine = 0                  # this rank's share of its batch shard's groups
+    for i in whole:
+        mine = mine * mesh.size(i) + coord[i]
+    cut = (Shard(0),) * mesh.ndim           # the groups over every rank
+    rows_cut = (Shard(1),) * mesh.ndim      # their rows of each expert
+
+    def route(xl, w_router):
+        xg = xl.reshape(-1, n, d)
+        share = xg.shape[0] // ranks
+        xg = xg[mine * share:(mine + 1) * share]
+        gl = xg.shape[0]
+        probs, weights, experts, _ = _router(p, cfg, xg, w_router)
+        pos = _positions(experts.transpose(1, 2).reshape(gl, k * n), E)
+        pos = pos.reshape(gl, k, n).transpose(1, 2)
+        keep = pos < C
+        w = (weights * keep).to(xl.dtype)
+        slot = _slots(p, experts, pos, keep & (w != 0), C)
+        rows = E * gl * C
+        xe = _dispatch(xg.reshape(-1, d), slot, rows, E)
+        first = experts[..., :1] == torch.arange(E, device=xl.device)
+        # this rank's sums as its row of a (ranks, E) tensor: a partial
+        # output would hand its gradient back divided among the ranks
+        return (xe, slot, w, first.float().sum((0, 1))[None],
+                probs.sum((0, 1))[None])
+    xe, slot, w, first, probs = pspec.local_call(
+        route, (x, p.router.w), [xp, (Replicate(),) * mesh.ndim],
+        [rows_cut, cut, cut, cut, cut])
+    y = _ffn(p, cfg, shard(xe, "experts", "expert_cap", None))
+
+    def combine(yl, sl, wl):
+        ypad = torch.cat([yl.reshape(-1, d), yl.new_zeros(1, d)])
+        out = (_combine_rows(ypad, sl).float() * wl.float()[..., None]
+               ).sum(-2)
+        return out.to(yl.dtype)
+    out = pspec.local_call(combine, (y, slot, w), [rows_cut, cut, cut], cut)
+    out = pspec.local_call(lambda t: t.reshape(-1, S, d), (out,), xp)
+    aux = E * torch.sum((first.sum(0) / (B * S)) * (probs.sum(0) / (B * S)))
+    return out, aux.redistribute(mesh, _replicated(mesh))
 
 
 def forward_sort(p: MoE, cfg: ModelConfig, x: torch.Tensor

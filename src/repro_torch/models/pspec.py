@@ -220,11 +220,12 @@ def local_call(fn, args: Sequence, place: Sequence, out_place=None, *,
     every DTensor of ``args`` is redistributed to ``place`` (one placement
     tuple for all, or a list with one entry an argument) and read
     locally; each of the ``n_out`` tensors ``fn`` returns becomes a
-    DTensor of ``out_place`` (default: ``place``), its shards even.  An
-    input whole on a mesh dim where the output is split gets a part of
-    its gradient on each rank: its gradient placement there is a partial
-    sum.  The sites that use it name why DTensor cannot run the op
-    itself; with no DTensor among ``args`` it is ``fn(*args)``."""
+    DTensor of ``out_place`` (default: ``place``; a list: one placement
+    tuple an output), its shards even.  An input whole on a mesh dim
+    where an output is split gets a part of its gradient on each rank: its
+    gradient placement there is a partial sum.  The sites that use it name
+    why DTensor cannot run the op itself; with no DTensor among ``args``
+    it is ``fn(*args)``."""
     from torch.distributed.tensor import DTensor
     first = next((a for a in args if isinstance(a, DTensor)), None)
     if first is None:
@@ -232,18 +233,24 @@ def local_call(fn, args: Sequence, place: Sequence, out_place=None, *,
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     per_arg = isinstance(place, list)
-    op = tuple(out_place if out_place is not None else place)
+    if isinstance(out_place, list):
+        outs = [tuple(o) for o in out_place]
+        n_out = len(outs)
+    else:
+        outs = [tuple(out_place if out_place is not None else place)] * n_out
+    split = [any(isinstance(o[i], Shard) for o in outs)
+             for i in range(len(outs[0]))]
     ins, grads = [], []
     for i, a in enumerate(args):
         p = tuple(place[i] if per_arg else place) \
             if isinstance(a, DTensor) else None
         ins.append(p)
         grads.append(p and tuple(
-            Partial() if isinstance(pi, Replicate) and isinstance(oi, Shard)
-            else pi for pi, oi in zip(p, op)))
+            Partial() if isinstance(pi, Replicate) and cut else pi
+            for pi, cut in zip(p, split)))
     # one output's placements are a list (a tuple holds one an output)
-    return local_map(fn, out_placements=(op,) * n_out if n_out > 1
-                     else list(op),
+    return local_map(fn, out_placements=tuple(outs) if n_out > 1
+                     else list(outs[0]),
                      in_placements=tuple(ins),
                      in_grad_placements=tuple(grads),
                      device_mesh=first.device_mesh,

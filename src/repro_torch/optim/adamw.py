@@ -101,14 +101,14 @@ def adamw_update_(grads: dict[str, torch.Tensor], state: dict,
                   decayed: Collection[str] | None = None,
                   ) -> tuple[dict, torch.Tensor]:
     """:func:`adamw_update` in place: writes the new parameters into
-    ``params``' tensors and the moments into ``state["m"]``/``state["v"]``,
-    sets ``state["step"]``, and pops each gradient from ``grads`` once it
-    has been used.  ``decayed`` names the leaves that take weight decay
+    ``params``' tensors, the moments into ``state["m"]``/``state["v"]``
+    and the new step into ``state["step"]``, and pops each gradient from
+    ``grads`` once it has been used.  ``decayed`` names the leaves that take weight decay
     (default: those of two or more dimensions, as :func:`adamw_update`).
     Returns ``(metrics, new step)``; with the default every value is the
     one :func:`adamw_update` computes, bit for bit."""
     with torch.no_grad():
-        step = state["step"] + 1
+        step = state["step"].add_(1)
         gnorm = global_norm(grads)
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
@@ -129,5 +129,4 @@ def adamw_update_(grads: dict[str, torch.Tensor], state: dict,
             p.copy_((p.to(torch.float32) - lr * delta).to(p.dtype))
             m.copy_(mf.to(dt))
             v.copy_(vf.to(dt))
-        state["step"] = step
     return {"grad_norm": gnorm, "lr": lr}, step

@@ -71,18 +71,35 @@ On a mesh (a step whose tensors are DTensors, ``launch/dryrun.py``) the
 recorder sits beneath DTensor: an op on DTensors passes through to
 DTensor's dispatch, which runs it on this rank's shards, and those local
 ops are recorded at their local shapes.  The collectives DTensor issues
-(``_c10d_functional``) are charged by ``core/hlo.py``'s rules
-(``_collective_from``): all-gather, reduce-scatter, all-reduce and
-all-to-all, the group size from the op's group, operand and wire bytes
-from the result; ``wait_tensor`` is free.  DTensor's own shape
-propagation (global-shape fakes, on a cache miss) is not recorded.
-Captures with no DTensor are unchanged.
+(``_c10d_functional``, and ``_dtensor.shard_dim_alltoall`` on a card's
+mesh) are charged by ``core/hlo.py``'s rules (``_collective_from``):
+all-gather, reduce-scatter, all-reduce and all-to-all, the group size
+from the op's group, operand and wire bytes from the result;
+``wait_tensor`` is free.  On a CPU mesh DTensor runs an all-to-all as an
+all-gather and a chunk (``shard_dim_alltoall``'s fallback): inside that
+frame the all-gather is recorded as the all-to-all it stands for, at the
+chunk's bytes, and the chunk's copy is not recorded, so both meshes
+record one all-to-all.  DTensor's own shape propagation (global-shape
+fakes, on a cache miss) is not recorded.  Captures with no DTensor are
+unchanged.
+
+:func:`capture_call` also follows memory (:class:`CallMemory`): every
+storage a recorded op creates (at local shapes on a mesh) is live from
+its birth to its last reference (a weak reference's callback: views
+share their storage and count once; autograd's saved tensors and a
+remat's recompute live as long as eager execution keeps them), and the
+peak of the live bytes over the call is kept beside the argument,
+output and alias bytes.  The frames the scopes are read from keep no
+reference to a local (Python 3.12 keeps a frame's ``f_locals`` snapshot
+until the frame is read again; the snapshot is emptied after each read).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import os
 import sys
+import weakref
 
 import torch
 from torch import nn
@@ -93,7 +110,7 @@ from torch.utils._pytree import tree_flatten, tree_map
 from repro_torch.core.hlo import _collective_from
 from repro_torch.workload.walker import OpRecord
 
-__all__ = ["walk_callable"]
+__all__ = ["walk_callable", "capture_call", "CallMemory"]
 
 _MATMUL = {"mm", "bmm", "addmm", "baddbmm"}
 _GATHER = {"embedding", "index_select", "gather", "index"}
@@ -127,9 +144,15 @@ _COLLECTIVES = {"all_gather_into_tensor": ("all-gather", 2),
                 "all_reduce": ("all-reduce", 2),
                 "all_to_all_single": ("all-to-all", 3),
                 "broadcast": ("collective-broadcast", 2)}
+#: DTensor's all-to-all on a card's mesh: (kind, the group argument's index)
+_DTENSOR_ALLTOALL = ("all-to-all", 3)
 _FREE_COLLECTIVE = {"wait_tensor"}
 #: DTensor's sharding propagation: its fakes at global shapes.
 _SHARDING_PROP = os.path.join("distributed", "tensor", "_sharding_prop.py")
+#: DTensor's all-to-all, which a CPU mesh runs as an all-gather and a chunk
+_COLLECTIVE_UTILS = os.path.join("distributed", "tensor",
+                                 "_collective_utils.py")
+_ALLTOALL = "shard_dim_alltoall"
 
 #: Frames of the autograd engine: the backward's Python stack ends here.
 _AUTOGRAD_DIR = os.path.dirname(torch.autograd.__file__) + os.sep
@@ -199,11 +222,98 @@ def _charge(name: str, func, args, kwargs, outs: list[torch.Tensor]
     return "other", "stream", reads + result, 0.0, trans
 
 
+class _LiveBytes:
+    """Bytes of the live storages a call created: each is counted from
+    the op that made it to the callback of a weak reference to it (views
+    share their storage and count once).  The arguments' storages are
+    known from the start and not counted."""
+
+    def __init__(self):
+        self.args: dict[int, torch.UntypedStorage] = {}
+        self._born: dict[int, weakref.ref] = {}
+        self.live = 0.0
+        self.peak = 0.0
+
+    def argument(self, t: torch.Tensor) -> None:
+        st = _local(t).untyped_storage()
+        self.args[id(st)] = st        # held: alive for the call anyway
+
+    def born(self, t: torch.Tensor, cap: float | None = None) -> None:
+        """Count ``t``'s storage from now if it is new (at most ``cap``
+        bytes)."""
+        st = t.untyped_storage()
+        key = id(st)
+        if key in self.args or key in self._born:
+            return
+        n = float(st.nbytes())
+        if cap is not None:
+            n = min(n, cap)
+        self._born[key] = weakref.ref(
+            st, lambda _, key=key, n=n: self._died(key, n))
+        self.live += n
+        if self.live > self.peak:
+            self.peak = self.live
+
+    def _died(self, key: int, n: float) -> None:
+        self._born.pop(key, None)
+        self.live -= n
+
+
+@dataclasses.dataclass(frozen=True)
+class CallMemory:
+    """One call's memory at local shapes, in the reference's
+    ``memory_analysis`` terms: the arguments' storages, the storages of
+    what it returns (a returned module: its parameters and buffers), the
+    part of those that are arguments (updated in place and returned: the
+    reference's donated buffers), and the peak of the live bytes of the
+    storages the call created."""
+    argument_bytes: float
+    output_bytes: float
+    alias_bytes: float
+    created_peak_bytes: float
+
+    @property
+    def temp_bytes(self) -> float:
+        """The created peak above the outputs the call created."""
+        return self.created_peak_bytes - (self.output_bytes
+                                          - self.alias_bytes)
+
+    @property
+    def total_bytes(self) -> float:
+        """argument + output + temp - alias: the arguments and the created
+        peak, the eager peak of the call."""
+        return (self.argument_bytes + self.output_bytes + self.temp_bytes
+                - self.alias_bytes)
+
+
+def _storage_bytes(tensors) -> dict[int, float]:
+    """{storage id: bytes} of ``tensors`` (DTensors by their local shard),
+    each storage once."""
+    out: dict[int, float] = {}
+    for t in tensors:
+        st = _local(t).untyped_storage()
+        out.setdefault(id(st), float(st.nbytes()))
+    return out
+
+
+def _leaf_tensors(tree) -> list[torch.Tensor]:
+    """The tensors of a tree whose leaves may be modules (their
+    parameters and buffers)."""
+    out = []
+    for leaf in tree_flatten(tree)[0]:
+        if isinstance(leaf, torch.Tensor):
+            out.append(leaf)
+        elif isinstance(leaf, nn.Module):
+            out += list(leaf.parameters()) + list(leaf.buffers())
+    return out
+
+
 class _Recorder(TorchDispatchMode):
-    """One :class:`OpRecord` per ATen op, scoped by the module stack."""
+    """One :class:`OpRecord` per ATen op, scoped by the module stack (and
+    with ``memory`` the live bytes of the storages the ops create)."""
 
     def __init__(self, names: dict[int, str], root: str,
-                 beneath_dtensor: bool = False):
+                 beneath_dtensor: bool = False, memory: bool = False):
         super().__init__()
         self.names = names
         self.root = root
@@ -211,8 +321,10 @@ class _Recorder(TorchDispatchMode):
         if beneath_dtensor:
             from torch.distributed.tensor import DTensor
             self._dtensor = DTensor
+        self.memory = _LiveBytes() if memory else None
+        self._chunk: float | None = None     # an all-to-all's result bytes
         self.records: list[OpRecord] = []
-        self._pending: list[tuple[list[torch.Tensor], str]] = []
+        self._pending: list[tuple[list, str]] = []
         self._last_backward = root
 
     def _frame_scope(self, in_backward: bool) -> str | None:
@@ -225,8 +337,12 @@ class _Recorder(TorchDispatchMode):
             if in_backward and code.co_filename.startswith(_AUTOGRAD_DIR):
                 return None
             if code.co_argcount:
-                hit = self.names.get(id(frame.f_locals.get(
-                    code.co_varnames[0])))
+                local = frame.f_locals
+                hit = self.names.get(id(local.get(code.co_varnames[0])))
+                if type(local) is dict:
+                    # a snapshot the frame keeps until it is read again:
+                    # emptied, so it holds no local past its last use
+                    local.clear()
                 if hit is not None and hit != self.root:
                     return hit
             frame = frame.f_back
@@ -235,27 +351,38 @@ class _Recorder(TorchDispatchMode):
     def _tag_pending(self) -> None:
         """Leave each forward op's scope on the autograd node that autograd
         attached to its outputs once the op returned.  The list is taken
-        first: reading a view's ``grad_fn`` may dispatch again."""
+        first: reading a view's ``grad_fn`` may dispatch again.  The
+        outputs are held weakly (a strong hold would keep a temporary past
+        its last use) and a dead one is skipped."""
         pending, self._pending = self._pending, []
         for outs, scope in pending:
-            for t in outs:
+            for ref in outs:
+                t = ref()
+                if t is None:
+                    continue
                 node = t.grad_fn
                 if node is not None and _SCOPE_KEY not in node.metadata:
                     node.metadata[_SCOPE_KEY] = scope
 
-    def _in_sharding_prop(self) -> bool:
+    def _dtensor_frame(self) -> str | None:
+        """``"prop"`` inside DTensor's sharding propagation, ``"alltoall"``
+        inside its all-to-all (a CPU mesh's all-gather and chunk), else
+        None."""
         frame = sys._getframe(2)
         while frame is not None:
-            if frame.f_code.co_filename.endswith(_SHARDING_PROP):
-                return True
+            code = frame.f_code
+            if code.co_filename.endswith(_SHARDING_PROP):
+                return "prop"
+            if code.co_name == _ALLTOALL and \
+                    code.co_filename.endswith(_COLLECTIVE_UTILS):
+                return "alltoall"
             frame = frame.f_back
-        return False
+        return None
 
-    def _collective(self, name: str, args, outs) -> None:
-        kind, at = _COLLECTIVES[name]
+    def _collective(self, kind: str, group, result: float) -> None:
         from torch.distributed.distributed_c10d import _resolve_process_group
-        g = _resolve_process_group(args[at]).size()
-        operand, wire = _collective_from(kind, sum(map(_nbytes, outs)), g)
+        g = _resolve_process_group(group).size()
+        operand, wire = _collective_from(kind, result, g)
         scope = self._frame_scope(
             in_backward=torch._C._current_autograd_node() is not None) \
             or self.root
@@ -264,6 +391,49 @@ class _Recorder(TorchDispatchMode):
             op_class="collective", scope=scope, trips=1.0, flops=0.0,
             bytes_by_class={}, collective_operand_bytes=operand,
             collective_wire_bytes=wire, n_collectives=1.0))
+
+    def _born(self, outs, cap: float | None = None) -> None:
+        if self.memory is not None:
+            for t in outs:
+                self.memory.born(t, cap)
+
+    def _beneath_dtensor(self, func, args, outs) -> bool:
+        """Record a collective, or pass over DTensor's propagation and
+        the chunk of a CPU mesh's all-to-all; True where the op is done
+        with."""
+        ns = func.namespace
+        name = func.overloadpacket.__name__
+        where = self._dtensor_frame()
+        if where == "prop":
+            return True
+        if where != "alltoall":
+            self._chunk = None
+        result = sum(map(_nbytes, outs))
+        if ns == "_c10d_functional":
+            if name in _COLLECTIVES:
+                kind, at = _COLLECTIVES[name]
+                if where == "alltoall" and kind == "all-gather":
+                    # the fallback's gather stands for the all-to-all:
+                    # its result is the chunk the rank keeps
+                    from torch.distributed.distributed_c10d import \
+                        _resolve_process_group
+                    result /= _resolve_process_group(args[at]).size()
+                    kind, self._chunk = "all-to-all", result
+                self._born(outs, self._chunk)
+                self._collective(kind, args[at], result)
+            return True
+        if ns == "_dtensor" and name == _ALLTOALL:
+            self._born(outs)
+            self._collective(_DTENSOR_ALLTOALL[0],
+                             args[_DTENSOR_ALLTOALL[1]], result)
+            return True
+        if where == "alltoall":
+            # the fallback's chunk, not recorded; its buffers are held to
+            # the chunk's bytes, as the card's all-to-all (chunk copies,
+            # outputs, their concatenation) holds three of them
+            self._born(outs, self._chunk)
+            return True
+        return False
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if self.beneath_dtensor and any(issubclass(t, self._dtensor)
@@ -274,15 +444,9 @@ class _Recorder(TorchDispatchMode):
         outs = _tensors(out)
         if not outs:        # metadata queries (a fake tensor's device, ...)
             return out
-        if self.beneath_dtensor:
-            ns = func.namespace
-            name = func.overloadpacket.__name__
-            if ns == "_c10d_functional":
-                if name in _COLLECTIVES:
-                    self._collective(name, args, outs)
-                return out
-            if self._in_sharding_prop():
-                return out
+        if self.beneath_dtensor and self._beneath_dtensor(func, args, outs):
+            return out
+        self._born(outs)
         if self._pending:
             self._tag_pending()
         name = func.overloadpacket.__name__
@@ -292,7 +456,8 @@ class _Recorder(TorchDispatchMode):
         if node is None:
             scope = scope or self.root
             if torch.is_grad_enabled():
-                self._pending.append((outs, scope))
+                self._pending.append(([weakref.ref(t) for t in outs],
+                                      scope))
         elif scope is None:
             scope = node.metadata.get(_SCOPE_KEY, self._last_backward)
             self._last_backward = scope
@@ -337,6 +502,43 @@ def _has_dtensor(leaves) -> bool:
     return any(isinstance(t, DTensor) for t in leaves)
 
 
+def _capture(fn, args, memory: bool):
+    modules = [a for a in args if isinstance(a, nn.Module)]
+    leaves = _tensors(args) + [p for m in modules for p in m.parameters()]
+    mode = next((_local(t).fake_mode for t in leaves
+                 if is_fake(_local(t))), None) or fake_mode()
+    fake_args = tree_map(
+        lambda t: t if not isinstance(t, torch.Tensor) or is_fake(t)
+        else mode.from_tensor(t), args)
+    root = getattr(fn, "__name__", "step")
+    recorder = _Recorder(_module_names(modules, root), root,
+                         beneath_dtensor=_has_dtensor(leaves), memory=memory)
+    if not memory:
+        with mode, recorder:
+            fn(*fake_args)
+        return recorder.records, None
+    with mode:
+        # a real tensor among the arguments becomes its (memoized) fake
+        inputs = [t if is_fake(_local(t)) else mode.from_tensor(t)
+                  for t in _leaf_tensors(fake_args)]
+    for t in inputs:
+        recorder.memory.argument(t)
+    arg_bytes = _storage_bytes(inputs)
+    with mode, recorder:
+        out = fn(*fake_args)
+        out_bytes = _storage_bytes(
+            t if is_fake(_local(t)) else mode.from_tensor(t)
+            for t in _leaf_tensors(out))
+    del out
+    mem = CallMemory(
+        argument_bytes=sum(arg_bytes.values()),
+        output_bytes=sum(out_bytes.values()),
+        alias_bytes=float(sum(n for k, n in out_bytes.items()
+                              if k in arg_bytes)),
+        created_peak_bytes=recorder.memory.peak)
+    return recorder.records, mem
+
+
 def walk_callable(fn, *args) -> list[OpRecord]:
     """Per-op records of one call of ``fn(*args)``, captured under
     ``FakeTensorMode``: no parameter or activation is allocated and no
@@ -349,16 +551,13 @@ def walk_callable(fn, *args) -> list[OpRecord]:
     their shapes, dtypes and devices), modules (whose module paths scope
     the records) and any other values, passed as they are.
     """
-    modules = [a for a in args if isinstance(a, nn.Module)]
-    leaves = _tensors(args) + [p for m in modules for p in m.parameters()]
-    mode = next((_local(t).fake_mode for t in leaves
-                 if is_fake(_local(t))), None) or fake_mode()
-    fake_args = tree_map(
-        lambda t: t if not isinstance(t, torch.Tensor) or is_fake(t)
-        else mode.from_tensor(t), args)
-    root = getattr(fn, "__name__", "step")
-    recorder = _Recorder(_module_names(modules, root), root,
-                         beneath_dtensor=_has_dtensor(leaves))
-    with mode, recorder:
-        fn(*fake_args)
-    return recorder.records
+    return _capture(fn, args, memory=False)[0]
+
+
+def capture_call(fn, *args) -> tuple[list[OpRecord], CallMemory]:
+    """:func:`walk_callable`'s records of one call of ``fn(*args)`` and its
+    :class:`CallMemory`: the arguments' storages (a module's parameters
+    and buffers among them), what the call returns, the part of it that
+    is an argument, and the peak of the live bytes of the storages its
+    ops create."""
+    return _capture(fn, args, memory=True)

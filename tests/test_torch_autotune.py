@@ -72,8 +72,15 @@ def test_dryrun_cells_capture_where_the_reference_runs(arch):
         assert set(rec) == OK_KEYS
         assert rec["chips"] == 8 and rec["mesh"] == "4x2"
         assert rec["hlo_flops_per_chip"] > 0 and rec["n_collectives"] > 0
-        assert rec["memory_analysis"]["param_bytes"] > 0
-        assert rec["memory_analysis"]["peak_live_bytes"] is None
+        mem = rec["memory_analysis"]
+        assert mem["param_bytes"] > 0
+        # the capture follows every storage: the eager peak is the
+        # arguments and the peak of what the step created
+        assert mem["peak_live_bytes"] == mem["total_bytes"] == (
+            mem["argument_size_in_bytes"] + mem["output_size_in_bytes"]
+            + mem["temp_size_in_bytes"] - mem["alias_size_in_bytes"])
+        assert mem["temp_size_in_bytes"] > 0
+        assert mem["total_bytes"] > mem["argument_size_in_bytes"]
 
 
 def _reference_hlo(tmp_path, arch, kind, layout=LAYOUT,
@@ -125,12 +132,12 @@ def test_dryrun_products_equal_the_reference_per_chip(tmp_path):
 def test_dryrun_products_where_heads_do_not_divide_the_model_axis(tmp_path):
     """qwen2-7b's decode step with 6 query heads over a model axis of 4
     (2x4), the small counterpart of the pod cell's 28 heads over 16, where
-    the plan replicates the heads over ``model``.  Rank 0's products equal
-    the reference's per-chip dots op for op but for the q, k and v
-    projections: the reference's SPMD partitioner splits those replicated
-    products across the model axis, DTensor computes each whole on every
-    model rank, so each is 4 times the reference's (the axis size), and
-    the rank's product FLOPs are 1.51 times the reference's."""
+    the plan leaves the q, k and v weights whole over ``model``.  Rank 0's
+    products equal the reference's per-chip dots op for op, the q, k and v
+    projections included: each rank computes its own quarter of their
+    columns (``attention._project``), as the reference's SPMD partitioner
+    splits them, where it computed them whole (4 times the reference's,
+    1.51 times its product FLOPs in all)."""
     arch, layout, over = "qwen2-7b", ((2, 4), ("data", "model")), {
         "n_heads": 6}
     ref = _reference_hlo(tmp_path, arch, "decode", layout, over)
@@ -146,15 +153,18 @@ def test_dryrun_products_where_heads_do_not_divide_the_model_axis(tmp_path):
     rest = [r.flops for r in products
             if r.scope.rsplit(".", 1)[-1] not in ("wq", "wk", "wv")]
     assert len(qkv) == 3
-    assert sorted(rest + [f / 4 for f in qkv]) == ref
-    assert sum(r.flops for r in products) / sum(ref) == pytest.approx(
-        1.51, abs=0.005)
+    assert sorted(rest + qkv) == ref
+    assert sum(r.flops for r in products) / sum(ref) == 1.0
 
 
 def test_collectives_are_charged_and_waits_are_free():
     """A redistribution's collectives by ``core/hlo.py``'s rules: an
     all-gather of a (4, 8) f32 shard over 2 ranks moves 128 operand bytes,
-    128 on the wire; a partial sum's all-reduce 2 R (g-1)/g."""
+    128 on the wire; a partial sum's all-reduce 2 R (g-1)/g; a shard moved
+    to another dim an all-to-all of the (4, 8) shard the rank keeps, R
+    operand bytes and R (g-1)/g on the wire, where a CPU mesh runs an
+    all-gather and a chunk (recorded as the all-to-all, the chunk's copy
+    not recorded)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     from repro_torch.workload.capture import fake_mode, walk_callable
@@ -163,16 +173,22 @@ def test_collectives_are_charged_and_waits_are_free():
         with fake_mode():
             x = DTensor.from_local(torch.zeros(4, 8), mesh, (Shard(0),))
             y = DTensor.from_local(torch.zeros(8, 8), mesh, (Partial(),))
+            z = DTensor.from_local(torch.zeros(4, 8), mesh, (Shard(0),))
 
-        def step(x, y):
+        def step(x, y, z):
             return (x.redistribute(mesh, (Replicate(),)),
-                    y.redistribute(mesh, (Replicate(),)))
-        records = walk_callable(step, x, y)
+                    y.redistribute(mesh, (Replicate(),)),
+                    z.redistribute(mesh, (Shard(1),)))
+        records = walk_callable(step, x, y, z)
     kinds = {r.opcode: r for r in records if r.n_collectives}
-    assert set(kinds) == {"all-gather", "all-reduce"}
-    ag, ar = kinds["all-gather"], kinds["all-reduce"]
+    assert set(kinds) == {"all-gather", "all-reduce", "all-to-all"}
+    assert len(records) == 3
+    ag, ar, a2a = (kinds[k] for k in ("all-gather", "all-reduce",
+                                      "all-to-all"))
     assert (ag.collective_operand_bytes, ag.collective_wire_bytes) == (128, 128)
     assert (ar.collective_operand_bytes, ar.collective_wire_bytes) == (256, 256)
+    assert (a2a.collective_operand_bytes,
+            a2a.collective_wire_bytes) == (128, 64)
     assert not any("wait" in r.opcode for r in records)
 
 

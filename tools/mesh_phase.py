@@ -6,8 +6,11 @@ Runs ``chip_smoke.phase_mesh``: the dry-run of the 16x16 pod cells (rank
 reduced stablelm-3b's train step sharded on a 2x2 mesh of threaded ranks
 on the card against the unsharded model, ``Session(device="cuda")
 .autotune`` on qwen2-7b's decode_32k cell and the 2x2 checkpoint resumed
-on 4x1.  Builds no kernel (the mesh path is the plain path).  Prints the
-same JSON line as the smoke run.
+on 4x1, and check (e): the dry-run's memory accounting against the
+card's peak rise on the train phase's full-width stablelm-3b step (built
+here alone: ~66 GB) and on the unsharded 4-layer qwen2-7b prefill.
+Builds no kernel (the mesh path is the plain path).  Prints the same JSON
+line as the smoke run.
 """
 from __future__ import annotations
 
@@ -29,7 +32,10 @@ def main() -> int:
         return 2
     print(cs.nvidia_smi(), flush=True)
     wrappers = {name: spec[0] for name, spec in cs.kernel_table().items()}
-    cs.phase_mesh(torch.device("cuda"), wrappers)
+    device = torch.device("cuda")
+    live_train = cs.live_bytes_train(device)
+    torch.cuda.empty_cache()
+    cs.phase_mesh(device, wrappers, live_train)
     return 0
 
 

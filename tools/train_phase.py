@@ -31,7 +31,7 @@ def main() -> int:
     print(cs.nvidia_smi(), flush=True)
     compat.build(["decode_attention", "flash_attention"])
     wrappers = {name: spec[0] for name, spec in cs.kernel_table().items()}
-    by_part, _ = cs.phase_train(torch.device("cuda"), wrappers)
+    by_part, _, _ = cs.phase_train(torch.device("cuda"), wrappers)
     cs.emit({"phase": "launches", f"trained/{cs.TRAIN_ARCH}": by_part})
     return 0
 
