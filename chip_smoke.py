@@ -51,12 +51,15 @@ the 16x16 pod mesh, one rank captured under a fake 256-rank group;
 qwen2-7b (4 layers) and reduced stablelm-3b's train step sharded on a
 2x2 mesh of four threaded ranks on the card, held to the unsharded
 model; ``Session(device="cuda").autotune`` on the qwen2-7b cell; and
-the 2x2 checkpoint resumed on 4x1.
+the 2x2 checkpoint resumed on 4x1.  Then ``examples``: the port's five
+examples (``examples/torch_*.py``), each a process of its own on the card
+with small arguments, each exiting 0, the explorer's ``--validate``
+launching all seven kernels.
 
 Prints one JSON object per phase (env, build with each kernel function's
 counts of Hopper instructions in its SASS, parity, head_sizes, estimator,
 stream, optimize, validate, model once per arch, train and the trained
-model, launches, workload, serve, paper, predict, mesh);
+model, launches, workload, serve, paper, predict, mesh, examples);
 then the ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -2905,6 +2908,25 @@ def _mesh_dryrun(arch: str, shape_name: str, layers) -> dict:
         check(abs(qkv * 256 / whole - 1) < 1e-9,
               f"dry-run {arch}: the ranks' q, k and v products add up to "
               f"{qkv * 256 / whole:.4g} of the whole")
+    if shape.kind == "decode" and cfg.family == "moe":
+        # the router's products: each rank routes its batch shard's tokens
+        # only (``moe._forward_sort_split``), so the batch shards' products
+        # add up to the whole router product once; a shard's ranks over
+        # ``model`` route the same tokens, as the reference's program does
+        router = [r for r in records if r.op_class == "matmul"
+                  and r.opcode == "mm" and r.scope.endswith(".moe")]
+        whole = 2.0 * shape.global_batch * cfg.d_model * cfg.n_experts \
+            * len(router)
+        shards = math.prod(POD[POD_AXES.index(a)]
+                           for a in plan.batch_axes or ())
+        mine = sum(r.flops for r in router)
+        row["router_products_shards_over_whole"] = mine * shards / whole
+        row["router_products_ranks_over_whole"] = mine * 256 / whole
+        check(len(router) == cfg.n_layers
+              and abs(mine * shards / whole - 1) < 1e-9,
+              f"dry-run {arch}: {len(router)} router products of "
+              f"{cfg.n_layers} layers; the {shards} batch shards' add up "
+              f"to {mine * shards / whole:.4g} of the whole")
     if layers:
         one = [r for r in records if r.scope.startswith("layers.1.")
                or r.scope == "layers.1"]
@@ -3229,6 +3251,79 @@ def phase_mesh(device, wrappers: dict, live_train: dict) -> dict:
     return out
 
 
+#: The port's five examples as the ``examples`` phase runs them: script,
+#: small arguments (``--device`` is the card's by default).
+EXAMPLES = (
+    ("torch_quickstart.py", ()),
+    ("torch_membound_explorer.py", ("--validate",)),
+    ("torch_serve_lm.py", ("--requests", "3", "--max-new", "4")),
+    ("torch_train_lm.py", ("--steps", "3", "--seq-len", "32", "--batch",
+                           "2")),
+    ("torch_autotune_sharding.py", ()),
+)
+EXAMPLE_TIMEOUT_S = 180
+
+
+def phase_examples() -> None:
+    """The port's five examples (``examples/torch_*.py``), each a process
+    of its own on the card, all started together: each exits 0, and the
+    explorer's ``--validate`` launches each of the seven kernels (the
+    launch counts it prints, from the wrappers' ``launches``).  Every
+    process is waited for, or killed at its time limit."""
+    import gc
+    import os
+    import tempfile
+
+    import torch
+
+    # the earlier phases' cached blocks back to the card for the examples
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs, ended = {}, {}
+        for script, args in EXAMPLES:
+            if script == "torch_train_lm.py":
+                args = (*args, "--ckpt-dir", os.path.join(tmp, "ckpt"))
+            log = pathlib.Path(tmp, script)
+            with open(log.with_suffix(".out"), "w") as out, \
+                    open(log.with_suffix(".err"), "w") as err:
+                procs[script] = subprocess.Popen(
+                    [sys.executable, str(ROOT / "examples" / script), *args],
+                    cwd=ROOT, env=env, stdout=out, stderr=err)
+        while len(ended) < len(procs):
+            late = time.perf_counter() - t0 > EXAMPLE_TIMEOUT_S
+            for script, proc in procs.items():
+                if script not in ended and (late or proc.poll() is not None):
+                    if late:
+                        proc.kill()
+                    proc.wait()
+                    ended[script] = time.perf_counter() - t0
+            time.sleep(0.05)
+        rows = {}
+        for script, proc in procs.items():
+            log = pathlib.Path(tmp, script)
+            rows[script] = {
+                "rc": proc.returncode, "seconds": ended[script],
+                "stdout_tail": log.with_suffix(".out").read_text()
+                .splitlines()[-12:],
+                "stderr_tail": log.with_suffix(".err").read_text()
+                .splitlines()[-8:]}
+    explorer = rows["torch_membound_explorer.py"]["stdout_tail"]
+    line = next((ln for ln in explorer
+                 if ln.startswith("kernel launches: ")), None)
+    launches = json.loads(line.split(": ", 1)[1]) if line else {}
+    emit({"phase": "examples", "seconds": time.perf_counter() - t0,
+          "explorer_validate_launches": launches, "runs": rows})
+    for script, row in rows.items():
+        check(row["rc"] == 0, f"example {script} exited {row['rc']}: "
+              f"{row['stderr_tail']}")
+    check(set(launches) == set(kernel_table())
+          and all(n > 0 for n in launches.values()),
+          f"the explorer's --validate launches: {launches}")
+
+
 def time_ms(fn, device, iters=20, warmup=3) -> float:
     from repro_torch.core.validate import time_callable
 
@@ -3415,6 +3510,10 @@ def main() -> int:
 
     # The mesh layer runs the plain path: no kernel launches.
     phase_mesh(device, wrappers, live_train)
+
+    # The five examples, each in a process of its own: their launches are
+    # theirs, not this process's counts.
+    phase_examples()
 
     kernels = phase_kernels(device, card, launches, card_err)
     emit({"kernels": kernels})

@@ -302,6 +302,17 @@ def _prediction_from(rec: Mapping, scores: dict, i: int,
     )
 
 
+def predict_record(rec: Mapping, hw=None, *,
+                   device=None) -> _pred.StepPrediction:
+    """The step prediction of one analysis record (``analyze_candidate``'s,
+    or ``launch.dryrun.summarize`` of captured records: the collective
+    keys default to none), scored by :func:`rank_records` on ``device``."""
+    rec = {"collective_wire_bytes": 0.0, "collective_operand_bytes": 0.0,
+           "n_collectives": 0.0, "collective_by_kind": {}, **rec}
+    scores = rank_records([rec], hw, device=device)
+    return _prediction_from(rec, scores, 0, 512.0)
+
+
 def run_trial(cfg, shape, mesh, candidate: Candidate,
               hw: TpuParams | None = None,
               cache: HloAnalysisCache | None = None,
@@ -309,9 +320,8 @@ def run_trial(cfg, shape, mesh, candidate: Candidate,
     """Capture one candidate and predict its step time (no execution)."""
     device = compat.resolve_device(device)
     rec = analyze_candidate(cfg, shape, mesh, candidate, cache, hw)
-    scores = rank_records([rec], hw, device=device)
     return TrialResult(candidate=candidate,
-                       prediction=_prediction_from(rec, scores, 0, 512.0),
+                       prediction=predict_record(rec, hw, device=device),
                        compile_s=float(rec["compile_s"]),
                        memory_bytes=rec.get("memory_bytes"),
                        cached=bool(rec.get("cached")))

@@ -95,16 +95,18 @@ class Attention(nn.Module):
 
 
 def _project(p: L.Dense, x: torch.Tensor) -> torch.Tensor:
-    """``L.dense(p, x)``; on a mesh, where the weight is whole over a mesh
+    """``L.dense(p, x)``; on a mesh the weight's FSDP split is gathered
+    first (``pspec.gathered_for``), so x keeps its batch split and no
+    partial product is reduced, and where the weight is whole over a mesh
     dim of the ``heads`` rule on which x is whole too (the plan leaves
     the q, k and v weights whole over ``model`` where the kv heads do not
-    divide it), its columns are split over that dim first, a local slice:
-    each rank computes its own columns of the product, as the reference's
+    divide it), its columns are split over that dim, a local slice: each
+    rank computes its own columns of the product, as the reference's
     partitioner splits it, where it would compute them all."""
-    w = p.w
-    if not pspec.is_dtensor(w):
+    if not pspec.is_dtensor(p.w):
         return L.dense(p, x)
     from torch.distributed.tensor import Replicate, Shard
+    w, b = p.w, p.b
     mesh = w.device_mesh
     names = tuple(mesh.mesh_dim_names)
     axes = pspec.axes_of(pspec.logical_to_spec(("heads",))[0])
@@ -115,17 +117,16 @@ def _project(p: L.Dense, x: torch.Tensor) -> torch.Tensor:
                 not pspec.is_dtensor(x) or x.placements[i] == Replicate()):
             split.append(i)
             ranks *= mesh.size(i)
-    if not split or w.shape[1] % ranks:
-        return L.dense(p, x)
-
-    def cut(t, dim):
-        return t.redistribute(mesh, tuple(
-            Shard(dim) if i in split else pl
-            for i, pl in enumerate(t.placements)))
-    y = x @ cut(w, 1).to(x.dtype)
-    if p.b is not None:
-        y = y + cut(p.b, 0).to(x.dtype)
-    return y
+    if split and w.shape[1] % ranks == 0:
+        def cut(t, dim):
+            return t.redistribute(mesh, tuple(
+                Shard(dim) if i in split else pl
+                for i, pl in enumerate(t.placements)))
+        # the columns first: only this rank's are cast and gathered
+        w = cut(w, 1)
+        b = None if b is None else cut(b, 0)
+    y = x @ pspec.gathered_for(w.to(x.dtype), x)
+    return y if b is None else y + b.to(x.dtype)
 
 
 def _heads(y: torch.Tensor, n: int, d: int) -> torch.Tensor:

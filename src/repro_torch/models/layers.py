@@ -23,8 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.pspec import (is_dtensor, settled, vocab_pick,
-                                     whole_last_dim)
+from repro_torch.models.pspec import (gathered_for, is_dtensor, settled,
+                                     vocab_pick, whole_last_dim)
 
 NEG_INF = -1e30
 
@@ -93,7 +93,12 @@ def apply_norm(p: Norm, x: torch.Tensor, kind: str = "rmsnorm",
 
 
 def dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p.w.to(x.dtype)
+    """``x @ w (+ b)`` in x's dtype; on a mesh the weight's shard is cast,
+    then its FSDP split gathered (``pspec.gathered_for``)."""
+    w = p.w.to(x.dtype)
+    if type(x) is not torch.Tensor:     # a DTensor (or another subclass)
+        w = gathered_for(w, x)
+    y = x @ w
     if p.b is not None:
         y = y + p.b.to(x.dtype)
     return y

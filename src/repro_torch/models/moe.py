@@ -43,11 +43,14 @@ gathers, so routing and dispatch run on local tensors.  The einsum
 semantics' groups split over every rank where they divide evenly
 (``_forward_einsum_split``): each rank routes its own groups, as the
 reference's partitioner splits them, and an all-to-all hands the rows to
-the experts' ranks and back.  Otherwise (the sort semantics of a decode
-step, whose one group is every token) the routing, the capacity
-assignment and the dispatch and combine gathers run on every rank on the
-whole token set (the layer's input taken whole, ``_whole``): the MoE
-layer's replication site.
+the experts' ranks and back.  The sort semantics (a decode step, whose
+one group is every token) route each rank's own batch shard where the
+batch splits evenly (``_forward_sort_split``): only the (T, k) expert ids
+are gathered, every rank assigns the capacity over all T tokens as one
+device does, the dispatch gathers the layer's input whole (the MoE
+layer's replication site, as in the reference's program) and each rank
+combines its own tokens.  Otherwise the whole layer runs on every rank on
+the whole token set (``_whole``).
 """
 from __future__ import annotations
 
@@ -118,6 +121,8 @@ def forward(p: MoE, cfg: ModelConfig, x: torch.Tensor,
         return run(p, cfg, x)
     if impl == "einsum" and _group_split(cfg, x):
         return _forward_einsum_split(p, cfg, x)
+    if impl == "sort" and _batch_split(x):
+        return _forward_sort_split(p, cfg, x)
     mesh = x.device_mesh
     out, aux = run(p, cfg, _whole(x))
     from torch.distributed.tensor import DTensor
@@ -360,6 +365,68 @@ def _forward_einsum_split(p: MoE, cfg: ModelConfig, x: torch.Tensor
     out = pspec.local_call(combine, (y, slot, w), [rows_cut, cut, cut], cut)
     out = pspec.local_call(lambda t: t.reshape(-1, S, d), (out,), xp)
     aux = E * torch.sum((first.sum(0) / (B * S)) * (probs.sum(0) / (B * S)))
+    return out, aux.redistribute(mesh, _replicated(mesh))
+
+
+def _batch_placements(x: torch.Tensor) -> tuple:
+    """x's placements with its batch split (``Shard(0)``) kept and every
+    other mesh dim whole."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(pl if pl == Shard(0) else Replicate() for pl in x.placements)
+
+
+def _batch_split(x: torch.Tensor) -> bool:
+    """Whether x's batch splits evenly over the mesh dims that split it."""
+    xp = _batch_placements(x)
+    return pspec.even_placements(x, xp) == xp
+
+
+def _forward_sort_split(p: MoE, cfg: ModelConfig, x: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`forward_sort` on a mesh, as the reference's partitioner
+    splits it: each rank multiplies the router and takes the top-k for
+    its own batch shard's tokens only; the (T, k) expert ids and weights
+    are gathered (a few bytes a token, not the layer's input), and every
+    rank assigns the capacity over all T tokens, token-major, exactly as
+    one device does.  The dispatch gathers the layer's input whole (the
+    reference's program gathers its rows too), the experts' FFN runs split
+    as the plan splits it (:func:`_expert_ffn`), and each rank combines
+    its own tokens.  The aux loss is the layer's: the per-expert sums of
+    the top choices and of the probabilities add up over the batch shards
+    before their product.  Returns the output in x's batch split."""
+    from torch.distributed.tensor import DTensor
+    mesh = x.device_mesh
+    B, S, d = x.shape
+    T, k, E = B * S, cfg.experts_per_token, cfg.n_experts
+    xp = _batch_placements(x)
+
+    def route(xl, w_router):
+        probs, weights, experts, _ = _router(p, cfg, xl.reshape(-1, d),
+                                             w_router)
+        first = experts[:, :1] == torch.arange(E, device=xl.device)
+        # this shard's sums as its row of a (shards, E) tensor: a partial
+        # output would hand its gradient back divided among the ranks
+        return (weights, experts.int(), first.float().sum(0)[None],
+                probs.sum(0)[None])
+    weights, experts, first, probs = pspec.local_call(
+        route, (x, p.router.w), [xp, _replicated(mesh)], xp, n_out=4)
+    every = _whole(experts).long()           # (T, k), gathered as int32
+    pos = _positions(every.reshape(1, T * k), E).reshape(T, k)
+    C = capacity(cfg, T)
+    keep = pos < C
+    slot = _slots(p, every[None], pos[None], keep[None], C)[0]
+    y = _expert_ffn(p, cfg, _whole(x).reshape(T, d), slot,
+                    (p.experts[1] - p.experts[0]) * C)
+    size, offset = pspec.local_extent(x.shape, mesh, xp)
+    mine = slice(offset[0] * S, (offset[0] + size[0]) * S)
+    w = (weights.to_local() * keep[mine]).to(x.dtype)
+    terms = _combine_rows(y, slot[mine]) * w[..., None]
+    out = terms[..., 0, :]
+    for j in range(1, k):
+        out = out + terms[..., j, :]
+    out = DTensor.from_local(out.reshape(size[0], S, d), mesh, xp,
+                             run_check=False)
+    aux = E * torch.sum((first.sum(0) / T) * (probs.sum(0) / T))
     return out, aux.redistribute(mesh, _replicated(mesh))
 
 

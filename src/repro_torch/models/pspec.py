@@ -170,6 +170,29 @@ def settled(x: torch.Tensor) -> torch.Tensor:
         Replicate() if isinstance(p, Partial) else p for p in x.placements))
 
 
+def gathered_for(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A weight DTensor ``w`` taken whole on every mesh dim on which the
+    activation ``x`` splits its batch (dim 0) and ``w`` is split too: the
+    weight's FSDP shards are gathered before the product, as XLA gathers
+    an FSDP weight.  DTensor's cheapest move would instead carry a small
+    activation (a decode step's one row a rank) onto the weight's split:
+    every rank then holds the whole batch's rows, and a product over the
+    weight's split rows is a partial sum to all-reduce.  A weight whose
+    gradient is taken is left as it is: the product's own rule gathers it
+    for a training step's many rows, and its backward leaves the gradient
+    partial for the train step's one f32 reduction, where the gather's
+    backward would reduce-scatter it at once in the activation dtype.
+    Anything else as it is."""
+    if not (is_dtensor(w) and is_dtensor(x)) or (
+            w.requires_grad and torch.is_grad_enabled()):
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+    want = tuple(Replicate() if px == Shard(0) and isinstance(pw, Shard)
+                 else pw for px, pw in zip(x.placements, w.placements))
+    return w if want == tuple(w.placements) else \
+        w.redistribute(w.device_mesh, want)
+
+
 def whole_last_dim(x: torch.Tensor) -> torch.Tensor:
     """A DTensor taken whole on its last dim and reduced where partial
     (a norm over it, an argmax along it: DTensor's decomposed norm fails
@@ -265,15 +288,26 @@ def vocab_pick(table: torch.Tensor, ids: torch.Tensor, dim: int, fn):
     the others) and the lookups add up across the split (``Partial``).
     The hand-written counterpart of DTensor's vocabulary-parallel lookup,
     whose per-call mask lives on a placement object that ranks running as
-    threads share.  A table indexed on its first dim (an embedding) is
-    taken whole on the others and the ids keep their batch split; a table
-    whose rows match the ids' (logits, ``dim`` last) keeps the batch split
-    both share."""
+    threads share.  A table indexed on its first dim (an embedding) keeps
+    an even split of its columns: each rank looks up every id (the ids
+    gathered) at its own columns, as XLA's partitioned lookup does, and the
+    rows come out split over the columns, for the caller's batch tag to
+    move (an all-to-all), where taking the table whole would gather a
+    vocabulary shard's every column on each rank (3 x 136 MB at qwen2-7b's
+    full width, the decode's peak); its other dims are taken whole, and
+    there the ids keep their batch split.  A table whose rows match the
+    ids' (logits, ``dim`` last) keeps the batch split both share."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh = table.device_mesh
     if not isinstance(ids, DTensor):
         ids = DTensor.from_local(ids, mesh, (Replicate(),) * mesh.ndim,
                                  run_check=False)
+    columns = 1
+    for i, pt in enumerate(table.placements):
+        if pt == Shard(1):
+            columns *= mesh.size(i)
+    by_columns = not dim and table.ndim == 2 \
+        and table.shape[1] % columns == 0
     tp, ip, op = [], [], []
     for pt, pi in zip(table.placements, ids.placements):
         batch_ids = isinstance(pi, Shard) and pi.dim == 0
@@ -281,6 +315,10 @@ def vocab_pick(table: torch.Tensor, ids: torch.Tensor, dim: int, fn):
             tp.append(pt)
             ip.append(Replicate())
             op.append(Partial())
+        elif by_columns and pt == Shard(1):
+            tp.append(pt)            # this rank's columns of every id's row
+            ip.append(Replicate())
+            op.append(Shard(ids.ndim))
         elif dim and pt == Shard(0) and batch_ids:
             tp.append(pt)            # rows of the table and of the ids
             ip.append(pi)

@@ -1,19 +1,23 @@
 """The port's dry-run record held to the reference's compiled program,
-field by field, on three small cells (``reduced_config``, S 16, B 8):
-qwen2-7b decode with 6 query heads over a model axis of 4 (2x4: the heads
-do not divide the axis), stablelm-3b train on 4x2 and qwen3-moe prefill
-on 4x2.
+field by field, on five small cells (``reduced_config``, S 16, B 8 but
+where a cell says): qwen2-7b decode with 6 query heads over a model axis
+of 4 (2x4: the heads do not divide the axis), stablelm-3b train on 4x2,
+qwen3-moe prefill on 4x2, ``pod-heads`` (qwen2-7b decode with the pod
+cell's 28 query and 4 kv heads on the 16x16 mesh, B 16: the pod's uneven
+head split) and qwen3-moe decode on 4x2 (the sort semantics on a mesh).
 
-The reference's side is its SPMD-partitioned program for 8 forced host
-devices, compiled in a subprocess (one for every cell), its dots and
-collectives read with the port's ``core/hlo_counter`` and ``core/hlo``
-and its ``memory_analysis`` taken as ``hlo.memory_analysis_stats`` takes
-it.  The port's side is rank 0 of ``launch/dryrun.capture_step`` under a
-fake group of 8.  Where the two differ by design the difference is named
-here with its cause; every other field is held equal.
+The reference's side is its SPMD-partitioned program for the mesh's
+count of forced host devices, compiled in a subprocess (one for every
+count), its dots and collectives read with the port's
+``core/hlo_counter`` and ``core/hlo`` and its ``memory_analysis`` taken
+as ``hlo.memory_analysis_stats`` takes it.  The port's side is rank 0 of
+``launch/dryrun.capture_step`` under a fake group of as many ranks.
+Where the two differ by design the difference is named here with its
+cause; every other field is held equal.
 """
 import dataclasses
 import json
+import math
 import os
 import pathlib
 import subprocess
@@ -36,21 +40,28 @@ from repro_torch.models import moe as MOE
 from test_torch_workload import _hlo_dots
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-S, B = 16, 8
+S = 16
 AXES = ("data", "model")
-#: cell -> (arch, kind, mesh shape, config overrides)
+#: cell -> (arch, kind, mesh shape, config overrides, B)
 CELLS = {
-    "qwen2-7b/decode/2x4": ("qwen2-7b", "decode", (2, 4), {"n_heads": 6}),
-    "stablelm-3b/train/4x2": ("stablelm-3b", "train", (4, 2), {}),
-    "qwen3-moe/prefill/4x2": ("qwen3-moe-235b-a22b", "prefill", (4, 2), {}),
+    "qwen2-7b/decode/2x4": ("qwen2-7b", "decode", (2, 4), {"n_heads": 6},
+                            8),
+    "stablelm-3b/train/4x2": ("stablelm-3b", "train", (4, 2), {}, 8),
+    "qwen3-moe/prefill/4x2": ("qwen3-moe-235b-a22b", "prefill", (4, 2), {},
+                              8),
+    "pod-heads": ("qwen2-7b", "decode", (16, 16),
+                  {"n_heads": 28, "n_kv_heads": 4}, 16),
+    "qwen3-moe/decode/4x2": ("qwen3-moe-235b-a22b", "decode", (4, 2), {}, 8),
 }
 #: The port's ``total_bytes`` over the reference's, as found: the eager
 #: peak (every op's result materialized, a storage freed at its last
 #: reference) against XLA's buffer assignment of its fused program.
 TOTAL_RATIO = {
-    "qwen2-7b/decode/2x4": 0.8045,
-    "stablelm-3b/train/4x2": 0.8665,
-    "qwen3-moe/prefill/4x2": 0.5353,
+    "qwen2-7b/decode/2x4": 0.5714,
+    "stablelm-3b/train/4x2": 0.8693,
+    "qwen3-moe/prefill/4x2": 0.5398,
+    "pod-heads": 0.4121,
+    "qwen3-moe/decode/4x2": 0.2606,
 }
 
 #: Collective kinds the reference charges and the port does not, by
@@ -74,10 +85,7 @@ _CAST_FIRST = ("each weight's shard is cast to bf16 before its gather; "
 #: of the reference's wire bytes in all, with its cause.
 NAMED = {
     "qwen2-7b/decode/2x4": {
-        "all-gather": _CAST_FIRST + "; and XLA gathers each FSDP weight "
-                      "whole where DTensor moves the one-token activation "
-                      "onto the weight's split (an all-to-all) and reduces "
-                      "the partial product (an all-reduce)",
+        "all-gather": _CAST_FIRST,
         "all-reduce": "XLA splits the q, k and v products' contraction "
                       "over model and all-reduces their partial products; "
                       "the port splits their columns "
@@ -95,26 +103,70 @@ NAMED = {
     },
     "qwen3-moe/prefill/4x2": {
         "all-gather": _CAST_FIRST + ", the experts' weights included",
-        "all-to-all": "the port's two are the experts' dispatch and its "
-                      "return (``moe._forward_einsum_split``); XLA's "
-                      "partitioner adds nine around the embedding lookup, "
-                      "RoPE, the router and the combine",
+        "all-to-all": "the port's three are the embedding lookup's "
+                      "(``pspec.vocab_pick``) and the experts' dispatch "
+                      "and its return (``moe._forward_einsum_split``); "
+                      "XLA's partitioner adds eight around RoPE, the "
+                      "router and the combine",
     },
+    "pod-heads": {
+        "all-gather": _CAST_FIRST + "; and XLA gathers the q weight's FSDP "
+                      "rows for 7 whole heads, a quarter of its columns "
+                      "(the port gathers its sixteenth, "
+                      "``attention._project``)",
+        "all-reduce": "XLA's attention core splits the cache's rows and "
+                      "the heads 4 ways each (7 heads a rank) and merges "
+                      "the softmax states over groups of 4 in two "
+                      "all-reduces of every head's accumulator; the port's "
+                      "core takes every head over its sixteenth of the "
+                      "rows and merges once over the 16 ranks of model "
+                      "(``attention._partial_decode``): the same products",
+    },
+    "qwen3-moe/decode/4x2": {
+        "all-gather": _CAST_FIRST + "; and XLA gathers every expert's "
+                      "FSDP-split weights (f32, 3 x 49,152 B), where the "
+                      "port's expert products contract over that split "
+                      "and reduce-scatter their partial sums (a decode "
+                      "step dispatches few rows).  By design both gather "
+                      "the dispatch's rows whole on every rank (the port "
+                      "the layer's input, ``moe._forward_sort_split``)",
+        "all-reduce": "the reference's combine picks each slot's row on "
+                      "the rank of its expert and all-reduces the rows of "
+                      "all T tokens (two f32 (T, d) all-reduces); the port "
+                      "gathers the experts' outputs whole and each rank "
+                      "combines its own tokens (``moe._forward_sort_split``)",
+    },
+}
+
+#: Products only one side has, by design, with their cause:
+#: cell -> (cause, function of the cell's config -> (the reference's
+#: extra products, the port's)).
+PRODUCTS_BY_DESIGN = {
+    "pod-heads": (
+        "the reference computes the q product on whole heads, 7 of 28 on "
+        "each quarter of model's ranks; the port computes this rank's "
+        "sixteenth of q's columns and gathers the heads "
+        "(``attention._project``, ``attention._heads``), a quarter of the "
+        "reference's FLOPs",
+        lambda cfg, rows: (
+            [2.0 * rows * cfg.d_model * 7 * cfg.head_dim] * cfg.n_layers,
+            [2.0 * rows * cfg.d_model * cfg.q_dim / 16] * cfg.n_layers)),
 }
 
 _REFERENCE = r"""
 import dataclasses, json, os, sys
-os.environ['XLA_FLAGS'] = '--xla_force_host_platform_device_count=8'
 os.environ['JAX_PLATFORMS'] = 'cpu'
+cells, S, devices, autotune = json.loads(sys.argv[1])
+os.environ['XLA_FLAGS'] = ('--xla_force_host_platform_device_count=%d'
+                           % devices)
 from repro.compat import make_mesh
 from repro.configs import ARCHS, reduced_config
 from repro.configs.shapes import ShapeSpec
 from repro.core import autotune as AT
 from repro.core import hlo as HLO
 from repro.launch.steps import TrainConfig, build_step
-cells, S, B, autotune = json.loads(sys.argv[1])
 out = {}
-for name, (arch, kind, shape, over) in cells.items():
+for name, (arch, kind, shape, over, B) in cells.items():
     mesh = make_mesh(tuple(shape), ('data', 'model'))
     cfg = dataclasses.replace(reduced_config(ARCHS[arch]), **over)
     spec = ShapeSpec('c', S, B, kind)
@@ -139,20 +191,35 @@ json.dump(out, open(sys.argv[2], 'w'))
 RANKED = ("qwen2-7b/decode/2x4", "stablelm-3b/train/4x2")
 
 
+def _ranks(cell) -> int:
+    return math.prod(CELLS[cell][2])
+
+
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    out = tmp_path_factory.mktemp("reference") / "cells.json"
+    """The reference's programs, one subprocess for each count of forced
+    host devices (the count is fixed once jax starts)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     env.pop("XLA_FLAGS", None)
-    subprocess.run([sys.executable, "-c", _REFERENCE,
-                    json.dumps([CELLS, S, B, RANKED]), str(out)],
-                   check=True, env=env, timeout=900, capture_output=True)
-    return json.loads(out.read_text())
+    got = {}
+    for devices in sorted({_ranks(c) for c in CELLS}):
+        out = tmp_path_factory.mktemp("reference") / "cells.json"
+        cells = {c: v for c, v in CELLS.items() if _ranks(c) == devices}
+        subprocess.run([sys.executable, "-c", _REFERENCE,
+                        json.dumps([cells, S, devices, RANKED]), str(out)],
+                       check=True, env=env, timeout=900, capture_output=True)
+        got.update(json.loads(out.read_text()))
+    return got
 
 
 def _cfg(cell, **extra):
-    arch, _, _, over = CELLS[cell]
+    arch, _, _, over, _ = CELLS[cell]
     return dataclasses.replace(reduced_config(ARCHS[arch]), **over, **extra)
+
+
+def _shape(cell) -> ShapeSpec:
+    _, kind, _, _, batch = CELLS[cell]
+    return ShapeSpec("c", S, batch, kind)
 
 
 @pytest.fixture(scope="module")
@@ -170,13 +237,12 @@ def port():
     out = {}
     PT.shard_dim_alltoall = counted
     try:
-        for cell, (arch, kind, shape, over) in CELLS.items():
+        for cell in CELLS:
             calls.clear()
-            with fake_world(8):
-                mesh = init_mesh(shape, AXES, device_type="cpu")
+            with fake_world(_ranks(cell)):
+                mesh = init_mesh(CELLS[cell][2], AXES, device_type="cpu")
                 records, mem = DR.capture_step(
-                    _cfg(cell), ShapeSpec("c", S, B, kind), DR.TrainConfig(),
-                    mesh)
+                    _cfg(cell), _shape(cell), DR.TrainConfig(), mesh)
             out[cell] = records, mem, len(calls)
     finally:
         PT.shard_dim_alltoall = run
@@ -186,25 +252,42 @@ def port():
 def _one_hot_products(cell) -> list[float]:
     """The reference's einsum MoE dispatches and combines with one-hot
     products, a rank's share of 2·E·C·d·n FLOPs a group each; the port
-    gathers rows by index there (``models/moe.py``): no product."""
+    gathers rows by index there (``models/moe.py``): no product.  A decode
+    step takes the sort semantics (gathers on both sides)."""
     cfg = _cfg(cell)
-    if cfg.family != "moe":
+    shape = _shape(cell)
+    if cfg.family != "moe" or shape.kind == "decode":
         return []
-    g, n, C = MOE.groups(cfg, B, S, "einsum")
-    per_rank = 2.0 * cfg.n_experts * C * cfg.d_model * n * g / 8
+    g, n, C = MOE.groups(cfg, shape.global_batch, S, "einsum")
+    per_rank = 2.0 * cfg.n_experts * C * cfg.d_model * n * g / _ranks(cell)
     return [per_rank, per_rank] * cfg.n_layers
+
+
+def _products_by_design(cell) -> tuple[list[float], list[float]]:
+    """(the reference's products the port has not, the port's the
+    reference has not), by design (``PRODUCTS_BY_DESIGN``)."""
+    if cell not in PRODUCTS_BY_DESIGN:
+        return [], []
+    data = CELLS[cell][2][0]
+    return PRODUCTS_BY_DESIGN[cell][1](_cfg(cell),
+                                       _shape(cell).global_batch // data)
 
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_products_op_for_op(cell, reference, port):
     """Rank 0's products equal the reference's per-chip dots op for op (the
-    q, k and v projections at an uneven head split included), but for
-    the reference's one-hot MoE dispatch and combine."""
+    q, k and v projections at an uneven head split, and the MoE decode's
+    router on this rank's tokens, included), but for the reference's
+    one-hot MoE dispatch and combine and the products named in
+    ``PRODUCTS_BY_DESIGN``."""
     ref = sorted(f for f, n in _hlo_dots(reference[cell]["hlo"]).items()
                  for _ in range(int(n)))
     records, _, _ = port[cell]
     got = [r.flops for r in records if r.op_class == "matmul"]
-    assert sorted(got + _one_hot_products(cell)) == ref
+    only_ref, only_port = _products_by_design(cell)
+    for f in only_port:
+        got.remove(f)
+    assert sorted(got + _one_hot_products(cell) + only_ref) == ref
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -290,8 +373,8 @@ def test_ranking_with_the_reference_bytes(cell, reference):
     the reference's bytes by class swapped into each record (eager bytes
     against fused HLO bytes differ by design) the ranking is the
     reference's ``_autotune`` order."""
-    arch, kind, shape, _ = CELLS[cell]
-    spec = ShapeSpec("c", S, B, kind)
+    _, kind, shape, _, _ = CELLS[cell]
+    spec = _shape(cell)
     ref = reference[cell]["autotune"]
     layout = (shape, AXES)
     got = {}
@@ -390,7 +473,6 @@ def test_following_memory_keeps_the_records(cell):
     """``capture_call`` records what ``walk_callable`` records, op for op:
     following the storages changes no record."""
     from repro_torch.workload import capture as C
-    arch, kind, shape, _ = CELLS[cell]
     seen = []
     real = C._capture
 
@@ -399,10 +481,9 @@ def test_following_memory_keeps_the_records(cell):
         return real(fn, args, memory)
     C._capture = both
     try:
-        with fake_world(8):
-            mesh = init_mesh(shape, AXES, device_type="cpu")
-            records, _ = DR.capture_step(_cfg(cell),
-                                         ShapeSpec("c", S, B, kind),
+        with fake_world(_ranks(cell)):
+            mesh = init_mesh(CELLS[cell][2], AXES, device_type="cpu")
+            records, _ = DR.capture_step(_cfg(cell), _shape(cell),
                                          DR.TrainConfig(), mesh)
     finally:
         C._capture = real

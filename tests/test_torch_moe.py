@@ -569,3 +569,60 @@ def test_full_width_parameters_match_reference_tree(arch):
 def _numel(cfg, experts=None) -> int:
     return sum(p.numel() for p in TF.Transformer(cfg, experts=experts)
                .parameters())
+
+
+# ---------------------------------------------------------------------------
+# the sort semantics on a mesh
+# ---------------------------------------------------------------------------
+
+def test_sorted_decode_on_a_mesh_routes_each_ranks_tokens():
+    """A decode step's MoE layer (the sort semantics) on a 2x2 mesh of
+    threaded ranks, its input split over ``data`` by batch rows: each rank
+    multiplies the router for its own batch shard's tokens only (the
+    rows the router meets, spied), and the output, every rank's, and the
+    aux loss equal the unsharded layer's (f32): the capacity is assigned
+    over all tokens token-major, as on one device."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import init_mesh, threaded_ranks
+    from repro_torch.models import pspec
+    # 64 pairs for capacity 8 an expert: pairs are dropped, so the
+    # assignment over all the tokens matters
+    cfg = dataclasses.replace(_cfgs("qwen3-moe-235b-a22b", cf=0.5)[1],
+                              use_kernels=False)
+    Bm = 32
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (Bm, 1, cfg.d_model)).astype(np.float32))
+    layer = TF.init_params(cfg, seed=0, device="cpu").layers[0].moe
+    want, want_aux = MOE.forward(layer, cfg, x, decode=True)
+    _, _, _, pos, C, _ = MOE.assign(layer, cfg, x, "sort")
+    assert (pos >= C).any(), "no pair dropped: the test is vacuous"
+    rows: list = []
+    real = MOE._router
+
+    def spied(p, cfg_, xt_, w=None):
+        rows.append(xt_.reshape(-1, xt_.shape[-1]).shape[0])
+        return real(p, cfg_, xt_, w)
+
+    def rank(r):
+        mesh = init_mesh((2, 2), ("data", "model"), device_type="cpu")
+        plan = ST.build_step(cfg, ShapeSpec("d", 16, Bm, "decode"),
+                             mesh=mesh, device="cpu").plan
+        m = TF.init_params(cfg, seed=0, device="cpu")
+        ST.place_params(m, cfg, plan, mesh)
+        with pspec.axis_rules(mesh, plan.rules()):
+            xd = distribute_tensor(x, mesh, (Shard(0), Replicate()))
+            out, aux = MOE.forward(m.layers[0].moe, cfg, xd, decode=True)
+            assert tuple(out.placements) == (Shard(0), Replicate())
+            return out.full_tensor(), aux.full_tensor()
+    MOE._router = spied
+    try:
+        got = threaded_ranks(4, rank)
+    finally:
+        MOE._router = real
+    assert rows == [Bm // 2] * 4
+    for out, aux in got:
+        assert _rel(out, want) <= F32_TOL
+        np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-6)

@@ -16,10 +16,11 @@ cells the ranking of the reference's candidates (``default_candidates``):
 the reference's ``_autotune`` order, the port's, and the port's with the
 reference's bytes by class swapped in.
 
-The cells are ``reduced_config`` widths (S 16): the three of
-``tests/test_torch_dryrun_parity.py`` and ``pod-heads``, qwen2-7b's decode
-with the pod cell's 28 query and 4 kv heads on the 16x16 mesh (B 16), the
-uneven head split of the pod at a width the host compiles in seconds.
+The cells are the five of ``tests/test_torch_dryrun_parity.py``, at
+``reduced_config`` widths (S 16), among them ``pod-heads``, qwen2-7b's
+decode with the pod cell's 28 query and 4 kv heads on the 16x16 mesh
+(B 16), the uneven head split of the pod at a width the host compiles in
+seconds, and qwen3-moe's decode on 4x2 (the sort semantics on a mesh).
 All numbers are CPU counts.
 """
 from __future__ import annotations
@@ -45,6 +46,8 @@ CELLS = {
                               16, 8),
     "pod-heads": ("qwen2-7b", "decode", (16, 16),
                   {"n_heads": 28, "n_kv_heads": 4}, 16, 16),
+    "qwen3-moe/decode/4x2": ("qwen3-moe-235b-a22b", "decode", (4, 2), {},
+                             16, 8),
 }
 
 _REFERENCE = r"""
