@@ -1,0 +1,150 @@
+"""Weights, prompts and decode caches drawn from the run's seed.
+
+Everything is drawn on the run's device by a ``torch.Generator`` seeded
+from ``(seed, tag)`` (:func:`seed_of`), so each piece can be drawn again
+alone: the reference draws the same weights and cache rows after the
+program's state is freed, bit for bit, instead of reading the program's.
+
+The weights are drawn in the dtypes the program serves (bf16 products and
+biases; f32 norms and MoE router), one ``randn`` a layer for each dtype
+(``ALIGN``-element slots in one buffer, each leaf a view scaled in place),
+never leaf by leaf and never on the host.  Names are the benchmark's own
+(Hugging Face's, with weights stored (in, out)); ``port.py`` maps them to
+the program's.
+"""
+from __future__ import annotations
+
+import hashlib
+import math
+
+import torch
+
+from portbench.spec import Geometry
+
+#: Each leaf starts at a multiple of this many elements of its buffer.
+ALIGN = 256
+#: Standard deviations of the draws that are not N(0, 1/fan_in).
+EMBED_STD = 0.02
+BIAS_STD = 0.1
+NORM_STD = 0.1                  # norm weights are 1 + N(0, NORM_STD^2)
+ROUTER_STD = 0.02
+
+
+def seed_of(seed: int, *tags) -> int:
+    """A 63-bit seed for the draw ``tags`` of the run seeded ``seed`` (any
+    whole number)."""
+    digest = hashlib.sha256(repr((int(seed),) + tags).encode()).digest()
+    return int.from_bytes(digest[:8], "little") & ((1 << 63) - 1)
+
+
+def generator(device, seed: int, *tags) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed_of(seed, *tags))
+    return gen
+
+
+def _fan_in(shape) -> float:
+    return 1.0 / math.sqrt(shape[-2])
+
+
+def layer_leaves(g: Geometry) -> list[tuple[str, tuple, str, tuple]]:
+    """(name, shape, dtype, (how, scale)) of one layer's leaves; ``how`` is
+    ``normal`` (scale times N(0, 1)) or ``one_plus`` (1 + scale N(0, 1))."""
+    d, q, kv = g.d_model, g.q_dim, g.kv_dim
+    bf, f32 = "bfloat16", "float32"
+    out = [("input_layernorm", (d,), f32, ("one_plus", NORM_STD))]
+    for name, cols in (("q_proj", q), ("k_proj", kv), ("v_proj", kv)):
+        out.append((f"{name}.w", (d, cols), bf,
+                    ("normal", _fan_in((d, cols)))))
+        if g.qkv_bias:
+            out.append((f"{name}.b", (cols,), bf, ("normal", BIAS_STD)))
+    out.append(("o_proj.w", (q, d), bf, ("normal", _fan_in((q, d)))))
+    if g.qk_norm:
+        out += [("q_norm", (g.head_dim,), f32, ("one_plus", NORM_STD)),
+                ("k_norm", (g.head_dim,), f32, ("one_plus", NORM_STD))]
+    out.append(("post_attention_layernorm", (d,), f32,
+                ("one_plus", NORM_STD)))
+    f = g.d_ff
+    if g.is_moe:
+        e = g.n_held
+        out += [("mlp.router", (d, g.router_outputs), f32,
+                 ("normal", ROUTER_STD)),
+                ("mlp.experts.gate_proj", (e, d, f), bf,
+                 ("normal", _fan_in((d, f)))),
+                ("mlp.experts.up_proj", (e, d, f), bf,
+                 ("normal", _fan_in((d, f)))),
+                ("mlp.experts.down_proj", (e, f, d), bf,
+                 ("normal", _fan_in((f, d))))]
+    else:
+        out += [("mlp.gate_proj", (d, f), bf, ("normal", _fan_in((d, f)))),
+                ("mlp.up_proj", (d, f), bf, ("normal", _fan_in((d, f)))),
+                ("mlp.down_proj", (f, d), bf, ("normal", _fan_in((f, d))))]
+    return out
+
+
+def top_leaves(g: Geometry) -> list[tuple[str, tuple, str, tuple]]:
+    d, v = g.d_model, g.padded_vocab
+    return [("embed_tokens", (v, d), "bfloat16", ("normal", EMBED_STD)),
+            ("norm", (d,), "float32", ("one_plus", NORM_STD)),
+            ("lm_head", (d, v), "bfloat16", ("normal", _fan_in((d, v))))]
+
+
+def _draw(leaves, device, seed: int, *tags) -> dict[str, torch.Tensor]:
+    """One buffer a dtype, one ``randn`` each; the leaves as views."""
+    out = {}
+    for dtype in sorted({leaf[2] for leaf in leaves}):
+        mine = [leaf for leaf in leaves if leaf[2] == dtype]
+        sizes = [math.prod(shape) for _, shape, _, _ in mine]
+        total = sum(-(-n // ALIGN) * ALIGN for n in sizes)
+        buf = torch.randn(total, dtype=getattr(torch, dtype), device=device,
+                          generator=generator(device, seed, *tags, dtype))
+        at = 0
+        for (name, shape, _, (how, scale)), n in zip(mine, sizes):
+            t = buf[at:at + n].view(shape)
+            t.mul_(scale)
+            if how == "one_plus":
+                t.add_(1.0)
+            out[name] = t
+            at += -(-n // ALIGN) * ALIGN
+    return out
+
+
+def draw_layer(g: Geometry, seed: int, i: int, device) -> dict:
+    """Layer ``i``'s leaves, by their names without the layer prefix."""
+    return _draw(layer_leaves(g), device, seed, "layer", i)
+
+
+def draw_top(g: Geometry, seed: int, device) -> dict:
+    out = {}
+    for leaf in top_leaves(g):
+        out.update(_draw([leaf], device, seed, leaf[0]))
+    return out
+
+
+def draw_weights(g: Geometry, seed: int, device) -> dict[str, torch.Tensor]:
+    """Every leaf, layer leaves as ``layers.<i>.<name>``."""
+    out = draw_top(g, seed, device)
+    for i in range(g.n_layers):
+        out.update({f"layers.{i}.{k}": v
+                    for k, v in draw_layer(g, seed, i, device).items()})
+    return out
+
+
+def fill_cache(t: torch.Tensor, seed: int, layer: int, which: str) -> None:
+    """A whole K or V cache tensor drawn N(0, 1) in place."""
+    t.normal_(generator=generator(t.device, seed, "cache", layer, which))
+
+
+def cache_tensor(shape, dtype, device, seed: int, layer: int,
+                 which: str) -> torch.Tensor:
+    """:func:`fill_cache`'s draw again, into a new tensor."""
+    t = torch.empty(shape, dtype=dtype, device=device)
+    fill_cache(t, seed, layer, which)
+    return t
+
+
+def token_pool(seed: int, tag: str, rows: int, cols: int, vocab: int,
+               device) -> torch.Tensor:
+    """(rows, cols) int32 token ids, uniform over the vocabulary."""
+    return torch.randint(0, vocab, (rows, cols), dtype=torch.int32,
+                         device=device, generator=generator(device, seed, tag))
