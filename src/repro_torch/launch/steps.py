@@ -44,6 +44,7 @@ from repro_torch.models.convert import reference_ndim
 from repro_torch.models.pspec import axis_rules, is_dtensor, whole_last_dim
 from repro_torch.launch import sharding as SH
 from repro_torch.optim.adamw import OptimizerConfig, adamw_init, adamw_update_
+from repro_torch.runtime import tracing
 from repro_torch.runtime.compression import compress_grads, decompress_grads
 
 
@@ -152,13 +153,14 @@ def make_prefill_step(cfg: ModelConfig, mesh=None,
     """prefill_step(params, batch) -> logits at the last position (B, 1, V)
     (a DTensor on a mesh; the batch is placed by the plan)."""
     def prefill_step(params, batch):
-        if mesh is not None:
-            batch = place_batch(batch, plan, mesh)
-        with torch.no_grad(), _rules(mesh, plan):
-            x = TF.embed_inputs(params, cfg, tokens=batch.get("tokens"),
-                                features=batch.get("features"))
-            h, _ = TF.forward_hidden(params, cfg, x)
-            return TF.logits_fn(params, cfg, h[:, -1:, :])
+        with tracing.root("prefill_step", params.ln_f.scale.device):
+            if mesh is not None:
+                batch = place_batch(batch, plan, mesh)
+            with torch.no_grad(), _rules(mesh, plan):
+                x = TF.embed_inputs(params, cfg, tokens=batch.get("tokens"),
+                                    features=batch.get("features"))
+                h, _ = TF.forward_hidden(params, cfg, x)
+                return TF.logits_fn(params, cfg, h[:, -1:, :])
     return prefill_step
 
 
@@ -170,13 +172,17 @@ def make_decode_step(cfg: ModelConfig, mesh=None,
     ``place_caches``; the tokens are placed by the plan, the logits and
     next tokens are DTensors)."""
     def serve_step(params, tokens, caches, index):
-        if mesh is not None:
-            tokens = place_batch({"tokens": tokens}, plan, mesh)["tokens"]
-        with torch.no_grad(), _rules(mesh, plan):
-            logits, caches = TF.decode_step(params, cfg, tokens, caches, index)
-            next_tok = whole_last_dim(logits).argmax(-1).to(
-                torch.int32)[:, None]
-        return next_tok, logits, caches
+        # the host paces a decode step: its spans are timed on the host's
+        # clock alone (a CUDA event a span edge would slow the step)
+        with tracing.root("decode_step"):
+            if mesh is not None:
+                tokens = place_batch({"tokens": tokens}, plan, mesh)["tokens"]
+            with torch.no_grad(), _rules(mesh, plan):
+                logits, caches = TF.decode_step(params, cfg, tokens, caches,
+                                                index)
+                next_tok = whole_last_dim(logits).argmax(-1).to(
+                    torch.int32)[:, None]
+            return next_tok, logits, caches
     return serve_step
 
 

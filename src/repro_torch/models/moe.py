@@ -24,7 +24,9 @@ combine != 0``).  Positions are running counts of one-hot comparisons
 (``_positions``; no ``bincount``, ``nonzero``, float ``index_add_`` or
 host read), so every shape follows from ``cfg``, B and S, nothing waits
 for the device, and the result does not depend on the order of any
-device reduction of floats.
+device reduction of floats.  The four stages run under the spans
+``moe.route``, ``moe.dispatch``, ``moe.experts`` and ``moe.combine``
+(``runtime/tracing.py``; they record only under a profiler session).
 
 The expert share.  ``MoE(cfg, gen, experts=(lo, hi))`` holds experts
 ``lo..hi-1``: what one device computes under expert parallelism, without
@@ -63,6 +65,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import pspec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.pspec import shard
+from repro_torch.runtime import tracing
 
 
 def capacity(cfg: ModelConfig, n_tokens: int) -> int:
@@ -223,16 +226,19 @@ def _expert_ffn(p: MoE, cfg: ModelConfig, x: torch.Tensor, slot,
     the ``rows`` of the held experts' buffer, its last row zero (where
     the pairs not dispatched here gather)."""
     d = x.shape[1]
-    xe = _dispatch(x, slot, rows, p.experts[1] - p.experts[0])
-    mesh = p.wi.device_mesh if pspec.is_dtensor(p.wi) else None
-    if mesh is not None:
-        # the dispatched rows enter the mesh: every rank holds them whole,
-        # so taking the plan's split is a local slice
-        from torch.distributed.tensor import DTensor
-        xe = DTensor.from_local(xe, mesh, _replicated(mesh), run_check=False)
-        xe = shard(xe, "experts", "expert_cap", None)
-    y = _whole(_ffn(p, cfg, xe))
-    return torch.cat([y.reshape(rows, d), y.new_zeros(1, d)])
+    with tracing.span("moe.dispatch"):
+        xe = _dispatch(x, slot, rows, p.experts[1] - p.experts[0])
+    with tracing.span("moe.experts"):
+        mesh = p.wi.device_mesh if pspec.is_dtensor(p.wi) else None
+        if mesh is not None:
+            # the dispatched rows enter the mesh: every rank holds them
+            # whole, so taking the plan's split is a local slice
+            from torch.distributed.tensor import DTensor
+            xe = DTensor.from_local(xe, mesh, _replicated(mesh),
+                                    run_check=False)
+            xe = shard(xe, "experts", "expert_cap", None)
+        y = _whole(_ffn(p, cfg, xe))
+        return torch.cat([y.reshape(rows, d), y.new_zeros(1, d)])
 
 
 def _combine_rows(y: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
@@ -277,14 +283,16 @@ def forward_einsum(p: MoE, cfg: ModelConfig, x: torch.Tensor
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """The reference's grouped einsum semantics, as gathers: the k slots
     summed in f32, rounded once."""
-    xg, weights, experts, pos, C, aux = assign(p, cfg, x, "einsum")
-    keep = pos < C
-    w = (weights * keep).to(x.dtype)        # the combine weight
-    slot = _slots(p, experts, pos, keep & (w != 0), C)
+    with tracing.span("moe.route"):
+        xg, weights, experts, pos, C, aux = assign(p, cfg, x, "einsum")
+        keep = pos < C
+        w = (weights * keep).to(x.dtype)        # the combine weight
+        slot = _slots(p, experts, pos, keep & (w != 0), C)
     rows = (p.experts[1] - p.experts[0]) * xg.shape[0] * C
     y = _expert_ffn(p, cfg, xg.reshape(-1, x.shape[-1]), slot, rows)
-    out = (_combine_rows(y, slot).float() * w.float()[..., None]).sum(-2)
-    return out.to(x.dtype).reshape(x.shape), aux
+    with tracing.span("moe.combine"):
+        out = (_combine_rows(y, slot).float() * w.float()[..., None]).sum(-2)
+        return out.to(x.dtype).reshape(x.shape), aux
 
 
 def _group_split(cfg: ModelConfig, x: torch.Tensor) -> bool:
@@ -434,12 +442,15 @@ def forward_sort(p: MoE, cfg: ModelConfig, x: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """The reference's sort semantics: each slot's term rounded to the
     activation dtype, the terms added one by one in it."""
-    xt, weights, experts, pos, C, aux = assign(p, cfg, x, "sort")
-    keep = pos < C
-    slot = _slots(p, experts, pos, keep, C)
+    with tracing.span("moe.route"):
+        xt, weights, experts, pos, C, aux = assign(p, cfg, x, "sort")
+        keep = pos < C
+        slot = _slots(p, experts, pos, keep, C)
     y = _expert_ffn(p, cfg, xt[0], slot, (p.experts[1] - p.experts[0]) * C)
-    terms = _combine_rows(y, slot) * (weights * keep).to(x.dtype)[..., None]
-    out = terms[..., 0, :]
-    for j in range(1, cfg.experts_per_token):
-        out = out + terms[..., j, :]
-    return out.reshape(x.shape), aux
+    with tracing.span("moe.combine"):
+        terms = _combine_rows(y, slot) \
+            * (weights * keep).to(x.dtype)[..., None]
+        out = terms[..., 0, :]
+        for j in range(1, cfg.experts_per_token):
+            out = out + terms[..., j, :]
+        return out.reshape(x.shape), aux

@@ -30,6 +30,7 @@ from repro_torch.models import recurrent as REC
 from repro_torch.models import xlstm as XL
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.pspec import is_dtensor, shard, vocab_pick
+from repro_torch.runtime import tracing
 
 
 class FFN(nn.Module):
@@ -118,7 +119,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
 
 
 def _mlp(p: Block, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    return x + MLP.forward(p.mlp, cfg, L.apply_norm(p.ln2, x, cfg.norm))
+    h = L.apply_norm(p.ln2, x, cfg.norm)
+    with tracing.span("mlp"):
+        h = MLP.forward(p.mlp, cfg, h)
+    return x + h
 
 
 def _attn_ffn(p: Block, cfg: ModelConfig, x: torch.Tensor,
@@ -132,6 +136,18 @@ def _attn_ffn(p: Block, cfg: ModelConfig, x: torch.Tensor,
     return x + m, aux
 
 
+def _attention(p: Block, cfg: ModelConfig, kind: str, h: torch.Tensor, rot,
+               cache: dict | None = None, index=None) -> torch.Tensor:
+    """A block's attention under the span ``attention``: over the whole
+    sequence, or one decode step into ``cache`` at ``index``."""
+    local = kind == "local"
+    with tracing.span("attention"):
+        if cache is None:
+            return ATT.forward(p.attn, cfg, h, local=local, rot=rot)
+        return ATT.decode_step(p.attn, cfg, h, cache, index, local=local,
+                               rot=rot)[0]
+
+
 def _block_forward(p: Block, cfg: ModelConfig, kind: str, x: torch.Tensor,
                    rot) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One full-sequence layer; ``rot``: the RoPE tables of attention.
@@ -141,7 +157,7 @@ def _block_forward(p: Block, cfg: ModelConfig, kind: str, x: torch.Tensor,
     x = shard(x, "batch", "seq", None)
     h = L.apply_norm(p.ln1, x, cfg.norm)
     if kind in ("attn", "local"):
-        x = x + ATT.forward(p.attn, cfg, h, local=(kind == "local"), rot=rot)
+        x = x + _attention(p, cfg, kind, h, rot)
         return _attn_ffn(p, cfg, x)
     if kind == "rglru":
         return _mlp(p, cfg, x + REC.forward(p.rec, cfg, h)), None
@@ -156,8 +172,7 @@ def _block_decode(p: Block, cfg: ModelConfig, kind: str, x: torch.Tensor,
     """One layer of a decode step; ``cache`` is updated in place."""
     h = L.apply_norm(p.ln1, x, cfg.norm)
     if kind in ("attn", "local"):
-        x = x + ATT.decode_step(p.attn, cfg, h, cache, index,
-                                local=(kind == "local"), rot=rot)[0]
+        x = x + _attention(p, cfg, kind, h, rot, cache, index)
         return _attn_ffn(p, cfg, x, decode=True)[0]
     if kind == "rglru":
         return _mlp(p, cfg, x + REC.decode_step(p.rec, cfg, h, cache)[0])
