@@ -2,9 +2,11 @@
 """Smoke run of the PyTorch/CUDA port on one H100: ``python3 chip_smoke.py``.
 
 Run from the root of a checkout.  It builds the port's CUDA kernels from
-``src/repro_torch/csrc``, holds each of the seven kernels against its plain
+``src/repro_torch/csrc``, holds each of the eight kernels (the seven TPU
+kernels' ports and the MoE combine, which replaces none) against its plain
 PyTorch version on the card (at the reference's test shapes, at the
-main path's card shapes, at the model zoo's other head sizes and at the
+main path's card shapes, at the MoE combine's expert-parallel prefill
+shape, at the model zoo's other head sizes and at the
 edges of the D = 256 decode and D = 80 flash instances' tiling, where
 one deliberately broken plain version per case must fall outside the
 bound), drives the port's main path — estimate and sweep with
@@ -22,8 +24,8 @@ attention on prefill, decode attention over the 2,048-row rings at
 ``decode_32k``'s batch of 128 and at ``long_500k``), xlstm-1.3b (the
 mLSTM kernel on prefill; its decode runs no kernel), qwen3-moe-235b-a22b
 as one chip's share of its expert-parallel deployment (8 of 128 experts,
-47 of 94 layers; flash attention on prefill, decode attention over
-32,768 rows, the MoE routing recorded), hubert-xlarge (non-causal flash
+47 of 94 layers; flash attention and the MoE combine on prefill, decode
+attention over 32,768 rows, the MoE routing recorded), hubert-xlarge (non-causal flash
 attention on its feature rows; an encoder, prefill only) and
 internvl2-2b (flash attention over patch rows and text, decode attention
 at B 16).  Then ``train``: stablelm-3b trained on the card through
@@ -116,6 +118,14 @@ PEAK_BF16_TENSOR_FLOPS = 989e12   # bf16 on the tensor cores, dense
 #:   2^-7 * spread, plus rtol 1e-2 for the two roundings of the output to
 #:   bf16 (each within 2^-8 of |want|).  The skipped-chunk fault must fall
 #:   outside it, and the parity row prints by what factor.
+#: * the MoE combine sums a token's k weighted rows in f32 in slot order
+#:   and rounds once; the plain version sums the same f32 terms in another
+#:   order, which can move a rounded output by one unit in the last place
+#:   of bf16 at the scale of the terms' absolute sum (also where they
+#:   cancel and the output itself is near zero).  Its spread
+#:   (``combine_spread``) is that unit where a token has two live slots or
+#:   more and 0 elsewhere: a token of at most one live slot is held bit
+#:   for bit;
 #: * the model phase's logits (``logits_check``): the kernel path and the
 #:   plain path (``use_kernels=False``) differ only inside the kernels, but
 #:   both round every activation of every layer to bf16, and once they part
@@ -142,6 +152,7 @@ TOL = {"membench": dict(rtol=1e-6, atol=0.0, of_max=0.0),
        "flash_card": dict(rtol=2e-2, atol=0.0, of_max=0.0, of_spread=2 ** -8),
        "rglru_card": dict(rtol=1e-5, atol=0.0, of_max=1e-5),
        "mlstm_card": dict(rtol=1e-2, atol=0.0, of_max=0.0, of_spread=2 ** -7),
+       "moe_combine_card": dict(rtol=0.0, atol=0.0, of_max=0.0, of_spread=1.0),
        "model_logits": dict(of_floor=2.5)}
 CARD_TOL = {"decode_attention": "bfloat16_card", "flash_attention": "flash_card",
             "rglru_scan": "rglru_card", "mlstm_chunk": "mlstm_card"}
@@ -349,6 +360,7 @@ def kernel_table():
     from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.membench import ops as MB
     from repro_torch.kernels.mlstm_chunk import ops as ML
+    from repro_torch.kernels.moe_combine import ops as MC
     from repro_torch.kernels.rglru import ops as RG
 
     src = "src/repro_torch/csrc/"
@@ -370,7 +382,16 @@ def kernel_table():
                        tpu + "rglru/kernel.py:63 rglru_scan"),
         "mlstm_chunk": (ML.mlstm_chunk, src + "mlstm_chunk.cu",
                         tpu + "mlstm_chunk/kernel.py:92 mlstm_chunk"),
+        "moe_combine": (MC.combine, src + "moe_combine.cu",
+                        "none (port only): the reference combines with an "
+                        "einsum, src/repro/models/moe.py:87 forward_einsum"),
     }
+
+
+#: Kernels that only the model paths launch: the estimator's main path,
+#: ``Session.validate`` and the explorer's ``--validate`` run the seven
+#: TPU kernels' ports alone.
+MODEL_PATH_ONLY = frozenset({"moe_combine"})
 
 
 def randn(shape, seed, device, dtype=None):
@@ -621,6 +642,48 @@ def card_cases(device) -> list[dict]:
             timed=False, fault=True))
     out += head_size_cases(device)
     out += tiling_edge_cases(device)
+    return out + moe_combine_cases(device)
+
+
+def moe_combine_cases(device) -> list[dict]:
+    """The MoE combine (K8) at the expert-parallel prefill's shape
+    (qwen3-moe-235b-a22b, B 2 x 4,096, k 8, d 4,096, bf16), on the slots
+    and weights of a seeded router's ``assign`` and ``_slots`` and expert
+    outputs drawn with their zero row: as one chip's share of 8 experts of
+    128 (the benchmark cell's 5,120 buffer rows, most slots spare) and as
+    a layer that holds all 128 (every kept slot live).  Both timed, both
+    with the fault check."""
+    import types
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_combine import ops as MC
+    from repro_torch.models import moe as MOE
+
+    arch = "qwen3-moe-235b-a22b"
+    cfg = get_config(arch)
+    d, E = cfg.d_model, cfg.n_experts
+    B, S = MODEL_RUNS[arch]["prefill"]
+    out = []
+    for held in ((0, 8), (0, E)):
+        p = types.SimpleNamespace(
+            router=MOE.Router(randn((d, E), 71, device) / d ** 0.5),
+            experts=held)
+        x = randn((B, S, d), 72, device, torch.bfloat16)
+        xg, weights, experts, pos, C, _ = MOE.assign(p, cfg, x, "einsum")
+        keep = pos < C
+        w = (weights * keep).to(x.dtype)
+        slot = MOE._slots(p, experts, pos, keep & (w != 0), C)
+        rows = (held[1] - held[0]) * xg.shape[0] * C
+        y = randn((rows + 1, d), 73, device, x.dtype)
+        y[rows] = 0
+        args = (y, slot, w)
+        out.append(_case(
+            "moe_combine", f"held{held[1] - held[0]}of{E}_" + _shapes(args),
+            lambda a=args: MC.combine(*a), lambda a=args: MC.combine_ref(*a),
+            "moe_combine_card", MC.combine_traffic(y, slot), args=args,
+            ref=MC.combine_ref, timed=True))
     return out
 
 
@@ -792,6 +855,12 @@ def perturbed(name: str, args, want, plain):
         return (f"last {DROPPED_ROWS} keys of every causal range masked, "
                 f"rows >= {h} compared",
                 torch.cat([want[:, :h], bad[:, h:]], dim=1))
+    if name == "moe_combine":
+        y, slot, w = args
+        first_spare = slot.clone()
+        first_spare[..., 0] = y.shape[0] - 1
+        return ("every token's first slot read as spare",
+                plain(y, first_spare, w))
     if name == "rglru_scan":
         a, b = args
         t0 = a.shape[1] // 2
@@ -826,9 +895,12 @@ def _tensors(args):
 def spread(c: dict):
     """Per-element scale of a card case's ``of_spread`` tolerance: for flash
     attention sum_j p_j |v_j|, its plain version run on |v|; for the mLSTM
-    ``chunked_mlstm_spread``; else None."""
+    ``chunked_mlstm_spread``; for the MoE combine ``combine_spread``; else
+    None."""
     if not TOL[c["tol"]].get("of_spread"):
         return None
+    if c["name"] == "moe_combine":
+        return combine_spread(*c["args"])
     if c["name"] == "mlstm_chunk":
         from repro_torch.kernels.mlstm_chunk import ops as ML
 
@@ -836,6 +908,22 @@ def spread(c: dict):
     check(c["name"] == "flash_attention", f"no spread for {c['name']}")
     q, k, v = c["args"]
     return c["ref"](q, k, v.abs()).float()
+
+
+def combine_spread(y, slot, w):
+    """The MoE combine's per-element scale: one unit in the last place of
+    bf16 at the scale of the token's terms' absolute sum where the token
+    has two live slots or more, else 0."""
+    import torch
+
+    from repro_torch.kernels.moe_combine import ops as MC
+
+    check(y.dtype == torch.bfloat16, f"the combine's spread is bf16's, not {y.dtype}'s")
+    terms = MC.combine_rows(y, slot).float() * w.float()[..., None]
+    _, e = torch.frexp(terms.abs().sum(-2))
+    ulp = torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - 8)
+    live = (slot < y.shape[0] - 1).sum(-1, keepdim=True)
+    return torch.where(live >= 2, ulp, torch.zeros_like(ulp))
 
 
 def tolerance(want, tol_key: str, spread=None) -> dict:
@@ -1726,18 +1814,21 @@ def _restore(caches, snap) -> None:
 class first_calls:
     """Within the block, record the arguments of the first call of each
     model-path kernel entry (``ATT.mha``, ``ATT.gqa_decode``,
-    ``REC.rglru_scan``, ``ML.chunked_mlstm``) and of ``XL.slstm_forward``
+    ``REC.rglru_scan``, ``ML.chunked_mlstm``, ``MOE.combine``) and of
+    ``XL.slstm_forward``
     as the model makes it; the calls go through unchanged and are counted
     by the wrappers as ever."""
 
     def __init__(self):
         from repro_torch.kernels.mlstm_chunk import ops as ML
         from repro_torch.models import attention as ATT
+        from repro_torch.models import moe as MOE
         from repro_torch.models import recurrent as REC
         from repro_torch.models import xlstm as XL
 
         self.sites = {"mha": ATT, "gqa_decode": ATT, "rglru_scan": REC,
-                      "chunked_mlstm": ML, "slstm_forward": XL}
+                      "chunked_mlstm": ML, "combine": MOE,
+                      "slstm_forward": XL}
         self.calls: dict = {}
 
     def __enter__(self):
@@ -1878,6 +1969,7 @@ def _layer_checks(calls: dict) -> dict:
     from repro_torch.kernels.decode_attention import ops as DA
     from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.mlstm_chunk import ops as ML
+    from repro_torch.kernels.moe_combine import ops as MC
     from repro_torch.kernels.rglru import ops as RG
 
     out = {}
@@ -1900,6 +1992,9 @@ def _layer_checks(calls: dict) -> dict:
             row = compare(ML.chunked_mlstm(*args, **kw),
                           ML.chunked_mlstm_ref(*args, **kw), "mlstm_card",
                           ML.chunked_mlstm_spread(*args, **kw))
+        elif name == "combine":
+            row = compare(MC.combine(*args), MC.combine_ref(*args),
+                          "moe_combine_card", combine_spread(*args))
         else:
             continue
         err, of_bound, ok = row
@@ -1936,7 +2031,8 @@ def phase_model(device, wrappers: dict, arch: str, runs: dict | None = None,
                 model=None) -> dict:
     """One arch of the zoo served on the card through its entry points:
     (a) ``make_prefill_step`` (K5 once an attention layer, K6 once an
-    RG-LRU layer, K7 once an mLSTM layer), (b) one ``make_decode_step`` at
+    RG-LRU layer, K7 once an mLSTM layer, K8 once an MoE layer of the
+    einsum semantics), (b) one ``make_decode_step`` at
     position 32,767 over states drawn from a seed (K4 once an attention
     layer; the recurrent layers run no kernel), (b') the same at position
     524,287 where the arch runs ``long_500k``, (c) ``BatchedServer`` with
@@ -2043,7 +2139,8 @@ def phase_model(device, wrappers: dict, arch: str, runs: dict | None = None,
         torch.cuda.synchronize()
     launches["prefill"] = counts(
         "prefill", flash_attention=n_attn,
-        rglru_scan=kinds.count("rglru"), mlstm_chunk=kinds.count("mlstm"))
+        rglru_scan=kinds.count("rglru"), mlstm_chunk=kinds.count("mlstm"),
+        moe_combine=n_attn if cfg.is_moe and cfg.moe_impl == "einsum" else 0)
     part_a = {"batch": B, "seq": S,
               "features": tuple(batch["features"].shape)
               if "features" in batch else None,
@@ -3319,7 +3416,7 @@ def phase_examples() -> None:
     for script, row in rows.items():
         check(row["rc"] == 0, f"example {script} exited {row['rc']}: "
               f"{row['stderr_tail']}")
-    check(set(launches) == set(kernel_table())
+    check(set(launches) == set(kernel_table()) - MODEL_PATH_ONLY
           and all(n > 0 for n in launches.values()),
           f"the explorer's --validate launches: {launches}")
 
@@ -3408,7 +3505,8 @@ def phase_kernels(device, card: list[dict], launches: dict,
         _, source, replaces = table[c["name"]]
         by_path = {path: counts[c["name"]] for path, counts in launches.items()}
         out.append({
-            "name": c["name"], "route": "cuda", "source": source,
+            "name": c["name"], "case": c["label"], "route": "cuda",
+            "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": card_err[c["name"]], **_timing(c, device)})
@@ -3479,7 +3577,10 @@ def main() -> int:
     validated = phase_validate(device)
     main_path = {name: fn.launches for name, fn in wrappers.items()}
     for name, count in main_path.items():
-        check(count > 0, f"{name} was never launched on the main path")
+        if name in MODEL_PATH_ONLY:
+            check(count == 0, f"{name} launched {count} times on the main path")
+        else:
+            check(count > 0, f"{name} was never launched on the main path")
 
     # The model paths: each arch's prefill, decode and server, each part
     # with the counts at zero just before it and read just after.

@@ -35,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 #: Every kernel source of the port.
 SOURCES = ("membench", "decode_attention", "flash_attention", "rglru",
-           "mlstm_chunk")
+           "mlstm_chunk", "moe_combine")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -15,7 +15,9 @@ Both run as index gathers on static shapes where the reference's einsum
 form multiplies one-hot tensors ((4, 2048, 128, 160) a layer at the
 card's prefill): the dispatch (E_held, g·C, d) is a gather of token rows,
 the experts' products are batched matrix products over it, and the
-combine is a weighted gather of expert rows.  The combine rounds as
+combine is a weighted gather of expert rows (the einsum form's, with
+``cfg.use_kernels``, one kernel that reads only the rows of held experts:
+``kernels/moe_combine``).  The combine rounds as
 the reference's does: the einsum form sums the k slots in f32 and rounds
 once, the sort form adds slot by slot in the activation dtype; the combine
 weight is cast to the activation dtype first, and the einsum form
@@ -61,6 +63,8 @@ import math
 import torch
 from torch import nn
 
+from repro_torch.kernels.moe_combine.ops import (
+    combine, combine_ref, combine_rows as _combine_rows)
 from repro_torch.models import layers as L
 from repro_torch.models import pspec
 from repro_torch.models.config import ModelConfig
@@ -241,14 +245,6 @@ def _expert_ffn(p: MoE, cfg: ModelConfig, x: torch.Tensor, slot,
         return torch.cat([y.reshape(rows, d), y.new_zeros(1, d)])
 
 
-def _combine_rows(y: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
-    """Each pair's expert output: y's row at its slot, the zero row past
-    the buffer -> (*slot.shape, d)."""
-    rows = y.shape[0] - 1
-    return y.index_select(0, slot.clamp(max=rows).reshape(-1)).reshape(
-        *slot.shape, y.shape[1])
-
-
 def groups(cfg: ModelConfig, B: int, S: int, impl: str
            ) -> tuple[int, int, int]:
     """(groups g, tokens a group n, capacity C) of one semantics."""
@@ -282,7 +278,8 @@ def assign(p: MoE, cfg: ModelConfig, x: torch.Tensor, impl: str):
 def forward_einsum(p: MoE, cfg: ModelConfig, x: torch.Tensor
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """The reference's grouped einsum semantics, as gathers: the k slots
-    summed in f32, rounded once."""
+    summed in f32, rounded once (``combine``; ``combine_ref`` off the
+    kernel path)."""
     with tracing.span("moe.route"):
         xg, weights, experts, pos, C, aux = assign(p, cfg, x, "einsum")
         keep = pos < C
@@ -291,8 +288,11 @@ def forward_einsum(p: MoE, cfg: ModelConfig, x: torch.Tensor
     rows = (p.experts[1] - p.experts[0]) * xg.shape[0] * C
     y = _expert_ffn(p, cfg, xg.reshape(-1, x.shape[-1]), slot, rows)
     with tracing.span("moe.combine"):
-        out = (_combine_rows(y, slot).float() * w.float()[..., None]).sum(-2)
-        return out.to(x.dtype).reshape(x.shape), aux
+        if cfg.use_kernels:
+            out = combine(y, slot, w)
+        else:
+            out = combine_ref(y, slot, w)
+        return out.reshape(x.shape), aux
 
 
 def _group_split(cfg: ModelConfig, x: torch.Tensor) -> bool:
