@@ -4,10 +4,14 @@ metrics, and the result line.
 The layout is the harness's alone (``Layout``): ``BENCHMARK.json`` names
 the cells and metrics; ``workloads/<cell>.json`` holds a cell's traffic
 kind, its parameters and its limits; ``configs/<config>.json`` a
-configuration; ``traffic/<kind>.py`` the code of a traffic kind;
-``metrics/<metric>.py`` the reader of one metric.  A later change adds a
-configuration, a cell, a kind or a metric by adding such files and
-entries, and edits none.
+configuration, which names its model family (``architecture.family``,
+``qwen`` where it names none); ``archs/<family>.py`` the family: its
+sizes, weight draw, reference, counts, kernels and adapter to the program
+(the contract is in ``archs/__init__.py``); ``traffic/<kind>.py`` the
+code of a traffic kind, which reaches the model only through the family
+(``cell.arch``); ``metrics/<metric>.py`` the reader of one metric.  A
+later change adds an architecture, a configuration, a cell, a kind or a
+metric by adding such files and entries, and edits none.
 
 :func:`run_cell` is the whole run; ``run.py`` is its command line.  The
 tests drive it on the CPU at a tiny configuration, past the look for a
@@ -23,6 +27,8 @@ import math
 import pathlib
 import sys
 import time
+
+from portbench.archs import DEFAULT as DEFAULT_FAMILY
 
 HERE = pathlib.Path(__file__).resolve().parent
 #: Top-level module names that no run may load (compared whole: the
@@ -64,8 +70,16 @@ class Layout:
             f"portbench_{sub}_{name.replace('.', '_').replace('-', '_')}",
             path)
         mod = importlib.util.module_from_spec(spec)
+        # registered before it runs, as an import would: a dataclass
+        # looks its module up by name
+        sys.modules[spec.name] = mod
         spec.loader.exec_module(mod)
         return mod
+
+    def arch(self, cfg: dict):
+        """The family module of the configuration ``cfg``."""
+        return self._module("archs", cfg["architecture"].get("family",
+                                                             DEFAULT_FAMILY))
 
     def kind(self, name: str):
         return self._module("traffic", name)
@@ -84,11 +98,13 @@ class Layout:
 
 @dataclasses.dataclass
 class Cell:
-    """What a traffic kind reads: the cell, its sizes and traffic, the
-    seed and the device; ``control``: also compute the control's
-    numbers (the reference in fp8 put in the program's place)."""
+    """What a traffic kind reads: the cell, its family (``arch``, the
+    module ``archs/<family>.py``) and sizes, its traffic, the seed and
+    the device; ``control``: also compute the control's numbers (the
+    reference in fp8 put in the program's place)."""
     name: str
     workload: dict
+    arch: object
     geometry: object
     seed: int
     device: object
@@ -101,6 +117,28 @@ class Cell:
     @property
     def traffic(self) -> dict:
         return self.workload["traffic"]
+
+    def launches_off(self, phase: str, n: int, launched: dict) -> dict:
+        """Each kernel's launches (``launched``) short of, or past, what
+        the family expects of ``n`` prefill calls or decode steps, under
+        the family's name of the number; none are expected off the
+        card."""
+        want = self.arch.expected_launches(self.geometry, phase, n)
+        if self.device.type != "cuda":
+            want = dict.fromkeys(want, 0)
+        return {self.arch.LAUNCH_CHECKS[k]: abs(launched[k] - w)
+                for k, w in want.items()}
+
+    def kernel_bounds(self, phase: str, shapes) -> dict:
+        """Each kernel's bound seconds by the family's counts, summed over
+        ``shapes``: (batch, length) of prefill calls, or (batch,
+        position) of decode steps."""
+        out = {}
+        for b, n in shapes:
+            for k, s in self.arch.kernel_bounds(self.geometry, phase, b,
+                                                n).items():
+                out[k] = out.get(k, 0.0) + s
+        return out
 
     def mark(self, stage: str) -> None:
         """Close the set-up stage ``stage`` (since the previous mark)."""
@@ -140,7 +178,6 @@ def run_cell(layout: Layout, name: str, seed: int, seconds: float,
     import torch
 
     from portbench import port
-    from portbench.spec import geometry
     from portbench.trace import Spans, Tracer, breakdown, summarize
 
     entry = layout.cell(name)
@@ -150,8 +187,9 @@ def run_cell(layout: Layout, name: str, seed: int, seconds: float,
         raise ValueError(f"{name}: BENCHMARK.json names the configuration "
                          f"{entry['config']}, its file {wl['config']}")
     cfg = layout.config(entry["config"])
-    cell = Cell(name=name, workload=wl, geometry=geometry(cfg), seed=seed,
-                device=dev, control=control, marked=t_start)
+    arch = layout.arch(cfg)
+    cell = Cell(name=name, workload=wl, arch=arch, geometry=arch.geometry(cfg),
+                seed=seed, device=dev, control=control, marked=t_start)
     cell.mark("start and imports")
     kind = layout.kind(wl["kind"])
     port.import_program()
@@ -160,7 +198,7 @@ def run_cell(layout: Layout, name: str, seed: int, seconds: float,
         torch.zeros(1, device=dev)
         torch.cuda.reset_peak_memory_stats(dev)
     cell.mark("device init")
-    port.build_kernels(dev)
+    port.build_kernels(arch, dev)
     cell.mark("kernel build")
     st = kind.setup(cell)
     # what set-up made lives to the end: no collection walks it again
@@ -168,7 +206,7 @@ def run_cell(layout: Layout, name: str, seed: int, seconds: float,
     gc.freeze()
     setup_s = time.perf_counter() - t_start
 
-    port.zero_launches()
+    port.zero_launches(arch)
     plain = None
     if trace:
         # the host's clock is read where the profiler does not slow the
@@ -177,11 +215,11 @@ def run_cell(layout: Layout, name: str, seed: int, seconds: float,
         plain = kind.window(cell, st, seconds * UNTRACED_SHARE, Spans())
         plain.pop("outs", None)
         seconds -= plain["seconds"]
-        port.zero_launches()
+        port.zero_launches(arch)
     spans = Spans()
     with Tracer(trace) as tracer:
         rec = kind.window(cell, st, seconds, spans)
-    launched = port.launches()
+    launched = port.launches(arch)
     summary = summarize(tracer, spans, rec["t_first"], rec["t_last"]) \
         if trace else None
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
@@ -207,7 +245,7 @@ def run_cell(layout: Layout, name: str, seed: int, seconds: float,
            "traced": None if not trace else {
                "window": rec, "counts": kind.counts(cell, rec, checked),
                "trace": summary},
-           "geometry": cell.geometry, "device": dev.type}
+           "arch": arch, "geometry": cell.geometry, "device": dev.type}
     metrics = {}
     for m in layout.metrics_of(name, trace):
         value = layout.metric(m["name"]).read(run)

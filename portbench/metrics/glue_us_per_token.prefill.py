@@ -10,6 +10,7 @@ def read(run: dict):
     t = run["traced"]
     if t is None or "calls" not in t["window"]:
         return None
+    kernels = run["arch"].KERNELS
     glue = sum(secs for name, (secs, _) in t["trace"]["by_name"].items()
-               if not is_product(name) and not is_port_kernel(name))
+               if not is_product(name) and not is_port_kernel(name, kernels))
     return glue / t["window"]["tokens"] * 1e6

@@ -1,4 +1,4 @@
-"""Plain float32 PyTorch reference of the benchmark's decoder configurations.
+"""Plain float32 PyTorch reference of the ``qwen`` family.
 
 Written from the published architecture (Qwen2 and Qwen3-MoE: RMSNorm,
 rotate-half RoPE, causal GQA, q/k/v biases or per-head q/k RMSNorm, SwiGLU
@@ -9,7 +9,7 @@ priority; dropped pairs add nothing).  It imports nothing of the program
 and reads only the benchmark's own tensors (``weights.py``), each cast to
 f32 when its layer runs, so it holds one layer's f32 weights at a time.
 
-Every product runs in f32 with TF32 off (:func:`exact_matmuls`).  With
+Every product runs in f32 with TF32 off (``exact_matmuls``).  With
 ``fp8=True`` the inputs of every product the configuration states in bf16
 (projections, experts, head, Q K^T, P V) are rounded to float8 e4m3 with
 one scale a tensor, as an fp8 kernel would take them: the precision below
@@ -23,30 +23,16 @@ import math
 import torch
 import torch.nn.functional as F
 
-from portbench.spec import Geometry
+from portbench.reference import to_fp8
 
 #: Query rows an attention block takes at a time.
 QUERY_BLOCK = 256
-FP8_MAX = 448.0
-
-
-def exact_matmuls() -> None:
-    """f32 products in f32 on the card (no TF32)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-
-
-def to_fp8(t: torch.Tensor) -> torch.Tensor:
-    """``t`` (f32) rounded to float8 e4m3 under one scale, back in f32."""
-    scale = t.abs().amax().clamp(min=1e-30) / FP8_MAX
-    return (t / scale).to(torch.float8_e4m3fn).to(torch.float32) * scale
 
 
 class Reference:
     """The model of ``g`` on ``weights`` (the benchmark's leaves by name)."""
 
-    def __init__(self, g: Geometry, weights: dict, *, fp8: bool = False):
+    def __init__(self, g, weights: dict, *, fp8: bool = False):
         self.g, self.w, self.fp8 = g, weights, fp8
         #: per MoE layer, each row's last-token router margin
         #: (``_near_tie``), where a caller sets it to a list
@@ -78,9 +64,15 @@ class Reference:
         x1, x2 = x[..., :half], x[..., half:]
         return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
 
-    def attend(self, q, k, v, q_pos, k_pos) -> torch.Tensor:
-        """Causal GQA: q (Tq, Hq, D) over k, v (Tk, Hkv, D); a key attends
-        where its position is at most the query's."""
+    def live(self, layer: int, q_pos: torch.Tensor,
+             k_pos: torch.Tensor) -> torch.Tensor:
+        """(Tq, Tk): where a key attends a query in layer ``layer``: where
+        its position is at most the query's."""
+        return k_pos[None, :] <= q_pos[:, None]
+
+    def attend(self, q, k, v, q_pos, k_pos, layer: int) -> torch.Tensor:
+        """Causal GQA in layer ``layer``: q (Tq, Hq, D) over k, v (Tk, Hkv,
+        D), sorted by position; a key attends where :meth:`live` says."""
         g = self.g
         grp = g.n_heads // g.n_kv_heads
         k, v = self._q(k), self._q(v)
@@ -94,7 +86,7 @@ class Reference:
             qq = self._q(q[r0:r0 + n] * scale).reshape(n, g.n_kv_heads, grp,
                                                        g.head_dim)
             s = torch.einsum("qhgd,khd->hgqk", qq, k[:lim])
-            live = k_pos[None, :lim] <= qp[:, None]
+            live = self.live(layer, qp, k_pos[:lim])
             s = s.masked_fill(~live, float("-inf"))
             p = self._q(torch.softmax(s, dim=-1))
             o = torch.einsum("hgqk,khd->qhgd", p, v[:lim])
@@ -167,9 +159,10 @@ class Reference:
     def layer(self, i: int, x: torch.Tensor, pos: torch.Tensor,
               prefix=None):
         """Layer ``i`` over x (R, T, d) at positions ``pos`` (T,), each row
-        attending its own keys and, with ``prefix`` = (k, v) (R, P, Hkv,
-        D) at positions 0..P-1, those first.  Returns (x, (k, v) of the
-        T new positions after RoPE, kept pairs)."""
+        attending its own keys and, with ``prefix`` = (first, (k, v)), k
+        and v (R, P, Hkv, D) at positions first..first+P-1, those first.
+        Returns (x, (k, v) of the T new positions after RoPE, kept
+        pairs)."""
         g = self.g
         pre = f"layers.{i}."
         R, T, d = x.shape
@@ -191,11 +184,13 @@ class Reference:
         for r in range(R):
             kr, vr, kp = k[r], v[r], pos
             if prefix is not None:
-                P = prefix[0].shape[1]
-                kr = torch.cat([prefix[0][r].float(), kr])
-                vr = torch.cat([prefix[1][r].float(), vr])
-                kp = torch.cat([torch.arange(P, device=x.device), pos])
-            att[r] = self.attend(q[r], kr, vr, pos, kp)
+                first, (pk, pv) = prefix
+                P = pk.shape[1]
+                kr = torch.cat([pk[r].float(), kr])
+                vr = torch.cat([pv[r].float(), vr])
+                kp = torch.cat([torch.arange(first, first + P,
+                                             device=x.device), pos])
+            att[r] = self.attend(q[r], kr, vr, pos, kp, i)
         x = x + self.mm(att.reshape(R * T, g.q_dim),
                         self._f(pre + "o_proj.w")).reshape(R, T, d)
         h = self.norm(x, self._f(pre + "post_attention_layernorm")) \
@@ -229,9 +224,10 @@ class Reference:
     def decode_chunk(self, tokens: torch.Tensor, start: int, prefix_of):
         """A dense model's decode steps, teacher-forced: tokens (R, n) fed
         at positions start..start+n-1 of R sequences, each over its prompt
-        ``prefix_of(layer)`` = (k, v) (R, start, Hkv, D) and its earlier
-        steps.  Returns (logits (R, n, V), [(k, v) (R, n, Hkv, D) a
-        layer]): what each step's output and cache write must be."""
+        ``prefix_of(layer)`` = (first, (k, v)), k and v (R, start - first,
+        Hkv, D) at positions first..start-1, and its earlier steps.
+        Returns (logits (R, n, V), [(k, v) (R, n, Hkv, D) a layer]): what
+        each step's output and cache write must be."""
         if self.g.is_moe:
             raise NotImplementedError("the reference decodes dense models "
                                       "only (an MoE decode routes with "

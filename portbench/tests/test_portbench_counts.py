@@ -1,15 +1,16 @@
-"""``counts.py`` against operations and bytes worked out by hand."""
+"""The ``qwen`` family's counts against operations and bytes worked out by
+hand, and ``counts.bound_s``."""
 from __future__ import annotations
 
 import pytest
 
-from portbench import counts as C
+from portbench import counts
+from portbench.archs import qwen as C
 from portbench.harness import HERE, Layout
-from portbench.spec import geometry
 
 LAYOUT = Layout(HERE.parent)
-QWEN2 = geometry(LAYOUT.config("qwen2-7b"))
-MOE = geometry(LAYOUT.config("qwen3-moe-235b-a22b.ep16"))
+QWEN2 = C.geometry(LAYOUT.config("qwen2-7b"))
+MOE = C.geometry(LAYOUT.config("qwen3-moe-235b-a22b.ep16"))
 
 
 def close(a, b, rel=1e-9):
@@ -95,7 +96,7 @@ def test_moe_prefill():
 
 
 def test_bound_takes_the_larger():
-    assert C.bound_s(989e12, 0) == pytest.approx(1.0)
-    assert C.bound_s(0, 3.35e12) == pytest.approx(1.0)
-    assert C.bound_s(989e12, 6.7e12) == pytest.approx(2.0)
-    assert C.bound_s(0, 0, 67e12) == pytest.approx(1.0)
+    assert counts.bound_s(989e12, 0) == pytest.approx(1.0)
+    assert counts.bound_s(0, 3.35e12) == pytest.approx(1.0)
+    assert counts.bound_s(989e12, 6.7e12) == pytest.approx(2.0)
+    assert counts.bound_s(0, 0, 67e12) == pytest.approx(1.0)

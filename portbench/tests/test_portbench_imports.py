@@ -12,12 +12,21 @@ from portbench.harness import FORBIDDEN, HERE
 ROOT = HERE.parent
 
 RUN = """
-import json, pathlib, sys, tempfile, time
+import json, pathlib, shutil, sys, tempfile, time
 sys.path[:0] = [{root!r}, {src!r}]
-from portbench.harness import loaded_forbidden, run_cell
+from portbench.harness import HERE, loaded_forbidden, run_cell
 from portbench.tests import tiny
 layout = tiny.layout(pathlib.Path(tempfile.mkdtemp()))
 for cell in tiny.WORKLOADS:
+    r = run_cell(layout, cell, 5, 0.2, False, t_start=time.perf_counter(),
+                 need_card=False, device="cpu")
+    assert r["correct"], r["checks"]
+# a family added as files (``archs/window.py``) loads none either
+tmp = pathlib.Path(tempfile.mkdtemp())
+shutil.copytree(HERE, tmp / "portbench",
+                ignore=shutil.ignore_patterns("__pycache__"))
+layout = tiny.add_window_family(tmp, tmp / "portbench")
+for cell in tiny.WINDOW_CELLS:
     r = run_cell(layout, cell, 5, 0.2, False, t_start=time.perf_counter(),
                  need_card=False, device="cpu")
     assert r["correct"], r["checks"]

@@ -3,7 +3,9 @@ by its name, ``BENCHMARK.json`` keeps to the benchmark's contract, and a
 cell added as files alone runs with no edit of the harness."""
 from __future__ import annotations
 
+import hashlib
 import json
+import pathlib
 import re
 import shutil
 import time
@@ -11,9 +13,8 @@ import time
 import numpy as np
 import pytest
 
-from portbench import trace
+from portbench import archs, trace
 from portbench.harness import HERE, Layout, run_cell
-from portbench.spec import geometry
 from portbench.tests import tiny
 
 ROOT = HERE.parent
@@ -50,6 +51,12 @@ def test_every_file_is_named_and_every_name_has_a_file():
     # every kind a cell names has a file, and every file is named by a cell
     kinds = {LAYOUT.workload(c)["kind"] for c in CELLS}
     assert sorted(kinds) == names(LAYOUT, "traffic", ".py")
+    # every family a configuration names has a file, and every file is
+    # named by a configuration (``qwen`` where it names none)
+    families = {LAYOUT.config(c["name"])["architecture"].get("family",
+                                                             archs.DEFAULT)
+                for c in BENCH["configs"]}
+    assert sorted(families) == names(LAYOUT, "archs", ".py")
     for c in BENCH["configs"]:
         assert c["file"] == f"portbench/configs/{c['name']}.json"
 
@@ -68,7 +75,7 @@ def test_config(name):
         assert cfg["published"][key] != cfg[key]
         assert not key.endswith(("_size", "_dim", "_rank", "_tok"))
     assert set(cfg.get("published", {})) == set(cfg["reduced"])
-    g = geometry(cfg)
+    g = LAYOUT.arch(cfg).geometry(cfg)
     assert g.n_layers == cfg["num_hidden_layers"]
     assert g.padded_vocab % 256 == 0 and g.padded_vocab >= g.vocab
 
@@ -195,6 +202,47 @@ def test_a_metric_added_as_a_file_is_read(tmp_path):
     assert "calls_per_s" not in r["metrics"]
 
 
+def digests(root) -> dict:
+    return {p.relative_to(root): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in root.rglob("*")
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
+def test_a_family_added_as_files_runs(tmp_path, monkeypatch):
+    """A model family added as files alone to a copy of the benchmark:
+    ``archs/window.py`` (``window_family.py``: sliding-window layers with
+    rings of cache rows among full ones, its own reference, cache shapes
+    and counts), a configuration that names it, a prefill and a decode
+    cell, and their ``BENCHMARK.json`` entries.  Sound seeds read
+    correct, the control does not, the family's counts feed the metrics,
+    and no file of the copy but the new ones changed."""
+    bench_dir = tmp_path / "portbench"
+    shutil.copytree(HERE, bench_dir,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    before = digests(bench_dir)
+    layout = tiny.add_window_family(tmp_path, bench_dir)
+
+    for name in tiny.WINDOW_CELLS:
+        for seed, control in ((41, True), (2**31 + 43, False)):
+            r = run_cell(layout, name, seed, 0.4, False,
+                         t_start=time.perf_counter(), need_card=False,
+                         device="cpu", control=control)
+            assert r["correct"], r["checks"]
+            assert r.get("control_correct") is (False if control else None)
+    # a traced run: the host-clock metrics read the family's counts
+    monkeypatch.setattr(trace, "Tracer", NoDeviceTracer)
+    r = run_cell(layout, "tiny-window.decode", 44, 0.6, True,
+                 t_start=time.perf_counter(), need_card=False, device="cpu")
+    assert r["correct"] and r["metrics"]["mfu.decode"]["value"] > 0
+    after = digests(bench_dir)
+    assert {k: after[k] for k in before} == before
+    assert set(after) - set(before) == {
+        pathlib.Path(p) for p in ("archs/window.py",
+                                  "configs/tiny-window.json",
+                                  "workloads/tiny-window.decode.json",
+                                  "workloads/tiny-window.prefill.json")}
+
+
 class NoDeviceTracer(trace.Tracer):
     """The tracer with no device to profile: it records no event."""
 
@@ -238,8 +286,10 @@ def test_no_card_no_result(monkeypatch):
 
 
 def test_the_layout_copy_is_whole(tmp_path):
-    """``tiny.layout`` copies every kind and metric the real layout has."""
+    """``tiny.layout`` copies every family, kind and metric the real
+    layout has."""
     layout = tiny.layout(tmp_path)
+    assert names(layout, "archs", ".py") == names(LAYOUT, "archs", ".py")
     assert names(layout, "metrics", ".py") == names(LAYOUT, "metrics", ".py")
     assert names(layout, "traffic", ".py") == names(LAYOUT, "traffic", ".py")
     shutil.rmtree(tmp_path / "portbench")

@@ -24,8 +24,8 @@ import torch
 
 from portbench import port, program_spans, trace
 from portbench import weights as W
+from portbench.archs import qwen
 from portbench.harness import HERE, Layout, run_cell
-from portbench.spec import geometry
 from portbench.tests import tiny
 
 DECODE = f"{tiny.DENSE}.decode"
@@ -161,10 +161,11 @@ def test_each_tiny_cell_reads_its_spans_on_the_card(card, tmp_path, cell):
 
 
 def _program(name: str, dev):
-    g = geometry(tiny.configs()[name])
-    cfg = port.model_config(g)
-    port.build_kernels(dev)
-    return g, cfg, port.load_model(g, cfg, W.draw_weights(g, SEED, dev), dev)
+    g = qwen.geometry(tiny.configs()[name])
+    cfg = qwen.model_config(g)
+    port.build_kernels(qwen, dev)
+    return g, cfg, qwen.load_model(g, cfg, W.draw_weights(qwen, g, SEED, dev),
+                                   dev)
 
 
 @pytest.mark.card
@@ -176,8 +177,8 @@ def test_the_spans_clock_is_the_traces(card):
     from repro_torch.runtime import tracing
 
     g, cfg, model = _program(tiny.DENSE, card)
-    step = port.decode_step(cfg)
-    caches = port.init_caches(cfg, 4, 64, card)
+    step = qwen.make_decode_step(cfg)
+    caches = qwen.init_caches(cfg, 4, 64, card)
     tok = torch.ones((4, 1), dtype=torch.int32, device=card)
     index = torch.full((1,), 8, dtype=torch.int64, device=card)
     step(model, tok, caches, index)

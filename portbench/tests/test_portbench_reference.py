@@ -13,14 +13,13 @@ import dataclasses
 import pytest
 import torch
 
-from portbench import port
 from portbench import weights as W
-from portbench.reference.model import Reference
-from portbench.spec import geometry
+from portbench.archs import qwen
+from portbench.archs.qwen import Reference
 from portbench.tests import tiny
 
 CPU = torch.device("cpu")
-GEOMETRY = {name: geometry(c) for name, c in tiny.configs().items()}
+GEOMETRY = {name: qwen.geometry(c) for name, c in tiny.configs().items()}
 
 
 def rel(a, b) -> float:
@@ -30,11 +29,11 @@ def rel(a, b) -> float:
 
 def program(g, seed: int, dtype: str):
     """The program's model on the benchmark's weights, in ``dtype``."""
-    cfg = dataclasses.replace(port.model_config(g), dtype=dtype)
-    weights = W.draw_weights(g, seed, CPU)
+    cfg = dataclasses.replace(qwen.model_config(g), dtype=dtype)
+    weights = W.draw_weights(qwen, g, seed, CPU)
     if dtype == "float32":
         weights = {k: v.float() for k, v in weights.items()}
-    return cfg, port.load_model(g, cfg, weights, CPU)
+    return cfg, qwen.load_model(g, cfg, weights, CPU)
 
 
 @pytest.mark.parametrize("name", [tiny.DENSE, tiny.MOE])
@@ -43,8 +42,9 @@ def test_prefill_f32_agrees(name, batch, seq):
     g = GEOMETRY[name]
     cfg, model = program(g, 5, "float32")
     tokens = W.token_pool(5, "t", batch, seq, g.vocab, CPU)
-    got = port.prefill_step(cfg)(model, {"tokens": tokens})[:, 0, :g.vocab]
-    ref = Reference(g, W.draw_weights(g, 5, CPU))
+    got = qwen.make_prefill_step(cfg)(model, {"tokens": tokens})[:, 0,
+                                                                 :g.vocab]
+    ref = Reference(g, W.draw_weights(qwen, g, 5, CPU))
     want, kept = ref.prefill_last(tokens)
     assert rel(got, want) < 1e-5
     if g.is_moe:
@@ -57,7 +57,7 @@ def test_decode_f32_agrees():
     g = GEOMETRY[tiny.DENSE]
     cfg, model = program(g, 6, "float32")
     B, P, n, max_len = 3, 20, 6, 32
-    caches = port.init_caches(cfg, B, max_len, CPU)
+    caches = qwen.init_caches(cfg, B, max_len, CPU)
     for i, c in enumerate(caches):
         W.fill_cache(c["k"], 6, i, "k")
         W.fill_cache(c["v"], 6, i, "v")
@@ -70,14 +70,14 @@ def test_decode_f32_agrees():
         c["k"].copy_(k)
         c["v"].copy_(v)
     inputs = W.token_pool(6, "in", B, n, g.vocab, CPU).long()
-    step = port.decode_step(cfg)
+    step = qwen.make_decode_step(cfg)
     got = []
     for j in range(n):
         _, logits, _ = step(model, inputs[:, j:j + 1], caches,
                             torch.tensor([P + j]))
         got.append(logits[:, :g.vocab])
-    want, kv = Reference(g, W.draw_weights(g, 6, CPU)).decode_chunk(
-        inputs, P, lambda i: (prompt[i][0][:, :P], prompt[i][1][:, :P]))
+    want, kv = Reference(g, W.draw_weights(qwen, g, 6, CPU)).decode_chunk(
+        inputs, P, lambda i: (0, (prompt[i][0][:, :P], prompt[i][1][:, :P])))
     assert rel(torch.stack(got, 1), want) < 1e-5
     for c, (k, v) in zip(caches, kv):
         assert rel(c["k"][:, P:P + n], k) < 1e-5
@@ -88,8 +88,9 @@ def test_bf16_inside_and_fp8_outside_the_limits():
     g = GEOMETRY[tiny.DENSE]
     cfg, model = program(g, 7, "bfloat16")
     tokens = W.token_pool(7, "t", 2, 32, g.vocab, CPU)
-    got = port.prefill_step(cfg)(model, {"tokens": tokens})[:, 0, :g.vocab]
-    weights = W.draw_weights(g, 7, CPU)
+    got = qwen.make_prefill_step(cfg)(model, {"tokens": tokens})[:, 0,
+                                                                 :g.vocab]
+    weights = W.draw_weights(qwen, g, 7, CPU)
     want, _ = Reference(g, weights).prefill_last(tokens)
     fp8, _ = Reference(g, weights, fp8=True).prefill_last(tokens)
     limit = tiny.LIMITS["prefill"]["logits_rel_l2"]

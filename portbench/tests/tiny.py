@@ -76,12 +76,12 @@ WORKLOADS = {
 
 def layout(tmp: pathlib.Path, source: Layout | None = None) -> Layout:
     """The tiny layout under ``tmp``: ``BENCHMARK.json`` and a copy of the
-    kinds and metrics of ``source`` (the benchmark's own layout by
-    default), with the tiny files.  Each tiny cell reports the metrics
+    families, kinds and metrics of ``source`` (the benchmark's own layout
+    by default), with the tiny files.  Each tiny cell reports the metrics
     that ``source``'s cells of its traffic kind report."""
     source = source or Layout(HERE.parent)
     bench = tmp / "portbench"
-    for sub in ("traffic", "metrics"):
+    for sub in ("archs", "traffic", "metrics"):
         shutil.copytree(source.dir / sub, bench / sub,
                         ignore=shutil.ignore_patterns("__pycache__"))
     (bench / "configs").mkdir()
@@ -114,3 +114,58 @@ def layout(tmp: pathlib.Path, source: Layout | None = None) -> Layout:
                       per_layer=retarget(real["per_layer"]))
     (tmp / "BENCHMARK.json").write_text(json.dumps(bench_json))
     return Layout(tmp, bench)
+
+
+WINDOW = "tiny-window"
+#: The tiny ``window`` family's cells (``window_family.py``): sliding-
+#: window layers (window 16) among full ones, sequences longer than the
+#: window.  Limits from CPU readings of 12 seeds with windows of 0.4 /
+#: 0.3 s (four with the control): sound runs read at most 0.031 / 0.021 /
+#: 0.012 (decode: served-token gap, last logits, written K/V rows) and
+#: 0.023 / 0.050 (prefill: logits, top-16 rank gap); the fp8 control at
+#: least 0.16 / 0.106 / 0.14 and 0.155 / 0.27.
+WINDOW_CELLS = {
+    f"{WINDOW}.decode": dict(
+        kind="decode_closed_loop",
+        limits={"token_gap": 0.08, "logits_rel_l2": 0.05,
+                "kv_rows_rel_l2": 0.04, "k4_launches_off": 0},
+        traffic={"batch": 4, "prompt": 40, "max_len": 64, "new_tokens": 8,
+                 "pool_batches": 4, "warmup_steps": 2, "check_rows": 2}),
+    f"{WINDOW}.prefill": dict(
+        kind="prefill_batches",
+        limits={"logits_rel_l2": 0.06, "top_gap": 0.12,
+                "k5_launches_off": 0},
+        traffic={"tokens_per_call": 64, "shapes": [[2, 32], [1, 64]],
+                 "pool_calls": 8, "warmup_calls": 1,
+                 "check_calls_per_shape": 1}),
+}
+
+
+def add_window_family(tmp: pathlib.Path, bench_dir: pathlib.Path) -> Layout:
+    """A copy of the benchmark at ``bench_dir`` (under ``tmp``) with the
+    tiny ``window`` family added as a family is: ``archs/window.py``, a
+    configuration naming it (the tiny dense one, three layers, pattern
+    local, local, attn), a workload file a cell, and ``tmp``'s
+    ``BENCHMARK.json``: the benchmark's, with the cells added to it and
+    to the metrics their kind's cells report."""
+    source = Layout(HERE.parent)
+    shutil.copy(HERE / "tests" / "window_family.py",
+                bench_dir / "archs" / "window.py")
+    cfg = dict(configs()[DENSE], name=WINDOW, num_hidden_layers=3)
+    cfg["architecture"] = dict(cfg["architecture"], family="window",
+                               pattern=["local", "local", "attn"], window=16)
+    (bench_dir / "configs" / f"{WINDOW}.json").write_text(json.dumps(cfg))
+    bench = json.loads(json.dumps(source.bench))
+    for name, w in WINDOW_CELLS.items():
+        w = dict(w, name=name, config=WINDOW, why="tiny")
+        (bench_dir / "workloads" / f"{name}.json").write_text(json.dumps(w))
+        bench["workloads"].append({"name": name, "config": WINDOW,
+                                   "traffic": name.split(".", 1)[1],
+                                   "chips": 1, "why": "tiny"})
+        same = {c["name"] for c in source.bench["workloads"]
+                if source.workload(c["name"])["kind"] == w["kind"]}
+        for m in bench["end_to_end"] + bench["per_layer"]:
+            if same & set(m.get("workloads", [])):
+                m["workloads"].append(name)
+    (tmp / "BENCHMARK.json").write_text(json.dumps(bench))
+    return Layout(tmp, bench_dir)

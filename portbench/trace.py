@@ -178,7 +178,7 @@ def is_product(name: str) -> bool:
     return any(f in low for f in PRODUCTS)
 
 
-def is_port_kernel(name: str) -> bool:
-    from portbench.port import KERNELS
-
-    return any(f in name for frags in KERNELS.values() for f in frags)
+def is_port_kernel(name: str, kernels: dict) -> bool:
+    """Whether ``name`` is one of the program's own kernels, ``kernels``
+    a family's ``KERNELS``."""
+    return any(f in name for frags in kernels.values() for f in frags)

@@ -8,10 +8,12 @@ seed (call i takes batch i modulo the pool); ``warmup_calls`` a shape in
 set-up; ``check_calls_per_shape`` calls of each shape, drawn from the seed
 among those the window issued, that the reference judges.
 
-The window issues ``make_prefill_step`` calls until ``seconds`` have
-passed on the host's clock, then waits for the card: every issued call
-counts, and so does the time the queued ones take.  A call's output is
-its last-position logits, kept on the card until the window closes.
+The window issues the family's ``make_prefill_step`` calls until
+``seconds`` have passed on the host's clock, then waits for the card:
+every issued call counts, and so does the time the queued ones take.  A
+call's output is its last-position logits, kept on the card until the
+window closes.  The model, its weights, reference and counts are the
+family's (``cell.arch``).
 """
 from __future__ import annotations
 
@@ -20,10 +22,8 @@ import time
 import numpy as np
 import torch
 
-from portbench import counts as C
-from portbench import port
 from portbench import weights as W
-from portbench.reference.model import Reference, exact_matmuls
+from portbench.reference import exact_matmuls
 
 
 def _shapes(cell) -> list[tuple[int, int]]:
@@ -37,16 +37,17 @@ def _shapes(cell) -> list[tuple[int, int]]:
 
 
 def setup(cell) -> dict:
-    g, p, dev = cell.geometry, cell.traffic, cell.device
-    cfg = port.model_config(g)
-    model = port.load_model(g, cfg, W.draw_weights(g, cell.seed, dev), dev)
+    arch, g, p, dev = cell.arch, cell.geometry, cell.traffic, cell.device
+    cfg = arch.model_config(g)
+    model = arch.load_model(g, cfg, W.draw_weights(arch, g, cell.seed, dev),
+                            dev)
     cell.mark("weights")
     shapes = _shapes(cell)
     rng = np.random.default_rng(W.seed_of(cell.seed, "order"))
     order = [int(i) for i in rng.permutation(len(shapes))]
     pool = W.token_pool(cell.seed, "prompts", p["pool_calls"],
                         p["tokens_per_call"], g.vocab, dev)
-    step = port.prefill_step(cfg)
+    step = arch.make_prefill_step(cfg)
     for b, s in shapes:
         for _ in range(p["warmup_calls"]):
             step(model, {"tokens": pool[0].view(b, s)})
@@ -117,17 +118,17 @@ def check(cell, out: dict, rec: dict, launched: dict) -> dict:
     """The numbers ``correct`` compares (each the worst over the judged
     rows), the control's where ``cell.control``, and what the counts of
     the metrics need (the reference's kept expert pairs a call)."""
-    g, dev = cell.geometry, cell.device
+    arch, g, dev = cell.arch, cell.geometry, cell.device
     exact_matmuls()
-    weights = W.draw_weights(g, cell.seed, dev)
-    ref = Reference(g, weights)
-    ctl = Reference(g, weights, fp8=True) if cell.control else None
+    weights = W.draw_weights(arch, g, cell.seed, dev)
+    ref = arch.Reference(g, weights)
+    ctl = arch.Reference(g, weights, fp8=True) if cell.control else None
     rels, gaps, c_rels, c_gaps, kept, margins = [], [], [], [], [], []
     for call in out["calls"]:
         ref.margins = [] if g.is_moe else None
         want, n_kept = ref.prefill_last(call["tokens"])
         kept.append(n_kept)
-        if g.is_moe:
+        if ref.margins:
             margins += torch.stack(ref.margins).min(0).values.tolist()
         r, gp = _rows(want, call["logits"][:, :g.vocab].float())
         rels += r
@@ -137,10 +138,8 @@ def check(cell, out: dict, rec: dict, launched: dict) -> dict:
             r, gp = _rows(want, c)
             c_rels += r
             c_gaps += gp
-    want_launches = rec["calls"] * g.n_layers if dev.type == "cuda" else 0
-    numbers = {"logits_rel_l2": max(rels), "top_gap": max(gaps),
-               "k5_launches_off": abs(launched["flash_attention"]
-                                      - want_launches)}
+    numbers = {"logits_rel_l2": max(rels), "top_gap": max(gaps)}
+    numbers.update(cell.launches_off("prefill", rec["calls"], launched))
     result = {"numbers": numbers,
               "rows": {"logits_rel_l2": rels, "top_gap": gaps,
                        "held_router_margin": margins},
@@ -154,14 +153,12 @@ def check(cell, out: dict, rec: dict, launched: dict) -> dict:
 
 
 def counts(cell, rec: dict, checked: dict) -> dict:
-    """The window's work by the counts of ``counts.py``: every call's
-    bound, and K5's over its launches."""
-    g = cell.geometry
+    """The window's work by the family's counts: every call's bound, and
+    each kernel's over its launches."""
+    arch, g = cell.arch, cell.geometry
     kept = checked.get("kept_pairs_per_call", 0.0)
-    step = sum(C.prefill_call(g, b, s, kept)["bound_s"]
+    step = sum(arch.prefill_call(g, b, s, kept)["bound_s"]
                for b, s in rec["shapes"])
-    k5 = sum(C.flash_attention(g, b, s)["bound_s"]
-             for b, s in rec["shapes"]) * g.n_layers
     return {"step_bound_s": step,
-            "kernel_bound_s": {"flash_attention": k5},
+            "kernel_bound_s": cell.kernel_bounds("prefill", rec["shapes"]),
             "tokens": rec["tokens"], "calls": rec["calls"]}

@@ -8,8 +8,10 @@ program's state is freed, bit for bit, instead of reading the program's.
 The weights are drawn in the dtypes the program serves (bf16 products and
 biases; f32 norms and MoE router), one ``randn`` a layer for each dtype
 (``ALIGN``-element slots in one buffer, each leaf a view scaled in place),
-never leaf by leaf and never on the host.  Names are the benchmark's own
-(Hugging Face's, with weights stored (in, out)); ``port.py`` maps them to
+never leaf by leaf and never on the host.  Which leaves, in which shapes
+and dtypes, is the family's plan (``archs/<family>.py``: ``layer_leaves``,
+``top_leaves``); names are the benchmark's own (Hugging Face's, with
+weights stored (in, out)), and the family's ``load_model`` maps them to
 the program's.
 """
 from __future__ import annotations
@@ -18,8 +20,6 @@ import hashlib
 import math
 
 import torch
-
-from portbench.spec import Geometry
 
 #: Each leaf starts at a multiple of this many elements of its buffer.
 ALIGN = 256
@@ -43,50 +43,9 @@ def generator(device, seed: int, *tags) -> torch.Generator:
     return gen
 
 
-def _fan_in(shape) -> float:
+def fan_in(shape) -> float:
+    """The N(0, 1/fan_in) scale of a product's weight stored (in, out)."""
     return 1.0 / math.sqrt(shape[-2])
-
-
-def layer_leaves(g: Geometry) -> list[tuple[str, tuple, str, tuple]]:
-    """(name, shape, dtype, (how, scale)) of one layer's leaves; ``how`` is
-    ``normal`` (scale times N(0, 1)) or ``one_plus`` (1 + scale N(0, 1))."""
-    d, q, kv = g.d_model, g.q_dim, g.kv_dim
-    bf, f32 = "bfloat16", "float32"
-    out = [("input_layernorm", (d,), f32, ("one_plus", NORM_STD))]
-    for name, cols in (("q_proj", q), ("k_proj", kv), ("v_proj", kv)):
-        out.append((f"{name}.w", (d, cols), bf,
-                    ("normal", _fan_in((d, cols)))))
-        if g.qkv_bias:
-            out.append((f"{name}.b", (cols,), bf, ("normal", BIAS_STD)))
-    out.append(("o_proj.w", (q, d), bf, ("normal", _fan_in((q, d)))))
-    if g.qk_norm:
-        out += [("q_norm", (g.head_dim,), f32, ("one_plus", NORM_STD)),
-                ("k_norm", (g.head_dim,), f32, ("one_plus", NORM_STD))]
-    out.append(("post_attention_layernorm", (d,), f32,
-                ("one_plus", NORM_STD)))
-    f = g.d_ff
-    if g.is_moe:
-        e = g.n_held
-        out += [("mlp.router", (d, g.router_outputs), f32,
-                 ("normal", ROUTER_STD)),
-                ("mlp.experts.gate_proj", (e, d, f), bf,
-                 ("normal", _fan_in((d, f)))),
-                ("mlp.experts.up_proj", (e, d, f), bf,
-                 ("normal", _fan_in((d, f)))),
-                ("mlp.experts.down_proj", (e, f, d), bf,
-                 ("normal", _fan_in((f, d))))]
-    else:
-        out += [("mlp.gate_proj", (d, f), bf, ("normal", _fan_in((d, f)))),
-                ("mlp.up_proj", (d, f), bf, ("normal", _fan_in((d, f)))),
-                ("mlp.down_proj", (f, d), bf, ("normal", _fan_in((f, d))))]
-    return out
-
-
-def top_leaves(g: Geometry) -> list[tuple[str, tuple, str, tuple]]:
-    d, v = g.d_model, g.padded_vocab
-    return [("embed_tokens", (v, d), "bfloat16", ("normal", EMBED_STD)),
-            ("norm", (d,), "float32", ("one_plus", NORM_STD)),
-            ("lm_head", (d, v), "bfloat16", ("normal", _fan_in((d, v))))]
 
 
 def _draw(leaves, device, seed: int, *tags) -> dict[str, torch.Tensor]:
@@ -109,29 +68,32 @@ def _draw(leaves, device, seed: int, *tags) -> dict[str, torch.Tensor]:
     return out
 
 
-def draw_layer(g: Geometry, seed: int, i: int, device) -> dict:
-    """Layer ``i``'s leaves, by their names without the layer prefix."""
-    return _draw(layer_leaves(g), device, seed, "layer", i)
+def draw_layer(arch, g, seed: int, i: int, device) -> dict:
+    """Layer ``i``'s leaves by the family ``arch``'s plan, by their names
+    without the layer prefix."""
+    return _draw(arch.layer_leaves(g, i), device, seed, "layer", i)
 
 
-def draw_top(g: Geometry, seed: int, device) -> dict:
+def draw_top(arch, g, seed: int, device) -> dict:
     out = {}
-    for leaf in top_leaves(g):
+    for leaf in arch.top_leaves(g):
         out.update(_draw([leaf], device, seed, leaf[0]))
     return out
 
 
-def draw_weights(g: Geometry, seed: int, device) -> dict[str, torch.Tensor]:
-    """Every leaf, layer leaves as ``layers.<i>.<name>``."""
-    out = draw_top(g, seed, device)
+def draw_weights(arch, g, seed: int, device) -> dict[str, torch.Tensor]:
+    """Every leaf of the family ``arch``'s plan (``archs/<family>.py``),
+    layer leaves as ``layers.<i>.<name>``."""
+    out = draw_top(arch, g, seed, device)
     for i in range(g.n_layers):
         out.update({f"layers.{i}.{k}": v
-                    for k, v in draw_layer(g, seed, i, device).items()})
+                    for k, v in draw_layer(arch, g, seed, i, device).items()})
     return out
 
 
 def fill_cache(t: torch.Tensor, seed: int, layer: int, which: str) -> None:
-    """A whole K or V cache tensor drawn N(0, 1) in place."""
+    """A whole cache tensor (the family's ``cache_leaves``, tag
+    ``which``) drawn N(0, 1) in place."""
     t.normal_(generator=generator(t.device, seed, "cache", layer, which))
 
 
