@@ -276,7 +276,8 @@ def sass_counts(lib) -> dict:
 
 #: Kernel instances whose registers and spills the build phase reports by
 #: name (``ptxas_report``): this port's newest designs.
-PTXAS_REPORTED = ("decode_bulkILi256E", "flash_wgmmaILi80E", "flash_wgmmaILi256E")
+PTXAS_REPORTED = ("decode_bulkILi256E", "flash_wgmmaILi80E", "flash_wgmmaILi192E",
+                  "flash_wgmmaILi256E")
 #: Instances that must build with no spill and no ptxas performance note
 #: (``check_ptxas``): flash attention at D = 256, whose wgmmas ptxas
 #: serialized (C7512) while its registers did not suffice.
@@ -765,7 +766,9 @@ def head_size_cases(device) -> list[dict]:
     x S 2048 (the 80-column instance), and decode at B 8 over 8,192 rows;
     qwen3-moe-235b-a22b's prefill (64 query heads over 4 kv heads of 128,
     B 2 x S 4096, causal) and hubert-xlarge's (16 heads of 80, B 2 x S
-    4096, not causal); recurrentgemma-9b's local-attention decode (16
+    4096, not causal); DeepSeek-V3's latent attention (128 heads of 192
+    and 128, B 1 x S 16,384, causal: the 192/128 instance);
+    recurrentgemma-9b's local-attention decode (16
     query heads over one kv head of 256) at B 8 and at B 128 over its
     2,048-row ring; qwen3-moe-235b-a22b's decode at B 8 over 32,768 rows.
     Each carries a fault check."""
@@ -806,6 +809,23 @@ def head_size_cases(device) -> list[dict]:
             lambda a=qkv, r=ref: r(*a), "flash_card",
             FA.flash_attention_traffic(*qkv, causal=causal), args=qkv, ref=ref,
             timed=False, fault=True, head_size=True, causal=causal))
+    # DeepSeek-V3's latent attention on prefill: 128 heads of 192 (q, k)
+    # and 128 (v, the output), B 1 x S 16,384, causal, at its softmax
+    # scale; v a view of kv_b's output, as the model takes it (names of
+    # their own: the first case's lambdas read q, k and v late)
+    from repro_torch.configs.deepseek import DEEPSEEK_V3
+    mla_q, mla_k = (randn((1, 16384, 128, 192), 111 + i, device,
+                          torch.bfloat16) for i in range(2))
+    mla_v = randn((1, 16384, 128, 256), 113, device,
+                  torch.bfloat16)[..., 128:]
+    mla_qkv = (mla_q, mla_k, mla_v)
+    mla = functools.partial(FA.attention_ref, scale=DEEPSEEK_V3.softmax_scale)
+    out.append(_case(
+        "flash_attention", "deepseek-v3_mla_prefill_" + _shapes(mla_qkv),
+        lambda a=mla_qkv: FA.mha(*a, scale=DEEPSEEK_V3.softmax_scale),
+        lambda a=mla_qkv, r=mla: r(*a), "flash_card",
+        FA.flash_attention_traffic(*mla_qkv), args=mla_qkv, ref=mla,
+        timed=False, fault=True, head_size=True))
     # decode: stablelm-3b, recurrentgemma-9b's ring at B 8 and 128, and
     # qwen3-moe-235b-a22b (a group of 16 query heads a kv head: one whole
     # tensor-core tile, kMmaG = 16)
@@ -3556,7 +3576,8 @@ def main() -> int:
           "compiled": built, "ptxas": ptxas, "registers_and_spills": registers,
           "bulk_ctas_per_sm": residency, "sass": sass})
     check_sass(sass)
-    check(len(registers) == 2 + 8 + 8, f"ptxas report of {PTXAS_REPORTED}: {sorted(registers)}")
+    check(len(registers) == 2 + 8 + 2 + 8,
+          f"ptxas report of {PTXAS_REPORTED}: {sorted(registers)}")
     check_ptxas(registers)
     for shape, r in residency.items():
         check(r["predicted"] == r["card"], f"decode_bulk at {shape}: ops.bulk_ctas_per_sm "

@@ -22,7 +22,7 @@
 // masked here, and no tensor is ever padded.  Two kernels, chosen by dtype
 // and head size (the wrapper names the path, `kernel_path` in ops.py):
 //
-// * flash_wgmma (bfloat16, D in {64, 80, 128, 256}, the model path), laid out as
+// * flash_wgmma (bfloat16, D in {64, 80, 128, 192, 256}, the model path), laid out as
 //   FlashAttention-3.  At D = 256 its layout is its own (Wg256 below: two
 //   warpgroups and no producer, 64-key tiles, persistent CTAs); at D = 64,
 //   80 and 128, three warpgroups.  The producer warpgroup gives up its
@@ -56,6 +56,14 @@
 //   one ex2.approx; the softcap's tanh is 1 - 2 / (2^(2x log2 e) + 1), one
 //   more ex2 and a division.  O is staged in shared memory (over this
 //   group's Q rows) and written back in 16-byte stores.
+//   D = 192 is latent attention's pair (DeepSeek-V3's MLA prefill): q and k
+//   of 192 columns (128 without position, 64 rotated), v and the output of
+//   128, as FlashAttention-3 instantiates it.  Q and K tiles are three
+//   64-column blocks, V and O two; S and O are the D = 128 instance's
+//   accumulators, and Q·Kᵀ takes 12 k steps where D = 128 takes 8.  Two K/V
+//   stages: three would be 48 KB of Q and 3 x 80 KB of K and V, more than a
+//   CTA's 227 KB; two are 208 KB.  Padding q and k to 256 and v to 256 would
+//   do 1.6 times the work.
 // * flash_simt (float32, or D < 64): CUDA cores, fp32 throughout; one lane per
 //   key for the scores, one lane per channel for P·V, 4 rows per warp.
 #include <cuda.h>
@@ -82,12 +90,25 @@ struct Params {
   void* out;
   int Sq, Skv, Hkv, G;
   int BH;                   // B * Hkv
-  int dq;                   // head size of q, k, v, out (the kernel's D)
+  int dq;                   // head size of q and k (the kernel's D)
   long long qsb, qsh, qss;  // q and out strides (batch, head, position)
   long long ksb, ksh, kss;  // k and v strides
   int causal, window;       // window <= 0: none
   float scale, softcap;     // softcap <= 0: none
+  // head size of v and out (WgCfg::DV), and their strides, which the
+  // instances of WgCfg read; flash_simt and Wg256 read k's strides for v
+  // and q's for out, and take p only where they are the same
+  // (same_layouts)
+  int dv;
+  long long vsb, vsh, vss, osb, osh, oss;
 };
+
+// Whether v and out have q's and k's head size and k's and q's strides:
+// what the instances that read no strides of their own for them take.
+bool same_layouts(const Params& p) {
+  return p.dv == p.dq && p.vsb == p.ksb && p.vsh == p.ksh && p.vss == p.kss && p.osb == p.qsb &&
+         p.osh == p.qsh && p.oss == p.qss;
+}
 
 // Key range [lo, hi) that rows of positions [pos_lo, pos_hi] may see.
 __device__ __forceinline__ void key_range(const Params& p, int pos_lo, int pos_hi, int& lo,
@@ -148,14 +169,18 @@ __device__ __forceinline__ int swz(int r, int c, int block, int width) {
   return (c / n) * block + r * width + (((c % n) ^ ((r * width >> 7) % n)) << 4);
 }
 
-// D = 64, 80 and 128; D = 256 takes Wg256 below.
+// D = 64, 80, 128 and 192 (v and O of 128); D = 256 takes Wg256 below.
 template <int D>
 struct WgCfg {
-  static_assert(D <= 128, "flash_wgmma: D = 256 takes Wg256");
+  static_assert(D <= 128 || D == 192, "flash_wgmma: D = 256 takes Wg256");
   static constexpr int BN = 128;                    // keys per tile
-  // K/V ring depth: three tiles beside Q (at D = 80 four were slower).
-  static constexpr int STAGES = 3;
-  static constexpr int NC = D / 64;                 // 64-column (128-byte) blocks
+  // Head size of V and O: D, but 128 beside the 192 of Q and K.
+  static constexpr int DV = D == 192 ? 128 : D;
+  // K/V ring depth: three tiles beside Q (at D = 80 four were slower); two
+  // at D = 192, where three do not fit.
+  static constexpr int STAGES = D == 192 ? 2 : 3;
+  static constexpr int NC = D / 64;                 // 64-column (128-byte) blocks of Q, K
+  static constexpr int NV = DV / 64;                // ... of V, O
   // Columns past the 64-column blocks: one 16-column (32-byte) block under
   // the 32-byte swizzle at D = 80, one swizzle atom wide.
   static constexpr int TAIL = D % 64;
@@ -172,11 +197,13 @@ struct WgCfg {
   static constexpr int Q_BLOCK = kRows * 128;       // bytes of one column block of Q
   static constexpr int KV_BLOCK = BN * 128;         // ... of K or V
   static constexpr int KV_TAIL = BN * TAIL * 2;     // ... of K's or V's tail block
-  static constexpr int KV_TILE = NC * KV_BLOCK + KV_TAIL;  // one tile of K (or V)
+  static constexpr int K_TILE = NC * KV_BLOCK + KV_TAIL;  // one tile of K
+  static constexpr int V_TILE = NV * KV_BLOCK + KV_TAIL;  // ... of V
   static constexpr int Q_BYTES = NC * Q_BLOCK + kRows * TAIL * 2;
-  static constexpr int BAR_OFF = Q_BYTES + 2 * STAGES * KV_TILE;
+  static constexpr int BAR_OFF = Q_BYTES + STAGES * (K_TILE + V_TILE);
   // 1024 bytes of slack to align the swizzled tiles, then the barriers.
   static constexpr size_t SMEM = 1024 + BAR_OFF + 3 * STAGES * sizeof(uint64_t);
+  static_assert(SMEM <= 232448, "flash_wgmma: more shared memory than a CTA may have");
 
   // Byte offset of 16-byte chunk c of row r of Q (and of O, staged over
   // it): the 128-byte-swizzled blocks, then the tail block's 32-byte rows.
@@ -656,7 +683,7 @@ __global__ void __launch_bounds__(D == 256 ? 2 * kWgThreads : kThreads, 1)
     uint8_t* sm = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
     uint8_t* Qs = sm;                                   // [NC][kRows][128 B], [kRows][32 B]
     uint8_t* Ks = Qs + C::Q_BYTES;                      // [STAGES][NC][BN][128 B], [BN][32 B]
-    uint8_t* Vs = Ks + C::STAGES * C::KV_TILE;
+    uint8_t* Vs = Ks + C::STAGES * C::K_TILE;
     uint64_t* full_k = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
     uint64_t* full_v = full_k + C::STAGES;
     uint64_t* empty = full_v + C::STAGES;
@@ -736,22 +763,22 @@ __global__ void __launch_bounds__(D == 256 ? 2 * kWgThreads : kThreads, 1)
             const int s = it % C::STAGES;
             sm90::mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);
             const int key0 = (t_lo + i) * BN;
-            sm90::mbar_arrive_expect_tx(&full_k[s], C::KV_TILE);
+            sm90::mbar_arrive_expect_tx(&full_k[s], C::K_TILE);
 #pragma unroll
             for (int c = 0; c < C::NC; ++c)
-              sm90::tma_load_4d(Ks + s * C::KV_TILE + c * C::KV_BLOCK, &tmk, &full_k[s], 64 * c,
+              sm90::tma_load_4d(Ks + s * C::K_TILE + c * C::KV_BLOCK, &tmk, &full_k[s], 64 * c,
                                 key0, h, b);
             if constexpr (C::TAIL > 0)
-              sm90::tma_load_4d(Ks + s * C::KV_TILE + C::NC * C::KV_BLOCK, &tmk_tail, &full_k[s],
+              sm90::tma_load_4d(Ks + s * C::K_TILE + C::NC * C::KV_BLOCK, &tmk_tail, &full_k[s],
                                 64 * C::NC, key0, h, b);
-            sm90::mbar_arrive_expect_tx(&full_v[s], C::KV_TILE);
+            sm90::mbar_arrive_expect_tx(&full_v[s], C::V_TILE);
 #pragma unroll
-            for (int c = 0; c < C::NC; ++c)
-              sm90::tma_load_4d(Vs + s * C::KV_TILE + c * C::KV_BLOCK, &tmv, &full_v[s], 64 * c,
+            for (int c = 0; c < C::NV; ++c)
+              sm90::tma_load_4d(Vs + s * C::V_TILE + c * C::KV_BLOCK, &tmv, &full_v[s], 64 * c,
                                 key0, h, b);
             if constexpr (C::TAIL > 0)
-              sm90::tma_load_4d(Vs + s * C::KV_TILE + C::NC * C::KV_BLOCK, &tmv_tail, &full_v[s],
-                                64 * C::NC, key0, h, b);
+              sm90::tma_load_4d(Vs + s * C::V_TILE + C::NV * C::KV_BLOCK, &tmv_tail, &full_v[s],
+                                64 * C::NV, key0, h, b);
           }
         }
       }
@@ -771,9 +798,9 @@ __global__ void __launch_bounds__(D == 256 ? 2 * kWgThreads : kThreads, 1)
       const uint8_t* q_tail = Qs + C::NC * C::Q_BLOCK + 64 * w * 32;
 
       // O over the 64-column blocks and over the tail block; oc(i) is
-      // element i of the whole row of D / 2 (constant i once unrolled).
-      float o[32 * C::NC], ot[C::TAIL > 0 ? C::TAIL / 2 : 1];
-      auto oc = [&](int i) -> float& { return i < 32 * C::NC ? o[i] : ot[i - 32 * C::NC]; };
+      // element i of the whole row of DV / 2 (constant i once unrolled).
+      float o[32 * C::NV], ot[C::TAIL > 0 ? C::TAIL / 2 : 1];
+      auto oc = [&](int i) -> float& { return i < 32 * C::NV ? o[i] : ot[i - 32 * C::NV]; };
       // Running max (log2 units; -inf until a live key) and sum of each row.
       float m[2], l[2];
       float sc[BN / 2];                 // S of the current tile, then its P
@@ -837,7 +864,7 @@ __global__ void __launch_bounds__(D == 256 ? 2 * kWgThreads : kThreads, 1)
       int it = 0;
       uint32_t pa[BN / 16][4];
       auto issue_s = [&](int i) {
-        const uint8_t* kt = Ks + ((it + i) % C::STAGES) * C::KV_TILE;
+        const uint8_t* kt = Ks + ((it + i) % C::STAGES) * C::K_TILE;
 #pragma unroll
         for (int ks = 0; ks < 4 * C::NC; ++ks)
           sm90::wgmma_ss<BN>(
@@ -849,14 +876,14 @@ __global__ void __launch_bounds__(D == 256 ? 2 * kWgThreads : kThreads, 1)
         sm90::wgmma_commit();
       };
       auto issue_pv = [&](int i) {
-        const uint8_t* vt = Vs + ((it + i) % C::STAGES) * C::KV_TILE;
+        const uint8_t* vt = Vs + ((it + i) % C::STAGES) * C::V_TILE;
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk) {
-          sm90::wgmma_rs<64 * C::NC>(o, pa[kk],
+          sm90::wgmma_rs<64 * C::NV>(o, pa[kk],
                                      sm90::desc_sw128(vt + kk * 2048, C::KV_BLOCK, 1024));
           if constexpr (C::TAIL > 0)
             sm90::wgmma_rs<C::TAIL>(
-                ot, pa[kk], sm90::desc_sw32(vt + C::NC * C::KV_BLOCK + kk * 512, C::KV_TAIL, 256));
+                ot, pa[kk], sm90::desc_sw32(vt + C::NV * C::KV_BLOCK + kk * 512, C::KV_TAIL, 256));
         }
         sm90::wgmma_commit();
       };
@@ -870,7 +897,7 @@ __global__ void __launch_bounds__(D == 256 ? 2 * kWgThreads : kThreads, 1)
           pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
         }
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        for (int j = 0; j < C::DV / 8; ++j) {
           oc(4 * j) *= alpha[0];
           oc(4 * j + 1) *= alpha[0];
           oc(4 * j + 2) *= alpha[1];
@@ -921,7 +948,7 @@ __global__ void __launch_bounds__(D == 256 ? 2 * kWgThreads : kThreads, 1)
         w_lo = (R0 + 64 * w) / p.G;
         w_hi = (R0 + 64 * w + 63) / p.G;
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) oc(i) = 0.f;
+        for (int i = 0; i < C::DV / 2; ++i) oc(i) = 0.f;
         m[0] = m[1] = -kInf;
         l[0] = l[1] = 0.f;
 
@@ -1005,18 +1032,18 @@ __global__ void __launch_bounds__(D == 256 ? 2 * kWgThreads : kThreads, 1)
           const float inv = 1.f / fmaxf(lt, 1e-30f);
           const int r = row0 + 8 * hr;
 #pragma unroll
-          for (int j = 0; j < D / 8; ++j)
+          for (int j = 0; j < C::DV / 8; ++j)
             *reinterpret_cast<uint32_t*>(Qs + C::q_off(r, j) + 4 * (lane % 4)) =
                 pack_bf16(oc(4 * j + 2 * hr) * inv, oc(4 * j + 2 * hr + 1) * inv);
         }
         sm90::bar_sync(kGroupBar + w, kWgThreads);
         auto* out = static_cast<__nv_bfloat16*>(p.out);
-        for (int e = tid; e < 64 * D / 8; e += kWgThreads) {
-          const int r = 64 * w + e / (D / 8), c = e % (D / 8);
+        for (int e = tid; e < 64 * C::DV / 8; e += kWgThreads) {
+          const int r = 64 * w + e / (C::DV / 8), c = e % (C::DV / 8);
           const int R = R0 + r;
           if (R < n_rows)
-            *reinterpret_cast<uint4*>(out + b * p.qsb + (long long)(h * p.G + R % p.G) * p.qsh +
-                                      (long long)(R / p.G) * p.qss + c * 8) =
+            *reinterpret_cast<uint4*>(out + b * p.osb + (long long)(h * p.G + R % p.G) * p.osh +
+                                      (long long)(R / p.G) * p.oss + c * 8) =
                 *reinterpret_cast<const uint4*>(Qs + C::q_off(r, c));
         }
         if constexpr (!C::PERSISTENT) break;
@@ -1204,6 +1231,7 @@ cudaError_t launch_wgmma(const Params& p, int B, cudaStream_t s) {
   cudaError_t err;
   if constexpr (D == 256) {
     using C = Wg256;
+    if (!same_layouts(p)) return cudaErrorInvalidValue;
     // K and V as (64 columns, Skv, 4 column blocks, Hkv, B), a tile one box
     // that lands as the four 64-column blocks one after another; Q as (D,
     // G, Sq, Hkv, B), one box a consumer group's 64 rows: 64 / G whole
@@ -1231,15 +1259,16 @@ cudaError_t launch_wgmma(const Params& p, int B, cudaStream_t s) {
                                                                          tmq);
   } else {
     using C = WgCfg<D>;
+    if (p.dv != C::DV) return cudaErrorInvalidValue;
     CUtensorMap tmk, tmv, tmk_tail, tmv_tail;
     if (!kv_map(&tmk, p.k, B, p.Hkv, p.Skv, D, p.ksb, p.ksh, p.kss, C::BN, 64) ||
-        !kv_map(&tmv, p.v, B, p.Hkv, p.Skv, D, p.ksb, p.ksh, p.kss, C::BN, 64))
+        !kv_map(&tmv, p.v, B, p.Hkv, p.Skv, C::DV, p.vsb, p.vsh, p.vss, C::BN, 64))
       return cudaErrorInvalidValue;
     tmk_tail = tmk;
     tmv_tail = tmv;
     if (C::TAIL > 0 &&
         (!kv_map(&tmk_tail, p.k, B, p.Hkv, p.Skv, D, p.ksb, p.ksh, p.kss, C::BN, C::TAIL) ||
-         !kv_map(&tmv_tail, p.v, B, p.Hkv, p.Skv, D, p.ksb, p.ksh, p.kss, C::BN, C::TAIL)))
+         !kv_map(&tmv_tail, p.v, B, p.Hkv, p.Skv, C::DV, p.vsb, p.vsh, p.vss, C::BN, C::TAIL)))
       return cudaErrorInvalidValue;
     if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     (int)C::SMEM)) != cudaSuccess)
@@ -1267,8 +1296,17 @@ cudaError_t dispatch_wgmma(const Params& p, int B, cudaStream_t s) {
   return launch_wgmma<D, false, true, true>(p, B, s);
 }
 
+// D = 192 (latent attention's prefill) builds the causal and the full
+// instances only: no window and no cap.
+cudaError_t dispatch_wgmma192(const Params& p, int B, cudaStream_t s) {
+  if (p.window > 0 || p.softcap > 0.f) return cudaErrorInvalidValue;
+  if (p.causal) return launch_wgmma<192, true, false, false>(p, B, s);
+  return launch_wgmma<192, false, false, false>(p, B, s);
+}
+
 template <typename T, int D>
 cudaError_t launch_simt(const Params& p, int B, cudaStream_t s) {
+  if (!same_layouts(p)) return cudaErrorInvalidValue;
   const size_t smem = simt_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_simt<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1294,26 +1332,32 @@ cudaError_t dispatch_simt(const Params& p, int D, int B, cudaStream_t s) {
 }  // namespace
 
 // path: 0 = flash_simt (float32 or bfloat16, D in {16, 32, 64, 80, 128, 256}),
-// 1 = flash_wgmma (bfloat16, D in {64, 80, 128, 256}); dtype: 0 = float32, 1 =
-// bfloat16.  q and out: (B, Hq = Hkv * G, Sq, D) views with element strides
-// (qsb, qsh, qss, 1); k and v: (B, Hkv, Skv, D) views with strides (ksb, ksh,
-// kss, 1).  The wgmma path needs 16-byte aligned bases and strides.  window
-// <= 0 means no window, softcap <= 0 no cap.
-extern "C" int flash_attention(int path, int dtype, int D, const void* q, const void* k,
+// 1 = flash_wgmma (bfloat16, D in {64, 80, 128, 192, 256}); dtype: 0 = float32,
+// 1 = bfloat16.  q: (B, Hq = Hkv * G, Sq, D) views with element strides (qsb,
+// qsh, qss, 1); k: (B, Hkv, Skv, D) views with strides (ksb, ksh, kss, 1); v:
+// (B, Hkv, Skv, Dv) with strides (vsb, vsh, vss, 1); out: (B, Hq, Sq, Dv)
+// with strides (osb, osh, oss, 1).  Dv is the instance's: 128 on the wgmma
+// path at D = 192 (WgCfg::DV), D elsewhere; flash_simt and the D = 256
+// instance take v in k's layout and out in q's alone.  The wgmma path needs
+// 16-byte aligned bases and strides.  window <= 0 means no
+// window, softcap <= 0 no cap.
+extern "C" int flash_attention(int path, int dtype, int D, int Dv, const void* q, const void* k,
                                const void* v, void* out, int B, int Hkv, int G, int Sq, int Skv,
                                long long qsb, long long qsh, long long qss, long long ksb,
-                               long long ksh, long long kss, int causal, int window,
-                               float scale, float softcap, void* stream) {
+                               long long ksh, long long kss, long long vsb, long long vsh,
+                               long long vss, long long osb, long long osh, long long oss,
+                               int causal, int window, float scale, float softcap, void* stream) {
   if (B < 1 || Hkv < 1 || G < 1 || Sq < 1 || Skv < 1 || B * Hkv > 65535)
     return cudaErrorInvalidValue;
   const Params p{q, k, v, out, Sq, Skv, Hkv, G, B * Hkv, D, qsb, qsh, qss, ksb, ksh, kss,
-                 causal, window, scale, softcap};
+                 causal, window, scale, softcap, Dv, vsb, vsh, vss, osb, osh, oss};
   const auto s = static_cast<cudaStream_t>(stream);
   if (path == 1 && dtype == 1) {
     switch (D) {
       case 64: return dispatch_wgmma<64>(p, B, s);
       case 80: return dispatch_wgmma<80>(p, B, s);
       case 128: return dispatch_wgmma<128>(p, B, s);
+      case 192: return dispatch_wgmma192(p, B, s);
       case 256: return dispatch_wgmma<256>(p, B, s);
       default: return cudaErrorInvalidValue;
     }

@@ -17,6 +17,12 @@ No tensor is padded: where the reference's ``mha`` pads D to 128 lanes,
 the tensor-core kernel at D = 80 (stablelm-3b's and hubert-xlarge's) runs
 an 80-column instance, a 64-column block and a 16-column tail block, so
 that no product touches a column past 80.
+
+v may be narrower than q and k for one pair alone (``V_HEAD_DIMS``):
+latent attention's prefill (DeepSeek-V3's MLA), q and k of 192 columns
+(128 without position, 64 rotated) and v of 128, which the tensor-core
+kernel runs as an instance of its own (bfloat16, no window, no cap).  The
+output has v's head size.  Every other mismatch raises.
 """
 from __future__ import annotations
 
@@ -36,8 +42,11 @@ NEG_INF = -1e30
 ROW_BLOCK = 512
 #: Head sizes the bfloat16 wgmma kernel takes; every other (dtype, D) runs on
 #: the CUDA cores.
-WGMMA_HEAD_DIMS = (64, 80, 128, 256)
+WGMMA_HEAD_DIMS = (64, 80, 128, 192, 256)
 _PATHS = {"simt": 0, "wgmma": 1}
+#: v's head size where it is not q's and k's, by theirs: the pairs that
+#: only the wgmma kernel runs (bfloat16, no window, no cap).
+V_HEAD_DIMS = {192: 128}
 
 
 def kernel_path(dtype: torch.dtype, D: int) -> str:
@@ -49,8 +58,9 @@ def kernel_path(dtype: torch.dtype, D: int) -> str:
 
 def attention_ref(q, k, v, *, causal=True, window=None, softcap=0.0,
                   scale=None, q_offset=0):
-    """q: (B, Sq, Hq, D), k, v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D), float32
-    math; query row i sits at position ``q_offset + i``.
+    """q: (B, Sq, Hq, D), k: (B, Skv, Hkv, D), v: (B, Skv, Hkv, Dv) ->
+    (B, Sq, Hq, Dv), float32 math; query row i sits at position
+    ``q_offset + i``.
 
     The reference oracle's masked softmax, taken ``ROW_BLOCK`` query rows
     at a time.
@@ -61,7 +71,8 @@ def attention_ref(q, k, v, *, causal=True, window=None, softcap=0.0,
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     kf, vf = k.float(), v.float()
     kp = torch.arange(Skv, device=q.device)
-    out = torch.empty((B, Sq, Hq, D), dtype=torch.float32, device=q.device)
+    Dv = v.shape[3]
+    out = torch.empty((B, Sq, Hq, Dv), dtype=torch.float32, device=q.device)
     for r0 in range(0, Sq, ROW_BLOCK):
         n = min(ROW_BLOCK, Sq - r0)
         qq = q[:, r0:r0 + n].float().reshape(B, n, Hkv, G, D) * scale
@@ -78,20 +89,27 @@ def attention_ref(q, k, v, *, causal=True, window=None, softcap=0.0,
                         torch.full_like(s, NEG_INF))
         p = torch.softmax(s, dim=-1) * mask.any(-1)[None, :, None, None, None]
         out[:, r0:r0 + n] = torch.einsum("bqhgk,bkhd->bqhgd", p, vf) \
-            .reshape(B, n, Hq, D)
+            .reshape(B, n, Hq, Dv)
     return out.to(q.dtype)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
                     softcap: float = 0.0, block_q: int = 512,
                     block_kv: int = 512, scale: float | None = None):
-    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in q's
-    dtype and layout.  Each may be a view whose last dimension is
-    contiguous; k and v share one layout."""
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+    """q: (B, Hq, Sq, D); k: (B, Hkv, Skv, D); v: (B, Hkv, Skv, Dv) -> (B,
+    Hq, Sq, Dv) in q's dtype and order of dimensions; Dv is D but for the
+    pairs of ``V_HEAD_DIMS``.  Each may be a view whose last dimension is
+    contiguous; off the wgmma kernel's instances of D <= 192 the kernel
+    takes q dense and k and v views of one layout alone."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} must be (B, H, S, D)")
     B, Hq, Sq, D = q.shape
+    Dv = v.shape[3]
+    if Dv != k.shape[3] and V_HEAD_DIMS.get(k.shape[3]) != Dv:
+        raise ValueError(f"v's head size {Dv} differs from k's {k.shape[3]}: "
+                         f"only the pairs {V_HEAD_DIMS} run")
     Hkv, Skv = k.shape[1], k.shape[2]
     if k.shape[0] != B or k.shape[3] != D or Hkv < 1 or Hq % Hkv:
         raise ValueError(f"k {tuple(k.shape)} does not match q {tuple(q.shape)} "
@@ -114,16 +132,25 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash attention takes float32 or bfloat16 q, k, v "
                         "of one dtype")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head size {D} not in {HEAD_DIMS}")
-    out = torch.empty_like(q)
-    if q.stride(3) != 1 or k.stride() != v.stride() or k.stride(3) != 1 \
-            or out.stride() != q.stride():
-        raise ValueError("q must be a dense view and k, v views of one layout, "
-                         "each with a contiguous last dimension")
     path = kernel_path(q.dtype, D)
+    if D in V_HEAD_DIMS:
+        if path != "wgmma" or Dv != V_HEAD_DIMS[D] or window is not None \
+                or softcap:
+            raise ValueError(f"head size {D} runs as the {D}/{V_HEAD_DIMS[D]} "
+                             "pair, on the tensor cores in bfloat16, with no "
+                             "window and no cap")
+    elif D not in HEAD_DIMS:
+        raise ValueError(f"head size {D} not in {HEAD_DIMS}")
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("q, k and v must each have a contiguous last "
+                         "dimension")
+    # dense, in q's order of dimensions, outermost first
+    order = sorted(range(4), key=lambda i: -q.stride(i))
+    out = q.new_empty([(B, Hq, Sq, Dv)[i] for i in order]) \
+        .permute([order.index(i) for i in range(4)])
     if path == "wgmma" and (
-            any(s % 8 for s in (*q.stride()[:3], *k.stride()[:3]))
+            any(s % 8 for s in (*q.stride()[:3], *k.stride()[:3],
+                                *v.stride()[:3]))
             or any(t.data_ptr() % 16 for t in (q, k, v))):
         raise ValueError("the tensor-core kernel needs 16-byte aligned rows")
     if out.numel() == 0:
@@ -133,12 +160,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     ll = ctypes.c_longlong
     f = ctypes.c_float
     lib = compat.load("flash_attention", flash_attention=[
-        i, i, i, p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, ll, i, i, f, f, p])
+        i, i, i, i, p, p, p, p, i, i, i, i, i, *[ll] * 12, i, i, f, f, p])
     err = lib.flash_attention(
-        _PATHS[path], _DTYPES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), B, Hkv, Hq // Hkv, Sq, Skv,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
+        _PATHS[path], _DTYPES[q.dtype], D, Dv, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(), B, Hkv, Hq // Hkv, Sq, Skv,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         int(bool(causal)), int(window or 0), scale, float(softcap),
         compat.stream_ptr(q.device))
     compat.check_launch(err, "flash_attention")
@@ -150,14 +176,16 @@ flash_attention.launches = 0
 
 
 def mha(q, k, v, *, causal: bool = True, window: int | None = None,
-        softcap: float = 0.0, block_q: int = 512, block_kv: int = 512):
-    """q: (B, Sq, Hq, D), k, v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D)."""
+        softcap: float = 0.0, block_q: int = 512, block_kv: int = 512,
+        scale: float | None = None):
+    """q: (B, Sq, Hq, D), k: (B, Skv, Hkv, D), v: (B, Skv, Hkv, Dv) ->
+    (B, Sq, Hq, Dv); ``scale`` defaults to 1 / sqrt(D)."""
     if q.dim() != 4:
         raise ValueError(f"q {tuple(q.shape)} must be (B, S, H, D)")
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), causal=causal, window=window,
                           softcap=softcap, block_q=block_q, block_kv=block_kv,
-                          scale=1.0 / math.sqrt(q.shape[3]))
+                          scale=scale)
     return out.transpose(1, 2)
 
 
@@ -173,13 +201,15 @@ def live_pairs(Sq: int, Skv: int, *, causal: bool = True,
 
 def flash_attention_traffic(q, k, v, *, causal: bool = True,
                             window: int | None = None) -> dict:
-    """Bytes and flops of one ``mha`` call on (B, S, H, D) inputs: q, k, v
-    read once and the output written once, contiguous rows (``stream``); 4·D
-    flops (Q·Kᵀ and P·V) for every live (query, key) pair of every query
-    head."""
+    """Bytes and flops of one ``mha`` call on (B, S, H, D) inputs (v and
+    the output of Dv columns): q, k, v read once and the output written
+    once, contiguous rows (``stream``); 2·(D + Dv) flops (Q·Kᵀ and P·V) for
+    every live (query, key) pair of every query head."""
     B, Sq, Hq, D = q.shape
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    Dv = v.shape[3]
+    nbytes = (q.numel() + B * Sq * Hq * Dv + k.numel() + v.numel()) \
+        * q.element_size()
     pairs = live_pairs(Sq, k.shape[1], causal=causal, window=window)
-    return {"flops": float(4 * B * Hq * D * pairs),
+    return {"flops": float(2 * B * Hq * (D + Dv) * pairs),
             "total_bytes": float(nbytes),
             "bytes_by_class": {"stream": float(nbytes)}}

@@ -28,6 +28,7 @@ pattern group and each block when autograd records, as the reference does.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -256,3 +257,94 @@ class ModelConfig:
             return 2.0 * n_act + kv + state + 2.0 * batch * self.padded_vocab * 2
         # prefill
         return 2.0 * n_act + act_rw / 2.0 + logits
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig(ModelConfig):
+    """A model of latent-attention (``"mla"``) blocks, as DeepSeek-V3
+    publishes them (``modeling_deepseek.py``): attention through low-rank
+    q and kv paths (``models/mla.py``), queries and keys of ``qk_nope_dim
+    + qk_rope_dim`` columns and values of ``v_head_dim``, RoPE on the
+    ``qk_rope_dim`` columns at YaRN frequencies; the first
+    ``n_dense_layers`` layers a dense MLP of ``d_ff_dense``, the rest an
+    MoE layer of ``n_experts`` experts of ``d_ff``, routed by sigmoid
+    scores over ``n_group`` groups (``models/moe.py``), beside
+    ``n_shared_experts`` experts every token passes through.  The
+    reference has no such model; the fields of ``ModelConfig`` keep their
+    meaning, and ``n_kv_heads`` equals ``n_heads``."""
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+    # YaRN (rope_scaling): factor, the trained context, the correction
+    # rotations, and the two mscales of the softmax scale and the tables
+    rope_factor: float = 1.0
+    rope_original_max: int = 4096
+    rope_beta_fast: float = 32.0
+    rope_beta_slow: float = 1.0
+    rope_mscale: float = 1.0
+    rope_mscale_all_dim: float = 0.0
+    # routing (the MoE layers)
+    scoring_func: str = "sigmoid"
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scaling_factor: float = 1.0
+    norm_topk_prob: bool = True
+    n_shared_experts: int = 0
+    n_dense_layers: int = 0
+    d_ff_dense: int = 0
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_dim + self.qk_rope_dim
+
+    @staticmethod
+    def _yarn_mscale(factor: float, mscale: float) -> float:
+        return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+    @property
+    def softmax_scale(self) -> float:
+        """``qk_head_dim ** -0.5``, times YaRN's ``mscale(factor,
+        mscale_all_dim)`` squared where ``mscale_all_dim`` is set."""
+        scale = self.qk_head_dim ** -0.5
+        if self.rope_mscale_all_dim:
+            m = self._yarn_mscale(self.rope_factor, self.rope_mscale_all_dim)
+            scale *= m * m
+        return scale
+
+    @property
+    def rope_table_scale(self) -> float:
+        """The factor on YaRN's cos and sin tables."""
+        return (self._yarn_mscale(self.rope_factor, self.rope_mscale)
+                / self._yarn_mscale(self.rope_factor,
+                                    self.rope_mscale_all_dim))
+
+    def is_dense_layer(self, i: int) -> bool:
+        return i < self.n_dense_layers or not self.is_moe
+
+    def _mla_params(self) -> int:
+        d, H = self.d_model, self.n_heads
+        return (d * self.q_lora_rank + self.q_lora_rank
+                + self.q_lora_rank * H * self.qk_head_dim
+                + d * (self.kv_lora_rank + self.qk_rope_dim)
+                + self.kv_lora_rank
+                + self.kv_lora_rank * H * (self.qk_nope_dim + self.v_head_dim)
+                + H * self.v_head_dim * d)
+
+    def _layer_params(self, i: int, active: bool) -> int:
+        d = self.d_model
+        out = self._mla_params() + 2 * d
+        if self.is_dense_layer(i):
+            return out + 3 * d * self.d_ff_dense
+        experts = self.experts_per_token if active else self.n_experts
+        return (out + (experts + self.n_shared_experts) * 3 * d * self.d_ff
+                + self.n_experts * (d + 1))   # the router and its bias
+
+    def param_count(self) -> int:
+        return self._embed_params() + sum(
+            self._layer_params(i, False) for i in range(self.n_layers))
+
+    def active_param_count(self) -> int:
+        return self._embed_params() + sum(
+            self._layer_params(i, True) for i in range(self.n_layers))

@@ -30,12 +30,26 @@ device reduction of floats.  The four stages run under the spans
 ``moe.route``, ``moe.dispatch``, ``moe.experts`` and ``moe.combine``
 (``runtime/tracing.py``; they record only under a profiler session).
 
+Two routers (``_router``).  ``softmax`` (every config of the zoo): the
+top-k of the softmax over every expert, renormalized.  ``sigmoid``
+(``MLAConfig.scoring_func``, DeepSeek-V3's ``noaux_tc`` gate): sigmoid
+scores, plus a correction bias (``router.bias``) that only chooses; the
+best ``topk_group`` of ``n_group`` groups, each scored by the sum of its
+two best biased scores; the top-k of the biased scores inside them; the
+weights the unbiased scores of the choice, renormalized
+(``norm_topk_prob``) and times ``routed_scaling_factor``.  Both in f32,
+ties to the lower group and expert.  A config with ``n_shared_experts``
+adds the shared experts' MLP (``shared``, under the span ``moe.shared``)
+for every token.
+
 The expert share.  ``MoE(cfg, gen, experts=(lo, hi))`` holds experts
 ``lo..hi-1``: what one device computes under expert parallelism, without
 the exchange.  The router, the top-k, the capacity and every pair's
 position stay over all ``n_experts``; the layer computes the rows of its
 own experts, a slot routed elsewhere adds zero, and the aux loss is the
-whole layer's.  The default holds every expert and is the reference layer.
+whole layer's.  A shared expert is every share's, as data-parallel
+attention ranks each compute it for their own tokens.  The default holds
+every expert and is the reference layer.
 
 Under a mesh the experts' weights are DTensors split as the plan splits
 them (expert-parallel over ``experts``, or tensor-parallel inside each
@@ -66,6 +80,7 @@ from torch import nn
 from repro_torch.kernels.moe_combine.ops import (
     combine, combine_ref, combine_rows as _combine_rows)
 from repro_torch.models import layers as L
+from repro_torch.models import mlp as MLP
 from repro_torch.models import pspec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.pspec import shard
@@ -80,17 +95,26 @@ def capacity(cfg: ModelConfig, n_tokens: int) -> int:
 
 class Router(nn.Module):
     """``w`` (d, E): the router, multiplied in f32 whatever the activation
-    dtype (not a ``Dense``, so ``convert.to_serving`` leaves it f32)."""
+    dtype (not a ``Dense``, so ``convert.to_serving`` leaves it f32);
+    ``bias`` (E,): the sigmoid router's correction bias, or None."""
 
-    def __init__(self, w: torch.Tensor):
+    def __init__(self, w: torch.Tensor, bias: torch.Tensor | None = None):
         super().__init__()
         self.w = nn.Parameter(w, requires_grad=False)
+        self.bias = None if bias is None else nn.Parameter(
+            bias, requires_grad=False)
+
+
+def _sigmoid(cfg: ModelConfig) -> bool:
+    return getattr(cfg, "scoring_func", "softmax") == "sigmoid"
 
 
 class MoE(nn.Module):
-    """``router.w`` (d, E) f32; ``wi``, ``wg`` (E_held, d, f) and ``wo``
-    (E_held, f, d) for the held experts ``experts = (lo, hi)`` (default:
-    all of them)."""
+    """``router.w`` (d, E) f32 (and ``router.bias`` (E,) f32 for the
+    sigmoid router); ``wi``, ``wg`` (E_held, d, f) and ``wo`` (E_held, f,
+    d) for the held experts ``experts = (lo, hi)`` (default: all of them);
+    ``shared``, the shared experts' MLP (``n_shared_experts`` · f wide), or
+    None."""
 
     serving_cast = ("wi", "wg", "wo")
 
@@ -105,7 +129,9 @@ class MoE(nn.Module):
         init = dict(generator=gen, dtype=getattr(torch, cfg.param_dtype),
                     device=device)
         held = hi - lo
-        self.router = Router(torch.randn((d, E), **init).mul_(0.02))
+        self.router = Router(torch.randn((d, E), **init).mul_(0.02),
+                             torch.zeros(E, dtype=init["dtype"], device=device)
+                             if _sigmoid(cfg) else None)
         lim = 1.0 / math.sqrt(d)
         self.wi = nn.Parameter(torch.randn((held, d, f), **init).mul_(lim),
                                requires_grad=False)
@@ -113,6 +139,9 @@ class MoE(nn.Module):
                                requires_grad=False)
         self.wo = nn.Parameter(torch.randn((held, f, d), **init)
                                .mul_(1.0 / math.sqrt(f)), requires_grad=False)
+        n_shared = getattr(cfg, "n_shared_experts", 0)
+        self.shared = MLP.MLP(cfg, gen, device=device, d_ff=n_shared * f) \
+            if n_shared else None
 
 
 def forward(p: MoE, cfg: ModelConfig, x: torch.Tensor,
@@ -120,6 +149,16 @@ def forward(p: MoE, cfg: ModelConfig, x: torch.Tensor,
     """Returns (output (B, S, d), the aux load-balance loss (f32 scalar)).
     ``cfg.moe_impl`` selects the semantics; decode steps take ``sort``
     whatever it says, as in the reference."""
+    out, aux = _routed(p, cfg, x, decode)
+    if p.shared is not None:
+        with tracing.span("moe.shared"):
+            out = out + MLP.forward(p.shared, cfg, x)
+    return out, aux
+
+
+def _routed(p: MoE, cfg: ModelConfig, x: torch.Tensor, decode: bool
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The routed experts' part of :func:`forward`."""
     impl = cfg.moe_impl
     if decode and impl == "einsum":
         impl = "sort"
@@ -158,18 +197,51 @@ def _router(p: MoE, cfg: ModelConfig, xt: torch.Tensor, w=None):
     renormalized, top-k experts, aux).  xt: (..., d); ``w`` the router's
     weight as a local tensor (default: ``p.router.w`` whole).  Ties in the
     top-k go to the lower expert, as ``jax.lax.top_k`` gives them (a
-    stable descending sort; ``torch.topk`` promises no order)."""
+    stable descending sort; ``torch.topk`` promises no order).  The
+    sigmoid router is :func:`_sigmoid_router`."""
     k, E = cfg.experts_per_token, cfg.n_experts
     logits = xt.float() @ (_whole(p.router.w) if w is None else w).float()
-    probs = torch.softmax(logits, dim=-1)
-    weights, experts = probs.sort(dim=-1, descending=True, stable=True)
-    weights, experts = weights[..., :k], experts[..., :k]
-    weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
+    if _sigmoid(cfg):
+        probs, weights, experts = _sigmoid_router(p, cfg, logits)
+    else:
+        probs = torch.softmax(logits, dim=-1)
+        weights, experts = probs.sort(dim=-1, descending=True, stable=True)
+        weights, experts = weights[..., :k], experts[..., :k]
+        weights = weights / torch.clamp(weights.sum(-1, keepdim=True),
+                                        min=1e-9)
     lead = tuple(range(experts.ndim - 1))
     # one-hot as a comparison: no check that reads the ids to the host
     first = experts[..., :1] == torch.arange(E, device=experts.device)
     aux = E * torch.sum(first.float().mean(lead) * probs.mean(lead))
     return probs, weights, experts, aux
+
+
+def _sigmoid_router(p: MoE, cfg: ModelConfig, logits: torch.Tensor):
+    """DeepSeek-V3's ``noaux_tc`` gate on the router's f32 ``logits`` (...,
+    E): (the scores normalized to sum 1, for the aux loss; the top-k
+    weights; the top-k experts, best first).  The correction bias only
+    chooses: the best ``topk_group`` groups by the sum of each group's two
+    best biased scores, then the top-k biased scores inside them (the
+    other groups' scores 0, as the published gate masks them); the
+    weights are the unbiased scores of the choice, renormalized where
+    ``norm_topk_prob`` (+1e-20), times ``routed_scaling_factor``."""
+    k, E = cfg.experts_per_token, cfg.n_experts
+    scores = torch.sigmoid(logits)
+    bias = p.router.bias
+    choice = scores + _whole(bias).float()
+    grouped = choice.unflatten(-1, (cfg.n_group, E // cfg.n_group))
+    best2 = grouped.sort(dim=-1, descending=True, stable=True)[0][..., :2]
+    groups = best2.sum(-1).sort(dim=-1, descending=True, stable=True)[1]
+    keep = torch.zeros_like(best2[..., 0], dtype=torch.bool).scatter_(
+        -1, groups[..., :cfg.topk_group], True)
+    choice = choice.masked_fill(~keep.repeat_interleave(E // cfg.n_group, -1),
+                                0.0)
+    experts = choice.sort(dim=-1, descending=True, stable=True)[1][..., :k]
+    weights = scores.gather(-1, experts)
+    if cfg.norm_topk_prob:
+        weights = weights / (weights.sum(-1, keepdim=True) + 1e-20)
+    weights = weights * cfg.routed_scaling_factor
+    return scores / scores.sum(-1, keepdim=True), weights, experts
 
 
 def _positions(experts: torch.Tensor, E: int) -> torch.Tensor:

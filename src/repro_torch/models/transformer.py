@@ -10,7 +10,9 @@ a leading axis and scans it (``convert.from_reference`` maps one onto the
 other).  Decode updates each layer's cache or recurrent state in place.
 
 Every block kind runs: ``attn``/``local`` (attention and the MLP, or the
-MoE layer when ``cfg.is_moe``), ``rglru`` (the RG-LRU block and the MLP),
+MoE layer when ``cfg.is_moe``), ``mla`` (latent attention, ``models/mla.py``,
+and the MLP in an ``MLAConfig``'s leading dense layers, the MoE layer
+after them), ``rglru`` (the RG-LRU block and the MLP),
 ``mlstm`` and ``slstm`` (with its plain gelu FFN); the audio and vision
 archs take stub-frontend features (``embed_inputs``).  An MoE model may
 hold a share of each layer's experts (``experts=``, ``models/moe.py``).
@@ -24,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import compat
 from repro_torch.models import attention as ATT
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import mlp as MLP
 from repro_torch.models import moe as MOE
 from repro_torch.models import recurrent as REC
@@ -50,17 +53,21 @@ def _ffn(p: FFN, x: torch.Tensor) -> torch.Tensor:
 class Block(nn.Module):
     """One layer of kind ``kind``, with the reference's parameter names:
     ``attn``/``local``: ``ln1``, ``attn``, ``ln2``, ``mlp`` (``moe`` for an
-    MoE config, holding ``experts``); ``rglru``: ``ln1``, ``rec``, ``ln2``,
-    ``mlp``; ``mlstm``: ``ln1``, ``cell``; ``slstm``: ``ln1``, ``cell``,
-    ``ln2``, ``ffn``."""
+    MoE config, holding ``experts``); ``mla``: the same with ``attn`` an
+    ``MLA``, and ``mlp`` (``d_ff_dense`` wide) where layer ``index`` is one
+    of the config's leading dense layers; ``rglru``: ``ln1``, ``rec``,
+    ``ln2``, ``mlp``; ``mlstm``: ``ln1``, ``cell``; ``slstm``: ``ln1``,
+    ``cell``, ``ln2``, ``ffn``."""
 
     def __init__(self, cfg: ModelConfig, kind: str, gen=None, *, device=None,
-                 experts: tuple[int, int] | None = None):
+                 experts: tuple[int, int] | None = None, index: int = 0):
         super().__init__()
         dev = dict(device=device)
         self.ln1 = L.Norm(cfg.d_model, cfg.norm, **dev)
         if kind in ("attn", "local"):
             self.attn = ATT.Attention(cfg, gen, **dev)
+        elif kind == "mla":
+            self.attn = MLA.MLA(cfg, gen, **dev)
         elif kind == "rglru":
             self.rec = REC.Recurrent(cfg, gen, **dev)
         elif kind == "mlstm":
@@ -75,7 +82,10 @@ class Block(nn.Module):
         else:
             raise ValueError(kind)
         self.ln2 = L.Norm(cfg.d_model, cfg.norm, **dev)
-        if cfg.is_moe and kind in ("attn", "local"):  # as the reference
+        if kind == "mla" and cfg.is_dense_layer(index):
+            self.mlp = MLP.MLP(cfg, gen, d_ff=cfg.d_ff_dense, **dev)
+        elif cfg.is_moe and kind in ("attn", "local", "mla"):
+            # as the reference
             self.moe = MOE.MoE(cfg, gen, experts=experts, **dev)
         else:
             self.mlp = MLP.MLP(cfg, gen, **dev)
@@ -101,8 +111,8 @@ class Transformer(nn.Module):
                                              cfg.d_model, **init)) \
             if cfg.frontend else None
         self.layers = nn.ModuleList(
-            Block(cfg, kind, gen, device=device, experts=experts)
-            for kind in cfg.block_kinds)
+            Block(cfg, kind, gen, device=device, experts=experts, index=i)
+            for i, kind in enumerate(cfg.block_kinds))
         self.ln_f = L.Norm(cfg.d_model, cfg.norm, device=device)
         self.head = None if cfg.tie_embeddings else L.Dense(
             L.dense_init(gen, cfg.d_model, cfg.padded_vocab, **init))
@@ -128,8 +138,8 @@ def _mlp(p: Block, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 def _attn_ffn(p: Block, cfg: ModelConfig, x: torch.Tensor,
               decode: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
     """An attention block's branch after attention: x + MLP (aux None), or
-    x + MoE and its aux loss for an MoE config."""
-    if not cfg.is_moe:
+    x + MoE and its aux loss where the block holds an MoE layer."""
+    if not hasattr(p, "moe"):
         return _mlp(p, cfg, x), None
     m, aux = MOE.forward(p.moe, cfg, L.apply_norm(p.ln2, x, cfg.norm),
                          decode=decode)
@@ -142,6 +152,10 @@ def _attention(p: Block, cfg: ModelConfig, kind: str, h: torch.Tensor, rot,
     sequence, or one decode step into ``cache`` at ``index``."""
     local = kind == "local"
     with tracing.span("attention"):
+        if kind == "mla":
+            if cache is None:
+                return MLA.forward(p.attn, cfg, h, rot)
+            return MLA.decode_step(p.attn, cfg, h, cache, index, rot)
         if cache is None:
             return ATT.forward(p.attn, cfg, h, local=local, rot=rot)
         return ATT.decode_step(p.attn, cfg, h, cache, index, local=local,
@@ -156,7 +170,7 @@ def _block_forward(p: Block, cfg: ModelConfig, kind: str, x: torch.Tensor,
     gathered on entry, as the reference's blocks gather it)."""
     x = shard(x, "batch", "seq", None)
     h = L.apply_norm(p.ln1, x, cfg.norm)
-    if kind in ("attn", "local"):
+    if kind in ("attn", "local", "mla"):
         x = x + _attention(p, cfg, kind, h, rot)
         return _attn_ffn(p, cfg, x)
     if kind == "rglru":
@@ -171,7 +185,7 @@ def _block_decode(p: Block, cfg: ModelConfig, kind: str, x: torch.Tensor,
                   cache: dict, index: torch.Tensor, rot) -> torch.Tensor:
     """One layer of a decode step; ``cache`` is updated in place."""
     h = L.apply_norm(p.ln1, x, cfg.norm)
-    if kind in ("attn", "local"):
+    if kind in ("attn", "local", "mla"):
         x = x + _attention(p, cfg, kind, h, rot, cache, index)
         return _attn_ffn(p, cfg, x, decode=True)[0]
     if kind == "rglru":
@@ -185,7 +199,10 @@ def _block_decode(p: Block, cfg: ModelConfig, kind: str, x: torch.Tensor,
 def block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, *,
                 device=None) -> dict:
     """One layer's decode state: a KV cache (``attn``; a ring of
-    ``local_window`` rows for ``local``), or the recurrent state."""
+    ``local_window`` rows for ``local``), the latent cache (``mla``), or
+    the recurrent state."""
+    if kind == "mla":
+        return MLA.init_cache(cfg, batch, max_len, device=device)
     if kind in ("attn", "local"):
         return ATT.init_cache(cfg, batch, max_len, local=(kind == "local"),
                               device=device)
@@ -221,7 +238,10 @@ def embed_inputs(params: Transformer, cfg: ModelConfig, *,
 
 
 def _rotary(cfg: ModelConfig, positions: torch.Tensor):
-    """RoPE tables once a step, for a config with attention blocks."""
+    """RoPE tables once a step, for a config with attention blocks (YaRN's
+    of the rotated columns for latent attention)."""
+    if "mla" in cfg.block_kinds:
+        return MLA.rotary(cfg, positions)
     return ATT.rotary(cfg, positions) if cfg.has_attention else None
 
 

@@ -3,11 +3,12 @@ session is active.
 
 A step opens a root span (:func:`root`: ``prefill_step``, ``decode_step``)
 and the layers under it open spans of their own (:func:`span`:
-``attention``, ``mlp``, the MoE layer's ``moe.route``, ``moe.dispatch``,
-``moe.experts`` and ``moe.combine``).  One switch turns recording on: a
-profiler session.  Each root asks whether one is active (one call into
-torch, a fraction of a microsecond); when the answer turns from no to yes,
-the buffer is cleared and a new recording starts.  While it is no, or
+``attention``, inside latent attention's ``mla.project`` and
+``mla.core``, ``mlp``, the MoE layer's ``moe.route``, ``moe.dispatch``,
+``moe.experts``, ``moe.combine`` and ``moe.shared``).  One switch turns
+recording on: a profiler session.  Each root asks whether one is active
+(one call into torch, a fraction of a microsecond); when the answer turns
+from no to yes, the buffer is cleared and a new recording starts.  While it is no, or
 outside a recording root, a span is one shared object that does nothing.
 
 A recorded span keeps its name, the index of the span that opened it (its
